@@ -1,26 +1,44 @@
 #!/usr/bin/env python3
 """Smoke run of libclsph-tpu's PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--river-frames K]
 
 Phases (each prints its own numbers; any failure raises and exits
 non-zero):
 
 0. the card: ``nvidia-smi`` name and power limit, the torch device name;
-1. build the CUDA kernels from ``libclsph_tpu_torch/csrc/`` (seconds);
-2. each kernel against its plain PyTorch version on main-path tables
-   built by the port's candidate machinery: the 65,536-particle cube
-   lattice (``simulation_properties/bench64k.json``), the same after 10
-   substeps of fall, and the 1M cube lattice. Density rtol 1e-5, hit
-   counts equal, acceleration atol 1e-5 * max|a|; kernel and plain times
-   (CUDA events, median of 7);
+1. build the CUDA kernels from ``libclsph_tpu_torch/csrc/`` (one
+   ``nvcc`` per source, all at once; seconds);
+2. each kernel against its plain PyTorch version on tables built by the
+   port's candidate machinery: the 65,536-particle cube lattice
+   (``simulation_properties/bench64k.json``), the same after 10
+   substeps of fall, and the 1M cube lattice; the main path's tables
+   for ``density_c16_hit8`` / ``forces_q32_c8``, the q-granular tables
+   (the autotune's downgraded config) for ``density_c32`` at 4 and 1
+   hit rows per block, ``forces_q32_c32`` and ``forces_q128_c32``, and
+   every kernel through the query-block map on a tier-2 pool (every 8th
+   block of the 1M lattice). Density rtol 1e-5, hit counts equal,
+   acceleration atol 1e-5 * max|a|; kernel and plain times (CUDA events,
+   median of 7) at 1M;
 3. the CLI main path: ``sph-torch water default cube`` at 64,000
    particles for 3 frames, checking the .geo frames, that no particle
    left the fluid's column above the cube obstacle, and the densities;
-4. the 1M-particle cube dam-break the way ``bench.py`` runs it: warm-up
-   with the engine's capacity growth, then 20 timed substeps that must
-   raise no flag (a flagged window grows the table and is re-run, as the
-   engine re-runs a frame); ms/substep and particle-steps/s.
+4. the 1M-particle cube dam-break the way ``bench.py`` runs it (no
+   pretune): warm-up with the engine's capacity growth, then 20 timed
+   substeps that must raise no flag (a flagged window grows the table
+   and is re-run, as the engine re-runs a frame); ms/substep and
+   particle-steps/s;
+5. two-tier equivalence at the 1M cube, for the main and the q-granular
+   config: a single-tier substep at full subblock capacity against a
+   two-tier substep whose base capacity lies below the heavy blocks;
+   density equal (the kernels sum each list in a fixed order),
+   acceleration atol 1e-5 * max|a|; ``forces_q128_c32`` must launch;
+6. the river: 1,048,576 water particles (mass 0.025) stacked on
+   ``scenes/river.obj`` through ``SPHSimulation(pretune="auto")`` for 3
+   frames with ``.geo`` export; prints the probe statistics, the config
+   the pretune chose and s/frame; the q-granular config must be taken
+   and ``density_c32`` / ``forces_q32_c32`` must launch during the
+   frames.
 
 The line before last holds the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; refuses to run
@@ -45,6 +63,24 @@ N_BENCH = 1_000_000
 TIMED_STEPS = 20
 WARMUP_STEPS = 3
 REPS = 7
+N_RIVER = 1_048_576
+RIVER_MASS = 0.025  # keeps the river's free surface below its walls
+RIVER_FRAMES = 3
+RIVER_FRAC = (0.92, 0.8)  # lattice footprint, fraction of the scene's x/z extent
+CLEARANCE = 0.04  # gap between the support surface and the first layer
+Q_PATH = dict(density_sub16=False, force_sub16=False, force_sub8=False)
+KERNELS = {  # name: (source, TPU kernel it replaces)
+    "density_c16_hit8": ("libclsph_tpu_torch/csrc/density_c16_hit8.cu",
+                         "libclsph_tpu/ops/pallas/neighbor_nl.py:394"),
+    "forces_q32_c8": ("libclsph_tpu_torch/csrc/forces_q32_c8.cu",
+                      "libclsph_tpu/ops/pallas/neighbor_nl.py:1768"),
+    "density_c32": ("libclsph_tpu_torch/csrc/density_c32.cu",
+                    "libclsph_tpu/ops/pallas/neighbor_nl.py:394"),
+    "forces_q32_c32": ("libclsph_tpu_torch/csrc/forces_c32.cu",
+                       "libclsph_tpu/ops/pallas/neighbor_nl.py:1083"),
+    "forces_q128_c32": ("libclsph_tpu_torch/csrc/forces_c32.cu",
+                        "libclsph_tpu/ops/pallas/neighbor_nl.py:730"),
+}
 
 
 def log(msg: str) -> None:
@@ -162,6 +198,160 @@ def compare_kernels(tag, t, stats, time_it):
     log(line)
 
 
+def kernel_fn(name):
+    from libclsph_tpu_torch.ops.kernels import density, forces
+
+    return getattr(density if name.startswith("density") else forces, name)
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        kernel_fn(name).launches = 0
+
+
+def read_launches() -> dict:
+    return {name: kernel_fn(name).launches for name in KERNELS}
+
+
+def record_err(stats, name, err) -> None:
+    s = stats[name]
+    s["max_abs_err"] = max(s.get("max_abs_err", 0.0), err)
+
+
+def check_accel(tag, name, a, a0, stats) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    aerr = float((a - a0).abs().max())
+    amax = float(a0.abs().max())
+    if not aerr <= 1e-5 * amax:
+        raise RuntimeError(f"{tag} {name}: accel err {aerr:.3g} > 1e-5 * {amax:.3g}")
+    record_err(stats, name, aerr)
+    return aerr
+
+
+def check_density(tag, name, d, hits, d0, hits0, stats) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    drel = float(((d - d0).abs() / d0.abs()).max())
+    hit_diff = int((hits != hits0).sum())
+    if drel > 1e-5 or hit_diff or hits.shape != hits0.shape:
+        raise RuntimeError(f"{tag} {name}: density rel err {drel:.3g}, "
+                           f"{hit_diff} hit counts differ")
+    record_err(stats, name, float((d - d0).abs().max()))
+    return drel
+
+
+def q_path_tables(state, params, engine):
+    """The q-granular kernels' inputs for ``state`` (the tables the
+    autotune's c16 -> q downgrade runs on): 32-particle subblocks, hits
+    per subgroup and per block from the plain density, the q32 and q128
+    force lists (capacities grown by the engine's rules until nothing
+    is truncated) and the force pack."""
+    import torch
+
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.ops.interactions import tait_pressure
+    from libclsph_tpu_torch.ops.kernels import density, forces
+
+    st, real, _ = step.pad_and_sort(state, params, True)
+    for _ in range(6):
+        cfg = engine.step_config
+        cand_sub, count_sub, flags = step.build_candidates(st, real, params, cfg)
+        pos4 = density.pos_pack(st.position, real)
+        dens, hits4 = density.density_c32_torch(pos4, cand_sub, count_sub, params, groups=4)
+        _, hits1 = density.density_c32_torch(pos4, cand_sub, count_sub, params, groups=1)
+        cand32, count32, f32 = step.hit_lists(cand_sub, hits4, cfg, 4)
+        cand128, count128, f128 = step.hit_lists(cand_sub, hits1, cfg, 1)
+        if not engine._needs_rerun(flags | f32 | f128):
+            break
+    else:
+        raise RuntimeError("capacity growth did not converge on the q-granular tables")
+    pres = torch.where(real, tait_pressure(dens, params), 0.0)
+    f8 = forces.force_pack(st.position, st.velocity, dens, pres, real,
+                           params.particle_mass)
+    return dict(density_args=(pos4, cand_sub, count_sub, params), dens_plain=dens,
+                hits4=hits4, hits1=hits1, f8=f8, real=real,
+                q32=(cand32, count32), q128=(cand128, count128), params=params)
+
+
+def compare_q_kernels(tag, t, stats, time_it):
+    """The q-granular kernels against their plain versions on one set of
+    tables."""
+    from libclsph_tpu_torch.ops.kernels import density, forces
+
+    d0 = t["dens_plain"]
+    line = f"phase 2 {tag} (q-granular tables):"
+    for groups in (4, 1):
+        d, hits = density.density_c32(*t["density_args"], groups=groups)
+        drel = check_density(tag, "density_c32", d, hits, d0, t[f"hits{groups}"], stats)
+        line += (f" density_c32 G={groups} rel err {drel:.3g}, hits equal "
+                 f"({hits.numel()} counts);")
+    fargs = (t["f8"], d0, t["real"])
+    for name, lists in (("forces_q32_c32", "q32"), ("forces_q128_c32", "q128")):
+        args = fargs + t[lists] + (t["params"],)
+        a = kernel_fn(name)(*args)
+        aerr = check_accel(tag, name, a, getattr(forces, name + "_torch")(*args), stats)
+        line += f" {name} accel err {aerr:.3g};"
+    if time_it:
+        timed = [
+            ("density_c32", lambda: density.density_c32(*t["density_args"], groups=4),
+             lambda: density.density_c32_torch(*t["density_args"], groups=4)),
+            ("density_c32 G=1", lambda: density.density_c32(*t["density_args"], groups=1),
+             lambda: density.density_c32_torch(*t["density_args"], groups=1)),
+        ]
+        for name, lists in (("forces_q32_c32", "q32"), ("forces_q128_c32", "q128")):
+            args = fargs + t[lists] + (t["params"],)
+            timed.append((name, lambda a=args, n=name: kernel_fn(n)(*a),
+                          lambda a=args, n=name: getattr(forces, n + "_torch")(*a)))
+        for name, fn, plain in timed:
+            ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
+            if name in stats:
+                stats[name].setdefault("times", {})[tag] = (ms, plain_ms)
+            line += f" {name} {ms:.4f} ms (plain {plain_ms:.4f} ms);"
+    log(line)
+
+
+def compare_qblock(tag, t_main, t_q, stats):
+    """Every kernel through the query-block map on a tier-2 pool (every
+    8th block, in reverse order) against its plain version."""
+    import torch
+
+    from libclsph_tpu_torch.ops.kernels import density, forces
+
+    pos4, cand16, count16, params = t_main["density_args"]
+    nb = cand16.shape[0]
+    pool = torch.arange(0, nb, 8, dtype=torch.int32, device=pos4.device).flip(0)
+    li = pool.long()
+
+    def rows(a, lists):
+        r = (li[:, None] * lists + torch.arange(lists, device=a.device)).reshape(-1)
+        return a[r].contiguous()
+
+    cases = [("density_c16_hit8", (pos4, rows(cand16, 1), rows(count16, 1), params), {})]
+    _, cand32, count32, _ = t_q["density_args"]
+    for groups in (4, 1):
+        cases.append(("density_c32", (pos4, rows(cand32, 1), rows(count32, 1), params),
+                      dict(groups=groups)))
+    for name, args, kw in cases:
+        d, hits = kernel_fn(name)(*args, qblock=pool, **kw)
+        d0, hits0 = getattr(density, name + "_torch")(*args, qblock=pool, **kw)
+        check_density(tag, name, d, hits, d0, hits0, stats)
+    f8m, densm, realm, cand8, count8, _ = t_main["force_args"]
+    fcases = [("forces_q32_c8", (f8m, densm, realm, rows(cand8, 4), rows(count8, 4))),
+              ("forces_q32_c32", (t_q["f8"], t_q["dens_plain"], t_q["real"],
+                                  rows(t_q["q32"][0], 4), rows(t_q["q32"][1], 4))),
+              ("forces_q128_c32", (t_q["f8"], t_q["dens_plain"], t_q["real"],
+                                   rows(t_q["q128"][0], 1), rows(t_q["q128"][1], 1)))]
+    for name, args in fcases:
+        a = kernel_fn(name)(*args, params, qblock=pool)
+        check_accel(tag, name, a, getattr(forces, name + "_torch")(*args, params,
+                                                                   qblock=pool), stats)
+    log(f"phase 2 {tag}: all five kernels through the query-block map on a pool of "
+        f"{len(li)} of {nb} blocks match their plain versions")
+
+
 def run_substeps(state, dt, params, scene, cfg, steps):
     """bench.py's schedule: sort and rebuild every sort_interval /
     cand_interval substeps, reuse the carried tables in between.
@@ -198,6 +388,260 @@ def run_with_growth(state, params, scene, engine, steps):
             return st, dt
         log(f"  flags {int(flags)} -> grown to {engine.step_config}")
     raise RuntimeError("capacity growth did not converge")
+
+
+def phase5_two_tier(state, params, scene):
+    """A single-tier substep at full subblock capacity against a two-tier
+    one whose base capacity lies below the heavy blocks, for the main and
+    the q-granular config, on ``state``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.ops.kernels import forces
+
+    dt = torch.tensor(params.max_dt, dtype=torch.float32, device=state.device)
+    st, real, _ = step.pad_and_sort(state, params, True)
+    for name, base in (("main", dict(max_candidates_hit8=192)),
+                       ("q-granular", dict(Q_PATH, max_candidates_hit=256))):
+        cfg = step.StepConfig(**base)
+        wide = dataclasses.replace(cfg, max_candidates_sub=1 << 14)
+        counts = step.build_candidates(st, real, params, wide)[1].cpu().numpy()
+        c1 = int(np.percentile(counts, 75))
+        heavy = int((counts > c1).sum())
+        if not heavy:
+            raise RuntimeError(f"phase 5 {name}: no block above the base capacity {c1}")
+        mult = 2
+        while c1 * mult < counts.max():
+            mult *= 2
+        nb = len(counts)
+        frac = next(k for k in (8, 4, 2, 1) if -(-nb // k) >= heavy)
+        single = dataclasses.replace(cfg, max_candidates_sub=c1 * mult)
+        two = dataclasses.replace(cfg, max_candidates_sub=c1, tier2_frac=frac,
+                                  tier2_mult=mult)
+        q128_before = forces.forces_q128_c32.launches
+        s1, _, f1, _ = step.substep(state, dt, params, scene, single)
+        s2, _, f2, _ = step.substep(state, dt, params, scene, two)
+        torch.cuda.synchronize()
+        if int(f1) or int(f2):
+            raise RuntimeError(f"phase 5 {name}: flags {int(f1)} / {int(f2)}")
+        same = torch.equal(s1.density, s2.density)
+        drel = float(((s1.density - s2.density).abs() / s1.density.abs()).max())
+        aerr = float((s1.acceleration - s2.acceleration).abs().max())
+        amax = float(s1.acceleration.abs().max())
+        if drel > 1e-6 or not aerr <= 1e-5 * amax:
+            raise RuntimeError(f"phase 5 {name}: density rel err {drel:.3g}, "
+                               f"accel err {aerr:.3g} (max|a| {amax:.3g})")
+        q128 = forces.forces_q128_c32.launches - q128_before
+        if name == "q-granular" and q128 <= 0:
+            raise RuntimeError("phase 5: forces_q128_c32 did not launch in tier 2")
+        hits = two_tier_hits(st, real, params, two)
+        log(f"phase 5 two-tier {name}: {nb} blocks, base cap {c1}, {heavy} heavy blocks "
+            f"in a pool of {-(-nb // frac)} (tier2_frac {frac}, tier2_mult {mult}); "
+            f"density {'bitwise equal' if same else f'rel err {drel:.3g}'} to the "
+            f"single-tier run at cap {c1 * mult}; accel err {aerr:.3g} (max|a| "
+            f"{amax:.6g}); forces_q128_c32 launches {q128}; {hits}")
+
+
+def two_tier_hits(st, real, params, cfg):
+    """The hit counts of both tiers (route_overflow's split of the
+    tier-2-width table, tier 2 through the query-block map) against the
+    single-tier kernel over the whole table: tier-1 rows equal its rows
+    on their first c1 slots, routed rows are zero in tier 1, and tier 2
+    equals its routed rows (one hit row per block on the q path's tier
+    2, so the single run takes that shape there too)."""
+    import torch
+
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.ops import tiles
+    from libclsph_tpu_torch.ops.kernels import density
+
+    saved = read_launches()  # launches made to compare do not count
+    cand, count, _ = step.build_candidates(st, real, params, cfg)
+    pos4 = density.pos_pack(st.position, real)
+    nb, c1 = cand.shape[0], cfg.max_candidates_sub
+    idx, used, count1, _ = tiles.route_overflow(count, c1, -(-nb // cfg.tier2_frac))
+    li = idx.long()
+    cand2 = cand[li].contiguous()
+    count2 = torch.where(used, count[li], 0).to(torch.int32)
+    if cfg.density_sub16:
+        run = lambda *a, g, **k: density.density_c16_hit8(*a, params, **k)[1]  # noqa: E731
+        g1 = g2 = 4
+        width = 2 * c1  # two half-slot columns a slot
+    else:
+        run = lambda *a, g, **k: density.density_c32(*a, params, groups=g, **k)[1]  # noqa: E731
+        g1, g2 = (4 if cfg.force_query_rows == 32 else 1), 1
+        width = c1
+    whole1 = run(pos4, cand, count, g=g1).reshape(nb, g1, -1)
+    whole2 = run(pos4, cand, count, g=g2).reshape(nb, g2, -1)
+    tier1 = run(pos4, cand[:, :c1].contiguous(), count1, g=g1).reshape(nb, g1, -1)
+    tier2 = run(pos4, cand2, count2, g=g2, qblock=idx).reshape(len(li), g2, -1)
+    heavy = count > c1
+    ok1 = torch.equal(tier1[~heavy], whole1[~heavy][..., :width]) and not bool(
+        tier1[heavy].any())
+    ok2 = torch.equal(tier2[used], whole2[li][used])
+    for name, n in saved.items():
+        kernel_fn(name).launches = n
+    if not (ok1 and ok2):
+        raise RuntimeError(f"phase 5: two-tier hit counts differ (tier 1 {ok1}, tier 2 {ok2})")
+    return (f"hits equal: tier 1 on {int((~heavy).sum())} rows, tier 2 on "
+            f"{int(used.sum())} routed rows")
+
+
+def load_tris(path):
+    import numpy as np
+
+    vs, fs = [], []
+    for line in open(path):
+        if line.startswith("v "):
+            vs.append([float(x) for x in line.split()[1:4]])
+        elif line.startswith("f "):
+            fs.append([int(t.split("/")[0]) - 1 for t in line.split()[1:4]])
+    v = np.array(vs, np.float32)
+    return v, v[np.array(fs, np.int32)]  # (F, 3, 3)
+
+
+def support_height(tris, xs, zs, default):
+    """Highest mesh surface under each (x, z) column (vertical ray-cast,
+    vectorised over columns); ``default`` where nothing is hit."""
+    import numpy as np
+
+    a, b, c = tris[:, 0], tris[:, 1], tris[:, 2]
+    v0 = (b - a)[:, [0, 2]]
+    v1 = (c - a)[:, [0, 2]]
+    den = v0[:, 0] * v1[:, 1] - v0[:, 1] * v1[:, 0]
+    ok_f = np.abs(den) > 1e-9  # skip vertical faces
+    sup = np.full((len(xs),), default, np.float32)
+    p = np.stack([xs, zs], axis=1)
+    for f in np.nonzero(ok_f)[0]:
+        d = p - a[f, [0, 2]]
+        u = (d[:, 0] * v1[f, 1] - d[:, 1] * v1[f, 0]) / den[f]
+        w = (v0[f, 0] * d[:, 1] - v0[f, 1] * d[:, 0]) / den[f]
+        inside = (u >= -1e-6) & (w >= -1e-6) & (u + w <= 1 + 1e-6)
+        y = a[f, 1] + u * (b[f, 1] - a[f, 1]) + w * (c[f, 1] - a[f, 1])
+        sup = np.where(inside & (y > sup), y, sup)
+    return sup
+
+
+def terrain_lattice(n, volume, scene_path, frac):
+    """n particles at rest spacing stacked on the scene's support surface
+    (experiments/scene_run.py): per-(x, z) column base from a vertical
+    ray-cast, filled bottom-up layer by layer, so no particle starts
+    inside the geometry."""
+    import numpy as np
+
+    dx = float(np.cbrt(volume / n))  # rest spacing
+    verts, tris = load_tris(scene_path)
+    lo, hi = verts.min(0), verts.max(0)
+    fx, fz = frac
+    cx, cz = (lo[0] + hi[0]) / 2, (lo[2] + hi[2]) / 2
+    x0, x1 = cx - fx * (hi[0] - lo[0]) / 2, cx + fx * (hi[0] - lo[0]) / 2
+    z0, z1 = cz - fz * (hi[2] - lo[2]) / 2, cz + fz * (hi[2] - lo[2]) / 2
+    nx = max(1, int((x1 - x0) / dx))
+    nz = max(1, int((z1 - z0) / dx))
+    cols_x = np.repeat(x0 + np.arange(nx) * dx, nz)
+    cols_z = np.tile(z0 + np.arange(nz) * dx, nx)
+    base = support_height(tris, cols_x, cols_z, lo[1]) + CLEARANCE
+    layers = -(-n // (nx * nz))
+    y = base[None, :] + np.arange(layers)[:, None] * dx
+    x = np.broadcast_to(cols_x, y.shape)
+    z = np.broadcast_to(cols_z, y.shape)
+    return np.stack([x, y, z], axis=-1).reshape(-1, 3)[:n].astype(np.float32)
+
+
+def phase6_river(tmp, dev, frames):
+    """1M water particles on scenes/river.obj through the engine with the
+    pretune on, ``frames`` frames with .geo export. Returns the launch
+    counts of the frames."""
+    import numpy as np
+    import torch
+
+    from libclsph_tpu_torch.core.params import derive_parameters
+    from libclsph_tpu_torch.core.state import ParticleState
+    from libclsph_tpu_torch.engine import pretune, step
+    from libclsph_tpu_torch.engine.simulation import SPHSimulation
+    from libclsph_tpu_torch.io.houdini import HoudiniFileSaver
+    from libclsph_tpu_torch.models.presets import FLUIDS, simulation_config
+
+    fluid = dict(FLUIDS["water"])
+    # half a frame short of ``frames`` frames, so float accumulation of
+    # the frame time cannot add one
+    p = derive_parameters(fluid, simulation_config(
+        particles_count=N_RIVER, particle_mass=RIVER_MASS,
+        simulation_time=(frames - 0.5) / 60.0))
+    sim = SPHSimulation(step.StepConfig(), device=dev, pretune="auto")
+    sim.parameters = p
+    sim.precomputed_terms = p.precomputed()
+    sim.initial_volume = p.initial_volume
+    sim.checkpoint_path = os.path.join(tmp, "no_checkpoint.npz")
+    t0 = time.perf_counter()
+    sim.load_scene("river.obj", scenes_dir=os.path.join(ROOT, "scenes"))
+    pos = terrain_lattice(N_RIVER, p.initial_volume, os.path.join(ROOT, "scenes", "river.obj"),
+                          RIVER_FRAC)
+    state0 = ParticleState.zeros(N_RIVER, dev).replace(position=torch.as_tensor(pos, device=dev))
+    sim.init_particles = lambda: state0
+    saver = HoudiniFileSaver(os.path.join(tmp, "river_"))
+    sim.save_frame = lambda arrays, params: saver.write_frame_to_file(arrays, params)
+    setup_s = time.perf_counter() - t0
+
+    frame_s, configs, pretune_s = [], [], []
+    run_frame = sim._run_frame
+
+    def timed_frame(state, dt):
+        configs.append(sim.step_config)
+        t = time.perf_counter()
+        out = run_frame(state, dt)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t)
+        return out
+
+    probe = pretune.pretune_config
+
+    def timed_probe(*args, **kw):
+        t = time.perf_counter()
+        out = probe(*args, **kw)
+        torch.cuda.synchronize()
+        pretune_s.append(time.perf_counter() - t)
+        return out
+
+    sim._run_frame = timed_frame
+    pretune.pretune_config = timed_probe
+    reset_launches()
+    try:
+        total = sim.simulate()
+    finally:
+        pretune.pretune_config = probe
+    launches = read_launches()
+    chosen, final = configs[0], sim.step_config
+    st = sim.state
+    rho0 = fluid["fluid_density"]
+    med = float(torch.median(st.density))
+    names = sorted(os.listdir(os.path.join(tmp, "river_frames")))
+    log(f"phase 6 river: {N_RIVER} particles (mass {RIVER_MASS}) on river.obj, "
+        f"lattice y [{pos[:, 1].min():.3f}, {pos[:, 1].max():.3f}], scene and lattice "
+        f"{setup_s:.2f} s; pretune {'ran' if pretune_s else 'did not run'} "
+        f"({pretune_s[0] if pretune_s else 0.0:.3f} s), probe {sim.pretune_stats}")
+    log(f"  config chosen by the pretune: {chosen}")
+    if final != chosen:
+        log(f"  grown by the autotune during the frames to: {final}")
+    log(f"  {len(frame_s)} frames, s/frame {[round(x, 4) for x in frame_s]} "
+        f"(median {statistics.median(frame_s):.4f}, mean {statistics.mean(frame_s):.4f}); "
+        f"simulate() {total:.2f} s incl. DF bake, pretune and export; "
+        f"{len(names)} .geo frames; density median {med:.2f}; launches {launches}")
+    if len(frame_s) != frames or len(names) != frames + 1:
+        raise RuntimeError(f"river: {len(frame_s)} frames run, {len(names)} written")
+    if chosen.density_sub16 and final.density_sub16:
+        raise RuntimeError("river: the q-granular config was not taken")
+    if launches["density_c32"] <= 0 or launches["forces_q32_c32"] <= 0:
+        raise RuntimeError(f"river: q-granular kernels not launched: {launches}")
+    if not (torch.isfinite(st.position).all() and torch.isfinite(st.density).all()
+            and torch.isfinite(st.velocity).all()):
+        raise RuntimeError("river: non-finite state")
+    if not 0.5 * rho0 < med < 2.0 * rho0:
+        raise RuntimeError(f"river: median density {med} outside 0.5-2 x {rho0}")
+    return launches
 
 
 def phase3_cli(tmp):
@@ -266,6 +710,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="write a torch.profiler table of four 1M substeps to DIR")
+    ap.add_argument("--river-frames", type=int, default=RIVER_FRAMES,
+                    help="frames of the river run (phase 6)")
     args = ap.parse_args(argv)
 
     import torch
@@ -297,30 +743,38 @@ def main(argv=None) -> int:
     log(f"phase 1 build: {'compiled' if fresh else 'found'} "
         f"{os.path.relpath(lib_path, ROOT)} in {time.perf_counter() - t0:.2f} s")
     for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
 
     # phase 2
-    stats = {"density_c16_hit8": {}, "forces_q32_c8": {}}
+    stats = {name: {} for name in KERNELS}
     cfg = step.StepConfig()
+    qcfg = step.StepConfig(**Q_PATH)
     p64 = water_params(65536)
     scene64 = collisions.build_device_scene(
         Scene.load("cube.obj", p64.h * 2.0, scenes_dir=os.path.join(ROOT, "scenes")), dev)
     s64 = init_state(p64, dev)
-    engine64 = SPHSimulation(cfg, device=dev)  # the engine's capacity growth
+    engine64 = SPHSimulation(cfg, device=dev, pretune=False)  # the engine's growth
+    q64 = SPHSimulation(qcfg, device=dev, pretune=False)
     compare_kernels("64k lattice", main_path_tables(s64, p64, engine64), stats, True)
+    compare_q_kernels("64k lattice", q_path_tables(s64, p64, q64), stats, True)
     s64, _ = run_with_growth(s64, p64, scene64, engine64, 10)
     compare_kernels("64k after 10 substeps", main_path_tables(s64, p64, engine64),
                     stats, True)
+    compare_q_kernels("64k after 10 substeps", q_path_tables(s64, p64, q64), stats, True)
     p1m = water_params(N_BENCH)
     s1m = init_state(p1m, dev)
-    engine = SPHSimulation(cfg, device=dev)
-    compare_kernels("1M lattice", main_path_tables(s1m, p1m, engine), stats, True)
-    del s64
+    engine = SPHSimulation(cfg, device=dev, pretune=False)
+    t_main = main_path_tables(s1m, p1m, engine)
+    compare_kernels("1M lattice", t_main, stats, True)
+    t_q = q_path_tables(s1m, p1m, SPHSimulation(qcfg, device=dev, pretune=False))
+    compare_q_kernels("1M lattice", t_q, stats, True)
+    compare_qblock("1M lattice", t_main, t_q, stats)
+    del s64, t_main, t_q
+    torch.cuda.empty_cache()
 
     # phases 3 and 4 drive the main path; count the kernels' launches there
-    density.density_c16_hit8.launches = 0
-    forces.forces_q32_c8.launches = 0
+    reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         phase3_cli(tmp)
     cli_launches = (density.density_c16_hit8.launches, forces.forces_q32_c8.launches)
@@ -362,6 +816,7 @@ def main(argv=None) -> int:
         f"{ms:.3f} ms/substep, {N_BENCH * TIMED_STEPS / elapsed:.6g} particle-steps/s, "
         f"timed_flags 0, final dt {float(dt):.6g}, config {engine.step_config}; "
         f"card {card}")
+    launches = read_launches()
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -375,18 +830,22 @@ def main(argv=None) -> int:
             f.write(f"card {card}\n{table}\n")
         log(f"profile: {os.path.join(args.profile, 'profile_1m.txt')}")
 
-    launches = {
-        "density_c16_hit8": density.density_c16_hit8.launches,
-        "forces_q32_c8": forces.forces_q32_c8.launches,
-    }
-    sources = {
-        "density_c16_hit8": ("libclsph_tpu_torch/csrc/density_c16_hit8.cu",
-                             "libclsph_tpu/ops/pallas/neighbor_nl.py:394"),
-        "forces_q32_c8": ("libclsph_tpu_torch/csrc/forces_q32_c8.cu",
-                          "libclsph_tpu/ops/pallas/neighbor_nl.py:1768"),
-    }
+    # phases 5 and 6 drive the deep-column path: two-tier routing and the
+    # q-granular tables; count the q-granular kernels' launches there
+    reset_launches()
+    phase5_two_tier(st, p1m, scene1m)
+    deep = read_launches()
+    del st, s1m
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        river = phase6_river(tmp, dev, args.river_frames)
+    for name in ("density_c32", "forces_q32_c32", "forces_q128_c32"):
+        launches[name] = deep[name] + river[name]
+        if launches[name] <= 0:
+            raise RuntimeError(f"{name} did not launch on the deep-column path")
+
     record = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces) in KERNELS.items():
         ms_k, ms_p = stats[name]["times"]["1M lattice"]
         record.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                            launches=launches[name],

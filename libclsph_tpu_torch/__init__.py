@@ -1,4 +1,5 @@
-"""libclsph-tpu's PyTorch port: the SPH main path on one NVIDIA GPU.
+"""libclsph-tpu's PyTorch port: the SPH main path and the deep-column
+path (pretune, two-tier routing, q-granular tables) on one NVIDIA GPU.
 
 A second package beside ``libclsph_tpu`` (the JAX reference, which this
 package never imports). Plain tensor code is PyTorch; the density and

@@ -9,14 +9,17 @@ Same four positional arguments and exit codes as
 resolving ``fluid_properties/<fluid>.json``,
 ``simulation_properties/<sim>.json`` and ``scenes/<scene>``; it prints
 the parameter table, writes Houdini frames (and the checkpoint when the
-config asks for it) and times the run. Capacity and cadence defaults
-come from :class:`engine.step.StepConfig`. Exit codes: 0 done, -1 bad
-configuration or scene, 1 refused checkpoint or failed run.
+config asks for it) and times the run. Capacity, table and cadence
+defaults come from :class:`engine.step.StepConfig`; a combination the
+port does not run exits -1 with ``StepConfig``'s message. Exit codes: 0
+done, -1 bad configuration or scene, 1 refused checkpoint or failed
+run.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
@@ -45,7 +48,34 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-candidates-sub", type=int,
                     default=_DEFAULTS.max_candidates_sub)
     ap.add_argument("--max-candidates-hit8", type=int,
-                    default=_DEFAULTS.max_candidates_hit8)
+                    default=_DEFAULTS.max_candidates_hit8,
+                    help="per-subgroup capacity of the 8-wide force pass")
+    ap.add_argument("--max-candidates-hit", type=int,
+                    default=_DEFAULTS.max_candidates_hit,
+                    help="capacity of the q-granular force pass (per block at "
+                    "--force-query-rows 128, half of it per subgroup at 32)")
+    ap.add_argument("--max-candidates-hit16", type=int,
+                    default=_DEFAULTS.max_candidates_hit16,
+                    help="16-wide hit capacity that the pretune's downgrade rule reads")
+    ap.add_argument("--force-query-rows", type=int, choices=[32, 128],
+                    default=_DEFAULTS.force_query_rows,
+                    help="query rows per force-pass list (128 needs the q-granular "
+                    "tables: --no-density-sub16 --no-force-sub16 --no-force-sub8)")
+    ap.add_argument("--density-sub16", action=argparse.BooleanOptionalAction,
+                    default=_DEFAULTS.density_sub16,
+                    help="16-wide candidate subblocks (else 32-wide)")
+    ap.add_argument("--force-sub16", action=argparse.BooleanOptionalAction,
+                    default=_DEFAULTS.force_sub16,
+                    help="16-granular force-pass tables")
+    ap.add_argument("--force-sub8", action=argparse.BooleanOptionalAction,
+                    default=_DEFAULTS.force_sub8,
+                    help="8-wide force-pass hit lists (needs --density-sub16)")
+    ap.add_argument("--tier2-frac", type=int, default=_DEFAULTS.tier2_frac,
+                    help="two-tier capacity routing: heavy blocks go to "
+                    "ceil(blocks / k) tier-2 slots (0 = off)")
+    ap.add_argument("--pretune", choices=["auto", "on", "off"], default="auto",
+                    help="init-state capacity probe before the first frame; "
+                    "auto = on for >= 200k particles")
     ap.add_argument("--sort-interval", type=int, default=_DEFAULTS.sort_interval,
                     help="re-sort particles every k-th substep")
     ap.add_argument("--cand-interval", type=int, default=_DEFAULTS.cand_interval,
@@ -62,16 +92,18 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
+    fields = {f.name for f in dataclasses.fields(StepConfig)}
+    values = {k: v for k, v in vars(args).items() if k in fields}
+    # the JAX CLI's fallback rule (cli.py:209-211): the 8-wide force
+    # pass rides the 16-granular tables, so --no-density-sub16 drops it
+    if not values["density_sub16"]:
+        values["force_sub8"] = False
     try:
-        cfg = StepConfig(
-            max_candidates=args.max_candidates,
-            max_candidates_sub=args.max_candidates_sub,
-            max_candidates_hit8=args.max_candidates_hit8,
-            sort_interval=args.sort_interval,
-            cand_interval=args.cand_interval,
-            cand_slack=args.cand_slack,
+        cfg = StepConfig(**values)
+        simulation = SPHSimulation(
+            step_config=cfg, device=args.device,
+            pretune={"auto": "auto", "on": True, "off": False}[args.pretune],
         )
-        simulation = SPHSimulation(step_config=cfg, device=args.device)
     except (ValueError, RuntimeError) as ex:
         print(ex, file=sys.stderr)
         return -1

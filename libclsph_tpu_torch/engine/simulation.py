@@ -13,6 +13,10 @@ state after a capacity or staleness flag.
   callbacks between substeps; it rebuilds the candidate tables every
   substep, because a callback may move particles.
 
+Before the first frame, runs of 200k particles or more take the
+init-state capacity probe (:mod:`engine.pretune`), so deep-column
+scenes start on the q-granular tables instead of re-running a frame.
+
 Frame export runs on a background thread, as the reference's
 ``std::thread`` (sph_simulation.cpp:370-430).
 """
@@ -38,6 +42,7 @@ from .step import (
     FLAG_CAPACITY,
     FLAG_CAPACITY_HIT,
     FLAG_CAPACITY_SUB,
+    FLAG_CAPACITY_T2,
     FLAG_GRID_DIM,
     FLAGS_ALL_CAPACITY,
     StepConfig,
@@ -46,6 +51,9 @@ from .step import (
 )
 
 MAX_CAPACITY_RETRIES = 6
+# ``pretune="auto"`` probes runs of at least this many particles
+# (simulation.py:524-527)
+PRETUNE_AUTO_MIN = 200_000
 
 log = get_logger(__name__)
 
@@ -76,16 +84,16 @@ def configure_device(device) -> torch.device:
 
 class SPHSimulation:
     def __init__(self, step_config: Optional[StepConfig] = None, device="cuda",
-                 pretune: bool = False):
+                 pretune: bool | str = "auto"):
         """``device``: 'cuda' (default) or 'cpu'; 'cuda' without a GPU
-        raises. ``pretune``: the JAX engine's init-state capacity probe is
-        not ported yet (ROADMAP.md queue 1 item 10); only False is
-        accepted."""
-        if pretune is not False:
-            raise ValueError(
-                "pretune is not ported yet (ROADMAP.md queue 1 item 10); "
-                "the port grows capacities reactively"
-            )
+        raises. ``pretune``: run the init-state capacity probe
+        (:func:`engine.pretune.pretune_config`) before the first frame;
+        ``"auto"`` (default) probes runs of PRETUNE_AUTO_MIN particles or
+        more, True/False force it."""
+        if not (pretune is True or pretune is False or pretune == "auto"):
+            raise ValueError(f"pretune must be True, False or 'auto', not {pretune!r}")
+        self.pretune = pretune
+        self.pretune_stats: Optional[dict] = None
         self.device = configure_device(device)
         self.parameters: Optional[SimulationParameters] = None
         self.precomputed_terms: Optional[PrecomputedKernelValues] = None
@@ -144,13 +152,18 @@ class SPHSimulation:
         return ckpt_mod.arrays_to_state(arrays, self.device)
 
     def _grow_capacity(self, flags: int):
-        """Capacity autotune: grow ONLY the table(s) a substep reported as
-        truncated, then the caller re-runs the frame from its saved state.
-        The port takes the JAX engine's non-tier-2 branches
-        (simulation.py:190-270): max_candidates x2, max_candidates_sub x2
-        (where the JAX engine would enable two-tier routing), and
-        max_candidates_hit8 +32 (also past 160, where the JAX engine
-        downgrades to the 16-wide kernels). Both stay physics-exact."""
+        """Capacity autotune (simulation.py:190-270): grow ONLY what a
+        substep reported as truncated, then the caller re-runs the frame
+        from its saved state.
+
+        * block cap: max_candidates x2;
+        * subblock cap: the first overflow turns two-tier routing on
+          (tier2_frac 8), later ones double tier2_mult;
+        * tier-2 pool: tier2_frac halves;
+        * hit cap: max_candidates_hit8 +32 while below 160; past that the
+          deep-column regime downgrades the main path's tables to the
+          q-granular ones (density_sub16, force_sub16, force_sub8 off);
+          on the q-granular path max_candidates_hit doubles."""
         cfg = self.step_config
         self.capacity_retries += 1
         if self.capacity_retries > MAX_CAPACITY_RETRIES:
@@ -162,9 +175,19 @@ class SPHSimulation:
         if flags & FLAG_CAPACITY:
             updates["max_candidates"] = cfg.max_candidates * 2
         if flags & FLAG_CAPACITY_SUB:
-            updates["max_candidates_sub"] = cfg.max_candidates_sub * 2
+            if cfg.tier2_frac == 0:
+                updates["tier2_frac"] = 8
+            else:
+                updates["tier2_mult"] = cfg.tier2_mult * 2
+        if flags & FLAG_CAPACITY_T2:
+            updates["tier2_frac"] = max(1, cfg.tier2_frac // 2)
         if flags & FLAG_CAPACITY_HIT:
-            updates["max_candidates_hit8"] = cfg.max_candidates_hit8 + 32
+            if cfg.force_sub8 and cfg.max_candidates_hit8 < 160:
+                updates["max_candidates_hit8"] = cfg.max_candidates_hit8 + 32
+            elif cfg.force_sub16 and cfg.force_query_rows == 32:
+                updates.update(force_sub16=False, density_sub16=False, force_sub8=False)
+            else:
+                updates["max_candidates_hit"] = cfg.max_candidates_hit * 2
         self.step_config = dataclasses.replace(cfg, **updates)
         log.warning(
             "neighbour capacity overflow - growing %s and re-running frame", updates
@@ -227,6 +250,14 @@ class SPHSimulation:
         t_start = _time.perf_counter()
         self.device_scene = collisions_ops.build_device_scene(self.current_scene, dev)
         state = self.init_particles()
+        if self.pretune is True or (
+            self.pretune == "auto" and p.particles_count >= PRETUNE_AUTO_MIN
+        ):
+            from . import pretune as pretune_mod
+
+            self.step_config, self.pretune_stats = pretune_mod.pretune_config(
+                state, p, self.step_config
+            )
         saver = AsyncSaver()
 
         timeperframe = p.frame_time

@@ -1,14 +1,23 @@
 """The SPH substep and the frame loop on one device.
 
-PyTorch counterpart of ``libclsph_tpu/engine/step.py`` at the shipped
-main path (the shape ``bench.py`` and the CLI run): Morton blocks of
-128 particles, the exact refine to 16-particle candidate subblocks,
-the density kernel's hit counts per (32-row query subgroup, 8-particle
-half-slot), the force kernel over the compacted 8-wide hit lists, a
-re-sort and candidate rebuild every 4th substep with a 0.25 h slack,
-and the adaptive time step with its retry. Every other variant of the
-JAX package's ``StepConfig`` is refused with the ROADMAP item that will
-port it.
+PyTorch counterpart of ``libclsph_tpu/engine/step.py`` at the shapes
+the engine runs: Morton blocks of 128 particles, the exact refine to
+candidate subblocks, the density kernel's hit counts, hit compaction
+and the force kernel, a re-sort and candidate rebuild every 4th substep
+with a 0.25 h slack, and the adaptive time step with its retry. Two
+table granularities are ported:
+
+* the main path (``density_sub16``, ``force_sub16``, ``force_sub8``
+  all True, the defaults): 16-particle subblocks, hits per (32-row
+  query subgroup, 8-particle half-slot), the 8-wide force pass;
+* the q-granular path (all three False), which the capacity autotune
+  and the pretune switch to on deep columns: 32-particle subblocks and
+  either the 32-row force pass (``force_query_rows=32``) or the
+  whole-block one (``force_query_rows=128``);
+
+each with or without two-tier routing (``tier2_frac > 0``). Every other
+variant of the JAX package's ``StepConfig`` is refused with the ROADMAP
+item that will port it.
 
 PyTorch runs eagerly, so the loops are Python loops: the dt retry
 condition, the frame's time left and the predictive staleness check
@@ -30,30 +39,30 @@ from ..ops import grid as grid_ops
 from ..ops import integrate as integrate_ops
 from ..ops import interactions as interactions_ops
 from ..ops import tiles as tiles_ops
-from ..ops.kernels import density_c16_hit8, force_pack, forces_q32_c8, pos_pack
+from ..ops import kernels
 
 # Bits of the substep's status flag (int32), as in the JAX package:
 FLAG_CAPACITY = 1  # block-level candidate capacity (max_candidates)
 FLAG_GRID_DIM = 2  # a grid axis reached the 10-bit Morton limit (1024)
 FLAG_EXCHANGE = 4  # multi-device exchange reach (not used on one device)
 FLAG_CAPACITY_SUB = 8  # refined subblock capacity (max_candidates_sub)
-FLAG_CAPACITY_HIT = 16  # hit-compacted force capacity (max_candidates_hit8)
-FLAG_CAPACITY_T2 = 32  # two-tier overflow pool (not ported yet)
+FLAG_CAPACITY_HIT = 16  # hit-compacted force capacity (max_candidates_hit*)
+FLAG_CAPACITY_T2 = 32  # two-tier overflow pool exhausted (tier2_frac)
 FLAG_CAND_STALE = 64  # reused candidate lists outran their slack margin
 FLAGS_ALL_CAPACITY = (
     FLAG_CAPACITY | FLAG_CAPACITY_SUB | FLAG_CAPACITY_HIT | FLAG_CAPACITY_T2
 )
 
 BLOCK = 128  # particles per Morton block (= density/force query rows)
-SUB16 = 16  # particles per refined candidate subblock
 GROUPS = 4  # 32-row query subgroups per block
+MAIN_TABLES = (True, True, True)  # (density_sub16, force_sub16, force_sub8)
+Q_TABLES = (False, False, False)
 
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    """Knobs of the main-path substep; the defaults ARE the main path
-    (``bench.py:184-226``). The first ten fields select the variant and
-    accept only the main path's value."""
+    """Knobs of the substep; the defaults ARE the main path
+    (``bench.py:184-226``). The first ten fields select the variant."""
 
     neighbor_impl: str = "pallas"
     pallas_variant: str = "nl"
@@ -63,14 +72,22 @@ class StepConfig:
     density_sub16: bool = True
     force_sub16: bool = True
     force_sub8: bool = True
-    tier2_frac: int = 0
+    tier2_frac: int = 0  # 0: off; k: heavy rows go to ceil(nb/k) tier-2 slots
     density_gate: bool = False
     # block-level candidate cap (the engine doubles it on overflow)
     max_candidates: int = 96
-    # refined 16-particle subblock cap per query block (doubled on overflow)
+    # refined subblock cap per query block (16- or 32-particle subblocks)
     max_candidates_sub: int = 192
-    # 8-particle hit runs per query subgroup (+32 on overflow)
+    # 8-particle hit runs per query subgroup (+32 on overflow, to 160)
     max_candidates_hit8: int = 80
+    # q-granular force capacity: per block at force_query_rows=128, and
+    # cap32 = max(32, max_candidates_hit // 2) per subgroup at 32
+    max_candidates_hit: int = 96
+    # 16-wide hit capacity: read only by the c16 -> q downgrade rule of
+    # the pretune (the 16-wide force pass is not ported)
+    max_candidates_hit16: int = 64
+    # tier-2 capacities = tier2_mult x the base capacities
+    tier2_mult: int = 2
     # re-sort every k-th substep; rebuild the candidate tables every
     # k-th substep (reused in between, guarded by the staleness check)
     sort_interval: int = 4
@@ -91,19 +108,41 @@ class StepConfig:
             ),
             "block_size": (128, "ROADMAP.md queue 1 item 12 (other block shapes)"),
             "nl_query_rows": (128, "ROADMAP.md queue 1 item 12 (finer query blocks)"),
-            "force_query_rows": (32, "ROADMAP.md queue 2 item 5 (whole-block force pass)"),
-            "density_sub16": (True, "ROADMAP.md queue 1 item 12 (32-wide tables)"),
-            "force_sub16": (True, "ROADMAP.md queue 2 item 4 (q-granular force pass)"),
-            "force_sub8": (True, "ROADMAP.md queue 2 item 3 (16-wide force pass)"),
-            "tier2_frac": (0, "ROADMAP.md queue 1 item 12 (two-tier routing)"),
             "density_gate": (False, "ROADMAP.md queue 2 item 6 (gated density)"),
         }
         for name, (value, item) in not_yet.items():
             if getattr(self, name) != value:
                 raise ValueError(
                     f"StepConfig.{name}={getattr(self, name)!r} is not ported yet: "
-                    f"the port runs only the main path ({name}={value!r}); see {item}"
+                    f"the port runs only {name}={value!r}; see {item}"
                 )
+        tables = (self.density_sub16, self.force_sub16, self.force_sub8)
+        ported = ("the port runs (density_sub16, force_sub16, force_sub8) = "
+                  "(True, True, True), the main path, and (False, False, False), "
+                  "the q-granular path")
+        if tables in ((True, True, False), (False, True, False)):
+            raise ValueError(
+                f"(density_sub16, force_sub16, force_sub8)={tables} runs the 16-wide "
+                f"force pass, which is not ported yet (ROADMAP.md queue 2 item 3); "
+                f"{ported}"
+            )
+        if tables not in (MAIN_TABLES, Q_TABLES):
+            raise ValueError(
+                f"(density_sub16, force_sub16, force_sub8)={tables} is not a "
+                f"configuration of the JAX package either (step.py:392-410); {ported} "
+                f"(ROADMAP.md queue 2 item 3 holds the 16-wide force pass)"
+            )
+        if self.force_query_rows not in (32, 128) or (
+            self.force_query_rows == 128 and tables != Q_TABLES
+        ):
+            raise ValueError(
+                f"StepConfig.force_query_rows={self.force_query_rows!r}: the port runs "
+                f"32, and 128 with the q-granular tables (density_sub16=force_sub16="
+                f"force_sub8=False), as the JAX package does (step.py:392-404); other "
+                f"query granularities are ROADMAP.md queue 1 item 12"
+            )
+        if self.tier2_frac < 0 or self.tier2_mult < 1:
+            raise ValueError("tier2_frac must be >= 0 and tier2_mult >= 1")
         if self.sort_interval < 1 or self.cand_interval < 1:
             raise ValueError("sort_interval and cand_interval must be >= 1")
         if self.cand_interval > 1 and self.sort_interval % self.cand_interval:
@@ -112,17 +151,25 @@ class StepConfig:
                 "(re-sorts must coincide with candidate rebuilds)"
             )
 
+    @property
+    def subblock(self) -> int:
+        """Particles per refined candidate subblock: 16 on the main path,
+        32 on the q-granular one."""
+        return 16 if self.density_sub16 else 32
+
 
 def build_candidates(state: ParticleState, real: torch.Tensor,
                      params: SimulationParameters, config: StepConfig):
-    """Block search and exact refine to 16-particle subblocks over the
+    """Block search and exact refine to candidate subblocks over the
     padded, sorted state (step.py:434-495), at (1 + cand_slack) h when
-    the tables will be reused. Returns (cand_sub (nb, cap) int32,
-    count_sub (nb,) int32, flags)."""
+    the tables will be reused; with two-tier routing the table is built
+    at the tier-2 width tier2_mult * max_candidates_sub. Returns
+    (cand_sub (nb, cap) int32, count_sub (nb,) int32, flags)."""
     nb = state.n // BLOCK
-    sub = BLOCK // SUB16
+    sub = BLOCK // config.subblock
     reuse_on = config.cand_interval > 1
     h_search = params.h * (1.0 + config.cand_slack) if reuse_on else params.h
+    cap_sub = config.max_candidates_sub * (config.tier2_mult if config.tier2_frac else 1)
     pos_b = state.position.reshape(nb, BLOCK, 3)
     real_b = real.reshape(nb, BLOCK)
     bmin, bmax = tiles_ops.split_block_bounds(pos_b, real_b)
@@ -131,41 +178,96 @@ def build_candidates(state: ParticleState, real: torch.Tensor,
     )
     self_lo = torch.arange(nb, dtype=torch.int32, device=state.device) * sub
     cand_sub, count_sub, ovf2 = tiles_ops.refine_candidates_exact(
-        cand, count, bmin, bmax, pos_b, h_search, sub,
-        config.max_candidates_sub, self_lo=self_lo, self_width=sub,
+        cand, count, bmin, bmax, pos_b, h_search, sub, cap_sub,
+        self_lo=self_lo, self_width=sub,
     )
     flags = ovf.to(torch.int32) * FLAG_CAPACITY + ovf2.to(torch.int32) * FLAG_CAPACITY_SUB
     return cand_sub, count_sub, flags
 
 
-def hit_lists(cand_sub: torch.Tensor, hits: torch.Tensor, config: StepConfig):
-    """16-granular ids -> 8-granular half ids [2c, 2c + 1] (slot-aligned
-    with the hit columns 2k + e), repeated per query subgroup and
-    compacted to the halves with a pair inside the support
-    (step.py:623-639). Returns (cand8 (nb*4, cap8), count8, flags)."""
-    nb = cand_sub.shape[0]
-    sub = BLOCK // SUB16
-    sent = tiles_ops.REFINE_SENTINEL
-    dead = cand_sub == sent
-    twice = torch.where(dead, sent, cand_sub * 2)
-    ids8 = torch.stack([twice, torch.where(dead, sent, twice + 1)], dim=-1)
-    ids8 = ids8.reshape(nb, -1)
-    self_lo = torch.arange(nb, dtype=torch.int32, device=cand_sub.device) * sub
-    cand8, count8, ovf = tiles_ops.compact_hits(
-        torch.repeat_interleave(ids8, GROUPS, dim=0),
-        hits[:, : ids8.shape[1]],
-        config.max_candidates_hit8,
-        self_lo=torch.repeat_interleave(self_lo * 2, GROUPS),
-        self_width=2 * sub,
+def hit_lists(cand_sub: torch.Tensor, hits: torch.Tensor, config: StepConfig,
+              groups: int = GROUPS, cap: Optional[int] = None, qblock=None):
+    """The force pass's lists: ``cand_sub``'s entries with a pair inside
+    the support, per hit row, self ids first (step.py:623-672).
+
+    * Main path: 16-granular ids -> 8-granular half ids [2c, 2c + 1]
+      (slot-aligned with the hit columns 2k + e), repeated per query
+      subgroup; cap ``max_candidates_hit8``.
+    * q-granular, ``groups=4``: 32-granular ids repeated per subgroup;
+      cap32 = max(32, max_candidates_hit // 2).
+    * q-granular, ``groups=1``: one list per block; cap
+      ``max_candidates_hit``.
+
+    ``cap`` overrides the capacity (tier 2); ``qblock`` (nq,) names the
+    query block of each row (the self range), default the identity.
+    Returns (cand (nq*groups, cap) int32, count, flags)."""
+    nq = cand_sub.shape[0]
+    sub = BLOCK // config.subblock
+    if qblock is None:
+        qblock = torch.arange(nq, dtype=torch.int32, device=cand_sub.device)
+    self_lo = qblock * sub
+    ids, width = cand_sub, sub
+    if config.force_sub8:
+        sent = tiles_ops.REFINE_SENTINEL
+        dead = cand_sub == sent
+        twice = torch.where(dead, sent, cand_sub * 2)
+        ids = torch.stack([twice, torch.where(dead, sent, twice + 1)], dim=-1)
+        ids = ids.reshape(nq, -1)
+        self_lo, width = self_lo * 2, 2 * sub
+        default_cap = config.max_candidates_hit8
+    elif groups == GROUPS:
+        default_cap = max(32, config.max_candidates_hit // 2)
+    else:
+        default_cap = config.max_candidates_hit
+    if groups > 1:
+        ids = torch.repeat_interleave(ids, groups, dim=0)
+        self_lo = torch.repeat_interleave(self_lo, groups)
+    cand_f, count_f, ovf = tiles_ops.compact_hits(
+        ids, hits[:, : ids.shape[1]], cap or default_cap,
+        self_lo=self_lo, self_width=width,
     )
-    return cand8.contiguous(), count8, ovf.to(torch.int32) * FLAG_CAPACITY_HIT
+    return cand_f.contiguous(), count_f, ovf.to(torch.int32) * FLAG_CAPACITY_HIT
+
+
+def _groups(config: StepConfig, tier: int) -> int:
+    """Hit rows per block of a tier's passes (step.py:827-841): 4 query
+    subgroups on the main path and on the q32 path's tier 1, one row per
+    block at q128 and on the q path's tier 2."""
+    if config.force_sub8 or (tier == 1 and config.force_query_rows == 32):
+        return GROUPS
+    return 1
+
+
+def _density_pass(pos4, cand, count, params, config, groups, qblock=None):
+    cand, count = cand.contiguous(), count.contiguous()
+    if config.density_sub16:
+        return kernels.density_c16_hit8(pos4, cand, count, params, qblock=qblock)
+    return kernels.density_c32(pos4, cand, count, params, groups=groups, qblock=qblock)
+
+
+def _force_pass(f8, density, real, cand_f, count_f, params, config, groups, qblock=None):
+    if config.force_sub8:
+        fn = kernels.forces_q32_c8
+    elif groups == GROUPS:
+        fn = kernels.forces_q32_c32
+    else:
+        fn = kernels.forces_q128_c32
+    return fn(f8, density, real, cand_f, count_f, params, qblock=qblock)
+
+
+def _pressure_and_pack(state, real, density, params):
+    pressure = interactions_ops.tait_pressure(density, params)
+    pressure = torch.where(real, pressure, 0.0)
+    f8 = kernels.force_pack(state.position, state.velocity, density, pressure, real,
+                            params.particle_mass)
+    return pressure, f8
 
 
 def _density_forces(state: ParticleState, real: torch.Tensor,
                     params: SimulationParameters, config: StepConfig, cand_in=None):
     """Candidate tables (built, or carried in ``cand_in``), the density
     kernel, hit compaction, Tait pressure and the force kernel
-    (step.py:360-735 at the main-path shape).
+    (step.py:360-735), or their two-tier form (:func:`two_tier_passes`).
     Returns (density, pressure, accel, flags, cand_out)."""
     if cand_in is None:
         cand_sub, count_sub, flags = build_candidates(state, real, params, config)
@@ -178,21 +280,67 @@ def _density_forces(state: ParticleState, real: torch.Tensor,
         d2max = torch.amax(torch.where(real, d2, 0.0))
         stale = 4.0 * d2max > (config.cand_slack * params.h) ** 2
         flags = stale.to(torch.int32) * FLAG_CAND_STALE
-
-    density, hits = density_c16_hit8(
-        pos_pack(state.position, real), cand_sub.contiguous(), count_sub.contiguous(),
-        params,
-    )
-    cand8, count8, hit_flags = hit_lists(cand_sub, hits, config)
-    flags = flags + hit_flags
+    # the carried table is the one built here: at the tier-2 width when
+    # two-tier routing is on
     cand_out = (cand_sub, count_sub, pos_anchor) if config.cand_interval > 1 else None
+    pos4 = kernels.pos_pack(state.position, real)
+    if config.tier2_frac > 0:
+        density, pressure, accel, flags = two_tier_passes(
+            state, real, pos4, params, config, cand_sub, count_sub, flags
+        )
+        return density, pressure, accel, flags, cand_out
 
-    pressure = interactions_ops.tait_pressure(density, params)
-    pressure = torch.where(real, pressure, 0.0)
-    f8 = force_pack(state.position, state.velocity, density, pressure, real,
-                    params.particle_mass)
-    accel = forces_q32_c8(f8, density, real, cand8, count8, params)
-    return density, pressure, accel, flags, cand_out
+    groups = _groups(config, 1)
+    density, hits = _density_pass(pos4, cand_sub, count_sub, params, config, groups)
+    cand_f, count_f, hit_flags = hit_lists(cand_sub, hits, config, groups)
+    pressure, f8 = _pressure_and_pack(state, real, density, params)
+    accel = _force_pass(f8, density, real, cand_f, count_f, params, config, groups)
+    return density, pressure, accel, flags + hit_flags, cand_out
+
+
+def two_tier_passes(state, real, pos4, params, config, cand_full, count_sub, flags):
+    """Two-tier density/force passes (step.py:738-1025). ``cand_full``
+    (nb, c2) is the refined table at the tier-2 width; rows whose count
+    exceeds c1 = max_candidates_sub go to nb2 = ceil(nb / tier2_frac)
+    pool slots (:func:`tiles.route_overflow`), tier 1 runs every block
+    over ``cand_full[:, :c1]`` with the routed rows' counts zeroed, and
+    tier 2 runs the routed blocks (gathered by the ``qblock`` map)
+    against the full arrays at tier2_mult x the hit capacity. The
+    results merge by scatter over the distinct routed rows; unused pool
+    slots keep tier 1's value. Both tiers run each block's candidates in
+    the same order, so the split only changes which launch a block's
+    sums happen in. Returns (density, pressure, accel, flags)."""
+    nb = cand_full.shape[0]
+    c1 = config.max_candidates_sub
+    nb2 = -(-nb // config.tier2_frac)
+    idx, used, count1, pool_ovf = tiles_ops.route_overflow(count_sub, c1, nb2)
+    flags = flags + pool_ovf.to(torch.int32) * FLAG_CAPACITY_T2
+    cand1 = cand_full[:, :c1]
+    cand2 = cand_full[idx.long()]
+    count2 = torch.where(used, count_sub[idx.long()], 0).to(torch.int32)
+    g1, g2 = _groups(config, 1), _groups(config, 2)
+
+    def merge(a1, a2):
+        b1 = a1.reshape((nb, BLOCK) + a1.shape[1:])
+        b2 = a2.reshape((nb2, BLOCK) + a2.shape[1:])
+        mask = used.reshape((nb2,) + (1,) * (b2.dim() - 1))
+        b2 = torch.where(mask, b2, b1[idx.long()])
+        return b1.index_copy(0, idx.long(), b2).reshape(a1.shape)
+
+    density1, hits1 = _density_pass(pos4, cand1, count1, params, config, g1)
+    density2, hits2 = _density_pass(pos4, cand2, count2, params, config, g2, qblock=idx)
+    density = merge(density1, density2)
+    pressure, f8 = _pressure_and_pack(state, real, density, params)
+
+    cand_f1, count_f1, ovf3 = hit_lists(cand1, hits1, config, g1)
+    base_cap = config.max_candidates_hit8 if config.force_sub8 else config.max_candidates_hit
+    cand_f2, count_f2, ovf4 = hit_lists(cand2, hits2, config, g2,
+                                        cap=base_cap * config.tier2_mult, qblock=idx)
+    accel1 = _force_pass(f8, density, real, cand_f1, count_f1, params, config, g1)
+    accel2 = _force_pass(f8, density, real, cand_f2, count_f2, params, config, g2,
+                         qblock=idx)
+    accel = merge(accel1, accel2)
+    return density, pressure, accel, flags + (ovf3 | ovf4)
 
 
 def _advect_collide(state: ParticleState, scene, dt, params: SimulationParameters):

@@ -10,6 +10,8 @@ nor ``libclsph_tpu``: JAX-side objects are read by field name with
   :func:`params_from` (``SimulationParameters``).
 * port -> NumPy: :func:`state_to_numpy` (``grid_index`` back to
   uint32, as the JAX package holds it) and :func:`to_numpy`.
+* :func:`step_config_from_jax`: a JAX ``StepConfig`` -> the port's, over
+  the fields both have, so one configuration drives both packages.
 
 The state conversions are the checkpoint's, whose file format is the
 JAX package's.
@@ -24,12 +26,17 @@ import torch
 
 from .core.params import SimulationParameters
 from .core.state import FIELDS, ParticleState
+from .engine.step import StepConfig
 from .io.checkpoint import arrays_to_state
 from .io.checkpoint import state_to_arrays as state_to_numpy
 from .ops.collisions import DeviceScene
 
 __all__ = ["to_numpy", "state_from_arrays", "state_to_numpy", "scene_from_arrays",
-           "params_from"]
+           "params_from", "step_config_from_jax"]
+
+# JAX StepConfig fields the port has no knob for, with the value its one
+# path implies
+_JAX_ONLY = {"hit_compact": True, "refine_mode": "exact", "pair_r2": "vpu"}
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -63,4 +70,17 @@ def params_from(params) -> SimulationParameters:
     same field names) -> the port's."""
     return SimulationParameters(**{
         f.name: getattr(params, f.name) for f in dataclasses.fields(SimulationParameters)
+    })
+
+
+def step_config_from_jax(cfg) -> StepConfig:
+    """The JAX package's ``StepConfig`` (any object with its field names)
+    -> the port's, over the fields both have. The port's refusals apply;
+    a JAX-only knob set off the one value the port implements raises."""
+    for name, value in _JAX_ONLY.items():
+        if getattr(cfg, name, value) != value:
+            raise ValueError(f"StepConfig.{name}={getattr(cfg, name)!r} has no port")
+    return StepConfig(**{
+        f.name: getattr(cfg, f.name)
+        for f in dataclasses.fields(StepConfig) if hasattr(cfg, f.name)
     })

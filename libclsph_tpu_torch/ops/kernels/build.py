@@ -1,12 +1,13 @@
 """Build and load the hand-written CUDA kernels.
 
 The sources under ``libclsph_tpu_torch/csrc/`` are compiled by ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface and
-loaded with ``ctypes``. The build happens at the first CUDA launch (or
-an explicit :func:`load_library` call), never at import, into
-``build/libclsph_tpu_torch/`` beside the package; the file name carries
-a hash of the sources and flags, so a changed source rebuilds and an
-unchanged one loads the existing library.
+for ``sm_90a``, one ``nvcc`` process per ``.cu`` file, all started
+together, and linked into one shared library with a plain C interface
+that is loaded with ``ctypes``. The build happens at the first CUDA
+launch (or an explicit :func:`load_library` call), never at import,
+into ``build/libclsph_tpu_torch/`` beside the package; the file name
+carries a hash of the sources and flags, so a changed source rebuilds
+and an unchanged one loads the existing library.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "libclsph_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -34,8 +35,10 @@ _F = ctypes.c_float
 # argument types of every C entry point (pointers and the stream as
 # c_void_p so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    "density_c16_hit8_launch": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P, _P],
-    "forces_q32_c8_launch": [_P, _P, _P, _P, _P, _I, _I] + [_F] * 14 + [_P, _P],
+    "density_c16_hit8_launch": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P, _P],
+    "density_c32_launch": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P],
+    "forces_q32_c8_launch": [_P] * 6 + [_I, _I] + [_F] * 14 + [_P, _P],
+    "forces_c32_launch": [_P] * 6 + [_I, _I, _I] + [_F] * 14 + [_P, _P],
 }
 
 _lock = threading.Lock()
@@ -71,22 +74,38 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources if the hashed library is missing; returns its
-    path. The compiler's output (ptxas register and shared-memory report)
-    is kept beside the library as ``<name>.log``."""
+    path. Each ``.cu`` file is compiled to an object by its own ``nvcc``
+    process, all running at once, then the objects are linked. The
+    compilers' output (ptxas register and shared-memory report) is kept
+    beside the library as ``<name>.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, [s for s in sources() if s.suffix == ".cu"])]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = out.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        cus = [s for s in sources() if s.suffix == ".cu"]
+        objs = [work / (s.stem + ".o") for s in cus]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(cus, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for c in cmds]
+        outputs = [p.communicate()[0] for p in procs]
+        log = "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outputs))
+        failed = [(c, p.returncode) for c, p in zip(cmds, procs) if p.returncode]
+        if not failed:
+            tmp = work / out.name
+            link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log += " ".join(link) + "\n" + proc.stdout + proc.stderr
+            if proc.returncode:
+                failed.append((link, proc.returncode))
+        out.with_suffix(".log").write_text(log)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0][1]}) on {failed[0][0][-1]}:\n{log}")
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

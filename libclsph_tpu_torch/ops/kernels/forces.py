@@ -1,21 +1,31 @@
-"""Force pass over per-subgroup 8-particle hit lists with the combine
-fused in: the CUDA kernel, its plain PyTorch version and the wrapper
-that picks between them by device.
+"""Force passes with the combine fused in: the CUDA kernels, their
+plain PyTorch versions and the wrappers that pick between them by
+device. Each replaces a ``libclsph_tpu/ops/pallas/neighbor_nl.py``
+force kernel together with its ``_combine_forces``:
 
-Replaces ``libclsph_tpu/ops/pallas/neighbor_nl.py``
-``fused_forces_nl32_c8`` together with its ``_combine_forces``. See
-``csrc/forces_q32_c8.cu`` for the kernel.
+* :func:`forces_q32_c8`: ``fused_forces_nl32_c8``, 8-particle hit runs
+  per 32-row query subgroup (the main path); ``csrc/forces_q32_c8.cu``;
+* :func:`forces_q32_c32`: ``fused_forces_nl32``, 32-particle subblocks
+  per 32-row query subgroup (the q-granular path);
+* :func:`forces_q128_c32`: ``fused_forces_nl``, 32-particle subblocks
+  per 128-row query block (the q128 path and the q path's tier 2);
+  both in ``csrc/forces_c32.cu``.
 
-Inputs, for ``np`` particles in ``nb = np / 128`` Morton blocks:
+Inputs, for ``np`` particles in ``np / 128`` Morton blocks:
 
 * ``f8`` (np, 8) float32 [x, y, z, vx, vy, vz, pm, mr] from
   :func:`force_pack`, pm = m p / rho^2 and mr = m / rho (rho guarded to
   1 where it is 0; both 0 on padding particles);
 * ``density`` (np,) float32 and ``real`` (np,) bool;
-* ``cand8`` (nb*4, cap) int32: 8-particle run ids per query subgroup
-  (row b*4 + g), dead slots after ``count8``; ``count8`` (nb*4,) int32.
+* ``cand`` (nq*L, cap) int32: candidate ids per list, L = 4 lists of 32
+  query rows (row b*4 + g) or L = 1 list of 128 rows per row block,
+  dead slots after ``count`` (nq*L,) int32;
+* ``qblock`` (nq,) int32 or None: the query block of each row block
+  (the two-tier path runs gathered heavy blocks against the full
+  arrays); None is the identity, nq = np / 128.
 
-Output: the acceleration (np, 3) float32, 0 on padding rows.
+Output: the acceleration (nq*128, 3) float32 of the row blocks' queries,
+0 on padding queries.
 """
 
 from __future__ import annotations
@@ -29,9 +39,7 @@ from . import build
 
 BLOCK = 128  # queries per block
 GROUPS = 4  # query subgroups per block
-QROWS = BLOCK // GROUPS  # queries per subgroup
-SUB = 8  # particles per candidate run
-CHUNK_PAIRS = 1 << 23  # pair elements per chunk of the plain version
+CHUNK_PAIRS = 1 << 23  # pair elements per chunk of the plain versions
 
 
 def force_pack(position, velocity, density, pressure, real, mass: float) -> torch.Tensor:
@@ -81,33 +89,38 @@ def combine(press, visc, normal, lap, density, real, c: dict) -> torch.Tensor:
     return torch.where(real[:, None], total / rho + g, 0.0)
 
 
-def forces_q32_c8_torch(f8, density, real, cand8, count8, params: SimulationParameters):
-    """Plain PyTorch version, chunked over query subgroups."""
+def _forces_torch(f8, density, real, cand, count, params, qblock, qrows: int, sub: int):
+    """Plain force pass over ``sub``-particle candidate lists shared by
+    ``qrows`` query rows, chunked over lists."""
     c = _consts(params)
-    npart = f8.shape[0]
-    nrows, cap = cand8.shape
+    nrows, cap = cand.shape
+    lists = BLOCK // qrows  # lists per row block
+    nq = nrows // lists
     dev = f8.device
-    press = torch.empty((npart, 3), dtype=torch.float32, device=dev)
-    visc = torch.empty((npart, 3), dtype=torch.float32, device=dev)
-    normal = torch.empty((npart, 3), dtype=torch.float32, device=dev)
-    lap = torch.empty(npart, dtype=torch.float32, device=dev)
+    press = torch.empty((nq * BLOCK, 3), dtype=torch.float32, device=dev)
+    visc = torch.empty((nq * BLOCK, 3), dtype=torch.float32, device=dev)
+    normal = torch.empty((nq * BLOCK, 3), dtype=torch.float32, device=dev)
+    lap = torch.empty(nq * BLOCK, dtype=torch.float32, device=dev)
     slot = torch.arange(cap, device=dev)
-    lane = torch.arange(SUB, device=dev)
-    rows = max(1, CHUNK_PAIRS // (QROWS * cap * SUB))
+    lane = torch.arange(sub, device=dev)
+    qlane = torch.arange(BLOCK, device=dev)
+    qb_all = (torch.arange(nq, device=dev) if qblock is None else qblock.to(torch.int64))
+    qids = (qb_all[:, None] * BLOCK + qlane).reshape(nrows, qrows)  # per list
+    rows = max(1, CHUNK_PAIRS // (qrows * cap * sub))
     for r0 in range(0, nrows, rows):
         r1 = min(nrows, r0 + rows)
         r = r1 - r0
-        live = slot[None, :] < count8[r0:r1, None]
-        jid = (torch.where(live, cand8[r0:r1], 0).to(torch.int64)[:, :, None] * SUB
-               + lane).reshape(r, cap * SUB)
-        live = live[:, :, None].expand(r, cap, SUB).reshape(r, 1, cap * SUB)
+        live = slot[None, :] < count[r0:r1, None]
+        jid = (torch.where(live, cand[r0:r1], 0).to(torch.int64)[:, :, None] * sub
+               + lane).reshape(r, cap * sub)
+        live = live[:, :, None].expand(r, cap, sub).reshape(r, 1, cap * sub)
         cj = f8[jid][:, None]  # (r, 1, K, 8)
-        qid = torch.arange(r0 * QROWS, r1 * QROWS, device=dev).reshape(r, QROWS, 1)
-        qi = f8[qid]  # (r, 32, 1, 8)
+        qid = qids[r0:r1, :, None]  # (r, qrows, 1)
+        qi = f8[qid]  # (r, qrows, 1, 8)
         dx = qi[..., 0] - cj[..., 0]
         dy = qi[..., 1] - cj[..., 1]
         dz = qi[..., 2] - cj[..., 2]
-        r2 = (dx * dx + dy * dy) + dz * dz  # (r, 32, K)
+        r2 = (dx * dx + dy * dy) + dz * dz  # (r, qrows, K)
         inside = (r2 < c["h2"]) & live
         near0 = r2 < c["eps2"]
         inv_r = torch.where(near0, 0.0, torch.rsqrt(r2))
@@ -124,7 +137,7 @@ def forces_q32_c8_torch(f8, density, real, cand8, count8, params: SimulationPara
         a, b, g, lp = (torch.where(inside, x, 0.0) for x in (a, b, g, lp))
         sing = torch.where(inside & near0 & (jid[:, None, :] != qid), pc * c["spiky"], 0.0)
         sing = sing.sum(dim=-1)
-        sl = slice(r0 * QROWS, r1 * QROWS)
+        sl = slice(r0 * qrows, r1 * qrows)
         press[sl] = torch.stack(
             [(a * d).sum(dim=-1) + sing for d in (dx, dy, dz)], dim=-1
         ).reshape(-1, 3)
@@ -135,54 +148,116 @@ def forces_q32_c8_torch(f8, density, real, cand8, count8, params: SimulationPara
             [(g * d).sum(dim=-1) for d in (dx, dy, dz)], dim=-1
         ).reshape(-1, 3)
         lap[sl] = lp.sum(dim=-1).reshape(-1)
-    return combine(press, visc, normal, lap, density, real, c)
+    q = qids.reshape(-1)
+    return combine(press, visc, normal, lap, density[q], real[q], c)
 
 
-def _check(f8, density, real, cand8, count8):
+def forces_q32_c8_torch(f8, density, real, cand8, count8, params: SimulationParameters,
+                        qblock=None):
+    """Plain PyTorch version of :func:`forces_q32_c8`."""
+    return _forces_torch(f8, density, real, cand8, count8, params, qblock, 32, 8)
+
+
+def forces_q32_c32_torch(f8, density, real, cand, count, params: SimulationParameters,
+                         qblock=None):
+    """Plain PyTorch version of :func:`forces_q32_c32`."""
+    return _forces_torch(f8, density, real, cand, count, params, qblock, 32, 32)
+
+
+def forces_q128_c32_torch(f8, density, real, cand, count, params: SimulationParameters,
+                          qblock=None):
+    """Plain PyTorch version of :func:`forces_q128_c32`."""
+    return _forces_torch(f8, density, real, cand, count, params, qblock, 128, 32)
+
+
+def _check(f8, density, real, cand, count, qblock, lists: int):
     if f8.dtype != torch.float32 or f8.dim() != 2 or f8.shape[1] != 8:
         raise ValueError("f8 must be (np, 8) float32")
     npart = f8.shape[0]
     if npart % BLOCK:
         raise ValueError(f"particle count {npart} is not a multiple of {BLOCK}")
-    rows = npart // BLOCK * GROUPS
     if density.dtype != torch.float32 or density.shape != (npart,):
         raise ValueError("density must be (np,) float32")
     if real.dtype != torch.bool or real.shape != (npart,):
         raise ValueError("real must be (np,) bool")
-    if cand8.dtype != torch.int32 or cand8.dim() != 2 or cand8.shape[0] != rows:
-        raise ValueError("cand8 must be (np/128*4, cap) int32")
-    if count8.dtype != torch.int32 or count8.shape != (rows,):
-        raise ValueError("count8 must be (np/128*4,) int32")
-    for name, t in (("density", density), ("real", real), ("cand8", cand8),
-                    ("count8", count8), ("f8", f8)):
+    if cand.dtype != torch.int32 or cand.dim() != 2 or cand.shape[0] % lists:
+        raise ValueError(f"cand must be (nq*{lists}, cap) int32")
+    nq = cand.shape[0] // lists
+    if qblock is None:
+        if nq != npart // BLOCK:
+            raise ValueError(f"cand must have np/128*{lists} rows without a qblock map")
+    elif qblock.dtype != torch.int32 or qblock.shape != (nq,):
+        raise ValueError("qblock must be (nq,) int32")
+    if count.dtype != torch.int32 or count.shape != (cand.shape[0],):
+        raise ValueError(f"count must be (nq*{lists},) int32")
+    named = (("density", density), ("real", real), ("cand", cand), ("count", count),
+             ("f8", f8)) + (() if qblock is None else (("qblock", qblock),))
+    for name, t in named:
         if t.device != f8.device:
             raise ValueError(f"{name} is on {t.device}, f8 on {f8.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
-def forces_q32_c8(f8, density, real, cand8, count8, params: SimulationParameters):
-    """Accelerations. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (building it at first use) or raise."""
-    _check(f8, density, real, cand8, count8)
-    if f8.device.type == "cpu":
-        return forces_q32_c8_torch(f8, density, real, cand8, count8, params)
-    if f8.device.type != "cuda":
-        raise ValueError(f"forces_q32_c8: unsupported device {f8.device}")
-    lib = build.load_library()
+def _launch(name, f8, density, real, cand, count, qblock, params, lists, *extra):
     c = _consts(params)
-    accel = torch.empty((f8.shape[0], 3), dtype=torch.float32, device=f8.device)
+    nq = cand.shape[0] // lists
+    accel = torch.empty((nq * BLOCK, 3), dtype=torch.float32, device=f8.device)
     stream = torch.cuda.current_stream(f8.device).cuda_stream
-    status = lib.forces_q32_c8_launch(
-        f8.data_ptr(), density.data_ptr(), real.data_ptr(), cand8.data_ptr(),
-        count8.data_ptr(), f8.shape[0] // BLOCK, cand8.shape[1],
+    status = getattr(build.load_library(), name + "_launch")(
+        f8.data_ptr(), density.data_ptr(), real.data_ptr(), cand.data_ptr(),
+        count.data_ptr(), None if qblock is None else qblock.data_ptr(),
+        nq, cand.shape[1], *extra,
         c["h"], c["h2"], c["eps2"], c["spiky"], c["visc"], c["pgrad"],
         c["lap7"], c["lap4"], c["mu"], c["st_threshold"], c["sigma"],
         c["gx"], c["gy"], c["gz"], accel.data_ptr(), stream,
     )
-    build.check(status, "forces_q32_c8")
-    forces_q32_c8.launches += 1
+    build.check(status, name)
     return accel
 
 
+def _dispatch(fn, plain, entry, f8, density, real, cand, count, params, qblock,
+              qrows, *extra):
+    """Check the inputs, then run the plain version on CPU tensors or
+    launch C entry point ``entry`` (counting the launch on ``fn``)."""
+    lists = BLOCK // qrows
+    _check(f8, density, real, cand, count, qblock, lists)
+    if f8.device.type == "cpu":
+        return plain(f8, density, real, cand, count, params, qblock)
+    if f8.device.type != "cuda":
+        raise ValueError(f"{fn.__name__}: unsupported device {f8.device}")
+    accel = _launch(entry, f8, density, real, cand, count, qblock, params, lists, *extra)
+    fn.launches += 1
+    return accel
+
+
+def forces_q32_c8(f8, density, real, cand8, count8, params: SimulationParameters,
+                  qblock=None):
+    """Accelerations over 8-particle hit runs per 32-row subgroup. CPU
+    tensors take the plain version; CUDA tensors launch the kernel
+    (building it at first use) or raise."""
+    return _dispatch(forces_q32_c8, forces_q32_c8_torch, "forces_q32_c8", f8, density,
+                     real, cand8, count8, params, qblock, 32)
+
+
+def forces_q32_c32(f8, density, real, cand, count, params: SimulationParameters,
+                   qblock=None):
+    """Accelerations over 32-particle subblocks per 32-row subgroup
+    (lists (nq*4, cap)). CPU tensors take the plain version; CUDA
+    tensors launch the kernel (building it at first use) or raise."""
+    return _dispatch(forces_q32_c32, forces_q32_c32_torch, "forces_c32", f8, density,
+                     real, cand, count, params, qblock, 32, 32)
+
+
+def forces_q128_c32(f8, density, real, cand, count, params: SimulationParameters,
+                    qblock=None):
+    """Accelerations over 32-particle subblocks per 128-row block (lists
+    (nq, cap)). CPU tensors take the plain version; CUDA tensors launch
+    the kernel (building it at first use) or raise."""
+    return _dispatch(forces_q128_c32, forces_q128_c32_torch, "forces_c32", f8, density,
+                     real, cand, count, params, qblock, 128, 128)
+
+
 forces_q32_c8.launches = 0
+forces_q32_c32.launches = 0
+forces_q128_c32.launches = 0

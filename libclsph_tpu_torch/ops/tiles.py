@@ -323,6 +323,33 @@ def refine_candidates_exact(cand, count, qlo, qhi, pos_blocked, h: float, sub: i
     return cand_sub.to(torch.int32), torch.clamp(count_sub, max=max_sub), overflow
 
 
+def subblock_bounds(pos_blocked: torch.Tensor, real_blocked: torch.Tensor, sub: int):
+    """Per-subblock AABBs (tiles.py:302-313): each block split into
+    ``sub`` consecutive runs of B/sub particles. pos (nb, B, 3) ->
+    (nb*sub, 3) twice; empty subblocks give inverted boxes."""
+    nb, b, _ = pos_blocked.shape
+    p = pos_blocked.reshape(nb * sub, b // sub, 3)
+    m = real_blocked.reshape(nb * sub, b // sub, 1)
+    return (torch.amin(torch.where(m, p, _BIG), dim=1),
+            torch.amax(torch.where(m, p, -_BIG), dim=1))
+
+
+def route_overflow(count: torch.Tensor, c1: int, nb2: int):
+    """Two-tier capacity routing (tiles.py:631-658): rows whose count
+    exceeds the base capacity ``c1`` go to a pool of ``nb2`` tier-2
+    slots, heaviest first, ties to the lowest row (``lax.top_k``).
+    Returns (idx (nb2,) int32 distinct routed rows, used (nb2,) bool,
+    count1 (nb,) with routed rows zeroed, pool_overflow () bool). Unused
+    slots point at arbitrary rows and must be masked with ``used``."""
+    heavy = count > c1
+    vals = torch.where(heavy, count, -1)
+    idx = _topk_lowest_index(vals, nb2)
+    used = vals[idx] > 0
+    count1 = torch.where(heavy, 0, count)
+    pool_overflow = heavy.sum() > nb2
+    return idx.to(torch.int32), used, count1.to(count.dtype), pool_overflow
+
+
 def compact_hits(cand_sub: torch.Tensor, hits: torch.Tensor, max_hit: int,
                  self_lo=None, self_width: int = 1):
     """Compact a candidate list to its true-hit entries (tiles.py:661-682):

@@ -1,5 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card (marked ``cuda``; they skip without a GPU).
+card (marked ``cuda``; they skip without a GPU): the main path's two,
+the q-granular path's three (``density_c32`` at 4 and 1 hit rows per
+block, ``forces_q32_c32``, ``forces_q128_c32``), the query-block map of
+all of them, and whole substeps of the main, q32 + tier-2 and q128
+configurations.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -7,7 +11,8 @@ machine that has only PyTorch and the CUDA toolkit:
     python -m pytest tests/test_torch_cuda.py --noconftest -p no:cacheprovider -q
 
 Inputs: a random cloud made with numpy from a fixed seed, padded,
-sorted and tabled by the port's own main path on the CPU, then moved to
+sorted and tabled by the port's own candidate machinery on the CPU
+(the q-granular tables on a cloud with a dense clump), then moved to
 the card. Tolerances: density rtol 1e-5 and acceleration atol 1e-5 *
 max|a| (float32 summation order); hit counts are integers and must be
 equal (both sides round r^2 without fused multiply-adds).
@@ -100,6 +105,128 @@ def test_substep_on_gpu_matches_cpu(tables, cuda):
     cfg = step.StepConfig()
     c1, cd, cf, _ = step.substep(st, dt, p, None, cfg)
     g1, gd, gf, _ = step.substep(st.map(lambda a: a.to(cuda)), dt.to(cuda), p, None, cfg)
+    assert int(cf) == int(gf) == 0
+    torch.testing.assert_close(g1.grid_index.cpu(), c1.grid_index)
+    np.testing.assert_allclose(g1.density.cpu().numpy(), c1.density.numpy(), rtol=1e-5)
+    a = c1.acceleration.numpy()
+    np.testing.assert_allclose(g1.acceleration.cpu().numpy(), a, atol=1e-5 * np.abs(a).max())
+
+
+def _clumped_state(params, seed):
+    rng = np.random.default_rng(seed)
+    side = params.initial_volume ** (1 / 3) * 1.3
+    pos = ((rng.random((N, 3)) - 0.5) * side).astype(np.float32)
+    k = N // 5  # a clump of side h: heavy blocks for the tier-2 pool
+    pos[:k] = (rng.random((k, 3)).astype(np.float32) - 0.5) * params.h + pos[-1]
+    pos[1] = pos[0]  # a coincident pair: the spiky r -> 0 branch
+    vel = rng.normal(size=(N, 3)).astype(np.float32)
+    return ParticleState.zeros(N, "cpu").replace(
+        position=torch.as_tensor(pos), velocity=torch.as_tensor(vel),
+        intermediate_velocity=torch.as_tensor(vel))
+
+
+Q_PATH = dict(density_sub16=False, force_sub16=False, force_sub8=False,
+              max_candidates_hit=256)
+
+
+@pytest.fixture(scope="module")
+def q_tables(tables):
+    params = tables["params"]
+    cfg = step.StepConfig(**Q_PATH)
+    st, real, _ = step.pad_and_sort(_clumped_state(params, 12), params, True)
+    cand_sub, count_sub, flags = step.build_candidates(st, real, params, cfg)
+    assert int(flags) == 0
+    pos4 = density.pos_pack(st.position, real)
+    dens, hits4 = density.density_c32_torch(pos4, cand_sub, count_sub, params, groups=4)
+    _, hits1 = density.density_c32_torch(pos4, cand_sub, count_sub, params, groups=1)
+    cand32, count32, f32 = step.hit_lists(cand_sub, hits4, cfg, 4)
+    cand128, count128, f128 = step.hit_lists(cand_sub, hits1, cfg, 1)
+    assert int(f32) == 0 and int(f128) == 0
+    pres = torch.where(real, tait_pressure(dens, params), 0.0)
+    f8 = forces.force_pack(st.position, st.velocity, dens, pres, real, params.particle_mass)
+    return dict(params=params, pos4=pos4, cand_sub=cand_sub, count_sub=count_sub,
+                dens=dens, real=real, f8=f8, cand32=cand32, count32=count32,
+                cand128=cand128, count128=count128)
+
+
+def _pool(nb, device):
+    return torch.arange(0, nb, 8, dtype=torch.int32, device=device).flip(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [4, 1])
+@pytest.mark.parametrize("mapped", [False, True], ids=["identity", "qblock"])
+def test_density_c32_matches_plain(q_tables, cuda, groups, mapped):
+    t = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in q_tables.items()}
+    cand, count = t["cand_sub"], t["count_sub"]
+    qblock = None
+    if mapped:
+        qblock = _pool(cand.shape[0], cuda)
+        cand, count = cand[qblock.long()].contiguous(), count[qblock.long()].contiguous()
+    args = (t["pos4"], cand, count, t["params"])
+    before = density.density_c32.launches
+    d, hits = density.density_c32(*args, groups=groups, qblock=qblock)
+    torch.cuda.synchronize()
+    assert density.density_c32.launches == before + 1
+    d0, hits0 = density.density_c32_torch(*args, groups=groups, qblock=qblock)
+    np.testing.assert_allclose(d.cpu().numpy(), d0.cpu().numpy(), rtol=1e-5)
+    assert torch.equal(hits, hits0) and int(hits0.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["forces_q32_c32", "forces_q128_c32", "forces_q32_c8"])
+@pytest.mark.parametrize("mapped", [False, True], ids=["identity", "qblock"])
+def test_force_kernels_match_plain(q_tables, tables, cuda, name, mapped):
+    src = tables if name == "forces_q32_c8" else q_tables
+    t = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in src.items()}
+    cand, count = {"forces_q32_c32": ("cand32", "count32"),
+                   "forces_q128_c32": ("cand128", "count128"),
+                   "forces_q32_c8": ("cand8", "count8")}[name]
+    cand, count = t[cand], t[count]
+    lists = 1 if name == "forces_q128_c32" else 4
+    qblock = None
+    if mapped:
+        qblock = _pool(t["f8"].shape[0] // 128, cuda)
+        rows = (qblock.long()[:, None] * lists + torch.arange(lists, device=cuda)).reshape(-1)
+        cand, count = cand[rows].contiguous(), count[rows].contiguous()
+    fn = getattr(forces, name)
+    args = (t["f8"], t["dens"], t["real"], cand, count, t["params"])
+    before = fn.launches
+    a = fn(*args, qblock=qblock)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    a0 = getattr(forces, name + "_torch")(*args, qblock=qblock).cpu().numpy()
+    np.testing.assert_allclose(a.cpu().numpy(), a0, atol=1e-5 * np.abs(a0).max())
+
+
+@pytest.mark.cuda
+def test_density_c16_qblock_matches_plain(tables, cuda):
+    t = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in tables.items()}
+    qblock = _pool(t["cand_sub"].shape[0], cuda)
+    args = (t["pos4"], t["cand_sub"][qblock.long()].contiguous(),
+            t["count_sub"][qblock.long()].contiguous(), t["params"])
+    d, hits = density.density_c16_hit8(*args, qblock=qblock)
+    torch.cuda.synchronize()
+    d0, hits0 = density.density_c16_hit8_torch(*args, qblock=qblock)
+    np.testing.assert_allclose(d.cpu().numpy(), d0.cpu().numpy(), rtol=1e-5)
+    assert torch.equal(hits, hits0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [
+    dict(max_candidates_sub=100, tier2_frac=2, tier2_mult=2, max_candidates_hit8=160),
+    dict(Q_PATH, max_candidates_sub=60, tier2_frac=2, tier2_mult=2),
+    dict(Q_PATH, force_query_rows=128),
+], ids=["main-tier2", "q32-tier2", "q128"])
+def test_q_and_tier2_substeps_on_gpu_match_cpu(tables, cuda, over):
+    """Whole substeps of the other configurations on the card (kernels)
+    against the CPU (plain versions), on the clumped cloud."""
+    p = tables["params"]
+    st = _clumped_state(p, 13)
+    dt = torch.tensor(p.max_dt, dtype=torch.float32)
+    cfg = step.StepConfig(**over)
+    c1, _, cf, _ = step.substep(st, dt, p, None, cfg)
+    g1, _, gf, _ = step.substep(st.map(lambda a: a.to(cuda)), dt.to(cuda), p, None, cfg)
     assert int(cf) == int(gf) == 0
     torch.testing.assert_close(g1.grid_index.cpu(), c1.grid_index)
     np.testing.assert_allclose(g1.density.cpu().numpy(), c1.density.numpy(), rtol=1e-5)

@@ -6,7 +6,8 @@
 * ``sph-torch water tiny cube`` on the CPU: frames, resume from
   ``last_frame.npz``, refusal of a stale checkpoint, exit codes.
 * The engine's capacity growth, the per-substep callback path, and the
-  refusals (CUDA without a GPU, pretune).
+  refusals (CUDA without a GPU, a pretune that is not True, False or
+  "auto").
 * Every module imports with JAX blocked, and nothing builds at import.
 """
 
@@ -168,8 +169,9 @@ def test_cli_exit_codes(tmp_path, monkeypatch):
 
 def test_engine_grows_capacity_and_runs_callbacks(tmp_path):
     """Caps too small for the first frame: the engine grows exactly the
-    flagged tables, re-runs the frame, and the per-substep path calls
-    the callbacks every substep."""
+    flagged tables by the JAX engine's rules (the subblock cap is not
+    doubled: two-tier routing takes the heavy blocks), re-runs the
+    frame, and the per-substep path calls the callbacks every substep."""
     root = _root(tmp_path, simulation_time=1.0 / 60.0, serialize=False,
                  write_all_frames=True, particles_count=1000)
     sim = tsim.SPHSimulation(
@@ -192,7 +194,8 @@ def test_engine_grows_capacity_and_runs_callbacks(tmp_path):
     sim.save_frame = count("save")
     sim.simulate()
     cfg = sim.step_config
-    assert cfg.max_candidates_sub >= 48 and cfg.max_candidates_hit8 >= 40
+    assert cfg.max_candidates_sub == 24 and cfg.tier2_frac > 0
+    assert cfg.max_candidates_hit8 >= 40
     assert (cfg.max_candidates_hit8 - 8) % 32 == 0
     assert calls["pre"] == calls["post"] >= 10  # one frame of substeps
     assert calls["save"] == calls["pre"] + 1  # + the initial frame
@@ -201,7 +204,7 @@ def test_engine_grows_capacity_and_runs_callbacks(tmp_path):
 
 def test_engine_refusals():
     with pytest.raises(ValueError, match="pretune"):
-        tsim.SPHSimulation(device="cpu", pretune=True)
+        tsim.SPHSimulation(device="cpu", pretune="on")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tsim.SPHSimulation(device="cuda")

@@ -165,15 +165,21 @@ def test_stale_reuse_is_flagged():
     assert int(f2) & tstep.FLAG_CAND_STALE
 
 
-@pytest.mark.parametrize("field,value", [
-    ("neighbor_impl", "tiles"), ("neighbor_impl", "exact"), ("pallas_variant", "asm"),
-    ("force_sub8", False), ("density_sub16", False), ("tier2_frac", 8),
-    ("density_gate", True), ("force_query_rows", 128), ("nl_query_rows", 32),
-    ("block_size", 256),
+@pytest.mark.parametrize("field,value,others", [
+    pytest.param(field, value, others, id=f"{field}-{value}")
+    for field, value, others in [
+        ("neighbor_impl", "tiles", {}), ("neighbor_impl", "exact", {}),
+        ("pallas_variant", "asm", {}), ("force_sub8", False, {}),
+        ("density_sub16", False, {}),
+        # two-tier routing is ported; over the 16-wide force pass it is not
+        ("tier2_frac", 8, {"force_sub8": False}),
+        ("density_gate", True, {}), ("force_query_rows", 128, {}),
+        ("nl_query_rows", 32, {}), ("block_size", 256, {}),
+    ]
 ])
-def test_step_config_refuses_unported_variants(field, value):
+def test_step_config_refuses_unported_variants(field, value, others):
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        tstep.StepConfig(**{field: value})
+        tstep.StepConfig(**{field: value, **others})
 
 
 def test_step_config_defaults_are_the_main_path():
