@@ -13,26 +13,41 @@ non-zero):
    port's candidate machinery: the 65,536-particle cube lattice
    (``simulation_properties/bench64k.json``), the same after 10
    substeps of fall, and the 1M cube lattice; the main path's tables
-   for ``density_c16_hit8`` / ``forces_q32_c8``, the q-granular tables
-   (the autotune's downgraded config) for ``density_c32`` at 4 and 1
-   hit rows per block, ``forces_q32_c32`` and ``forces_q128_c32``, and
-   every kernel through the query-block map on a tier-2 pool (every 8th
-   block of the 1M lattice). Density rtol 1e-5, hit counts equal,
-   acceleration atol 1e-5 * max|a|; kernel and plain times (CUDA events,
-   median of 7) at 1M;
+   for ``density_c16`` (hit_sub 8) / ``forces_q32_c8``, the q-granular
+   tables (the autotune's downgraded config) for ``density_c32`` at 4
+   and 1 hit rows per block, ``forces_q32_c32`` and ``forces_q128_c32``,
+   the 16-wide force path's tables ((density_sub16, force_sub16,
+   force_sub8) = (True, True, False) and (False, True, False)) for
+   ``density_c16`` at hit_sub 16 with and without the dilated tile
+   counts, ``density_c32`` at hit_sub 16 and ``forces_q32_c16``,
+   ``density_gated16`` against the ungated kernel (bit for bit) on a
+   state three reuse substeps from its anchor, and every kernel through
+   the query-block map on a tier-2 pool (every 8th block of the 1M
+   lattice). Density rtol 1e-5, hit and tile counts equal, acceleration
+   atol 1e-5 * max|a|; kernel and plain times (CUDA events, median of 7)
+   and the bound (bytes or fp32 operations at the H100's peaks) at 1M;
 3. the CLI main path: ``sph-torch water default cube`` at 64,000
    particles for 3 frames, checking the .geo frames, that no particle
    left the fluid's column above the cube obstacle, and the densities;
+   3b. the same with ``--no-force-sub8`` (the 16-wide force path);
 4. the 1M-particle cube dam-break the way ``bench.py`` runs it (no
    pretune): warm-up with the engine's capacity growth, then 20 timed
    substeps that must raise no flag (a flagged window grows the table
    and is re-run, as the engine re-runs a frame); ms/substep and
    particle-steps/s;
-5. two-tier equivalence at the 1M cube, for the main and the q-granular
-   config: a single-tier substep at full subblock capacity against a
-   two-tier substep whose base capacity lies below the heavy blocks;
-   density equal (the kernels sum each list in a fixed order),
-   acceleration atol 1e-5 * max|a|; ``forces_q128_c32`` must launch;
+   4b. the same on the 16-wide force path (True, True, False), then with
+   ``density_gate``: ``forces_q32_c16`` on every timed substep,
+   ``density_gated16`` on every reuse substep, positions bit-equal to the
+   ungated run after 8 substeps from one state, and the rebuild and
+   reuse substeps timed alone; a growth rule that leaves the 16-wide
+   tables fails the phase;
+5. two-tier equivalence at the 1M cube, for the main, the two 16-wide
+   and the q-granular configs: a single-tier substep at full subblock
+   capacity against a two-tier substep whose base capacity lies below
+   the heavy blocks; density equal (the kernels sum each list in a fixed
+   order), acceleration atol 1e-5 * max|a|; ``forces_q128_c32`` must
+   launch in the 32-wide tables' tier 2 and ``forces_q32_c16`` in both
+   tiers of the 16-granular one;
 6. the river: 1,048,576 water particles (mass 0.025) stacked on
    ``scenes/river.obj`` through ``SPHSimulation(pretune="auto")`` for 3
    frames with ``.geo`` export; prints the probe statistics, the config
@@ -40,10 +55,12 @@ non-zero):
    and ``density_c32`` / ``forces_q32_c32`` must launch during the
    frames.
 
-The line before last holds the per-kernel JSON record, the last line
-``{"ok": true, "device": {...}}``. Needs one CUDA device; refuses to run
-without one. ``--profile DIR`` adds a torch.profiler table of four 1M
-substeps to DIR.
+Each of the three paths (main: phases 3-4; 16-wide: 3b-4b; deep
+columns: 5-6) runs with the launch counts set to 0 just before it and
+read just after. The line before last holds the per-kernel JSON record,
+the last line ``{"ok": true, "device": {...}}``. Needs one CUDA device;
+refuses to run without one. ``--profile DIR`` adds a torch.profiler table
+of four 1M substeps to DIR.
 """
 
 from __future__ import annotations
@@ -69,18 +86,45 @@ RIVER_FRAMES = 3
 RIVER_FRAC = (0.92, 0.8)  # lattice footprint, fraction of the scene's x/z extent
 CLEARANCE = 0.04  # gap between the support surface and the first layer
 Q_PATH = dict(density_sub16=False, force_sub16=False, force_sub8=False)
-KERNELS = {  # name: (source, TPU kernel it replaces)
-    "density_c16_hit8": ("libclsph_tpu_torch/csrc/density_c16_hit8.cu",
-                         "libclsph_tpu/ops/pallas/neighbor_nl.py:394"),
-    "forces_q32_c8": ("libclsph_tpu_torch/csrc/forces_q32_c8.cu",
-                      "libclsph_tpu/ops/pallas/neighbor_nl.py:1768"),
-    "density_c32": ("libclsph_tpu_torch/csrc/density_c32.cu",
-                    "libclsph_tpu/ops/pallas/neighbor_nl.py:394"),
-    "forces_q32_c32": ("libclsph_tpu_torch/csrc/forces_c32.cu",
-                       "libclsph_tpu/ops/pallas/neighbor_nl.py:1083"),
-    "forces_q128_c32": ("libclsph_tpu_torch/csrc/forces_c32.cu",
-                        "libclsph_tpu/ops/pallas/neighbor_nl.py:730"),
+# the 16-wide force path, with the hit capacity set as bench.py's
+# --max-candidates-hit16 can (a shortfall would downgrade to Q_PATH)
+SUB16 = dict(force_sub8=False, max_candidates_hit16=128)
+FTF = dict(SUB16, density_sub16=False)
+NL = "libclsph_tpu/ops/pallas/neighbor_nl.py"
+CSRC = "libclsph_tpu_torch/csrc/"
+# record name: (wrapper, launch variant or None, source, TPU kernel it replaces)
+KERNELS = {
+    "density_c16": ("density_c16", "hit_sub 8", CSRC + "density_c16.cu", NL + ":394"),
+    "density_c16 hit_sub 16": ("density_c16", "hit_sub 16", CSRC + "density_c16.cu",
+                               NL + ":394"),
+    "density_c16 hit_sub 16, hit2_h": ("density_c16", "hit_sub 16, hit2_h",
+                                       CSRC + "density_c16.cu", NL + ":394"),
+    "density_gated16": ("density_gated16", None, CSRC + "density_gated16.cu", NL + ":612"),
+    "density_c32": ("density_c32", "groups 4, hit_sub 32", CSRC + "density_c32.cu",
+                    NL + ":394"),
+    "density_c32 groups 1": ("density_c32", "groups 1, hit_sub 32", CSRC + "density_c32.cu",
+                             NL + ":394"),
+    "density_c32 hit_sub 16": ("density_c32", "groups 4, hit_sub 16",
+                               CSRC + "density_c32.cu", NL + ":394"),
+    "forces_q32_c8": ("forces_q32_c8", None, CSRC + "forces_q32.cu", NL + ":1768"),
+    "forces_q32_c16": ("forces_q32_c16", None, CSRC + "forces_q32.cu", NL + ":1471"),
+    "forces_q32_c32": ("forces_q32_c32", None, CSRC + "forces_q32.cu", NL + ":1083"),
+    "forces_q128_c32": ("forces_q128_c32", None, CSRC + "forces_c32.cu", NL + ":730"),
 }
+BENCH_TAG = "1M lattice"  # the phase-2 tables whose times and bounds are recorded
+# one NVIDIA H100 SXM (data sheet): fp32 outside the tensor cores, HBM3
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# operations a pair, counted from the kernels' bodies (csrc/sph_pair.cuh):
+# density: r^2 (3 sub, 3 mul, 2 add), h^2 - r^2 and its clamp (2), t^3
+# (2), poly6 * real (1), the fma (2), the hit test (1); the dilated tile
+# count adds a test
+DENSITY_OPS = 16
+# force: r^2 and the support test for every pair; inside the support the
+# rsqrt, r, h - r and h^2 - r^2 with their clamps, the kernel weights
+# (8 products and a sum), the P, N sums (6 fmas), V (3 subs, 3 fmas) and
+# L (4)
+FORCE_OPS_ALL, FORCE_OPS_IN = 9, 42
 
 
 def log(msg: str) -> None:
@@ -123,78 +167,124 @@ def water_params(n: int):
     return derive_parameters(fluid, dict(sim, particles_count=n))
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def density_work(args, outs, sub, pairs=None, extra_ops=0):
+    """(bytes, operations) of a density call: each input read once and
+    each output written once; DENSITY_OPS (+ ``extra_ops``) for every
+    pair of a live slot (``pairs``: count x sub x 128 by default)."""
+    pos4, cand, count = args[:3]
+    if pairs is None:
+        pairs = int(count.sum()) * sub * 128
+    return nbytes(pos4, cand, count, *outs), pairs * (DENSITY_OPS + extra_ops)
+
+
+def force_work(args, width, qrows, pairs_in):
+    """(bytes, operations) of a force call over lists of ``width``-wide
+    entries shared by ``qrows`` queries: the support test for every pair
+    of a live entry, the force terms for the ``pairs_in`` pairs inside the
+    support."""
+    f8, dens, real, cand, count = args[:5]
+    pairs = int(count.sum()) * width * qrows
+    out = cand.shape[0] * qrows * 3 * 4
+    return (nbytes(f8, dens, real, cand, count) + out,
+            pairs * FORCE_OPS_ALL + pairs_in * FORCE_OPS_IN)
+
+
+def bound(nbytes_, ops):
+    """The least time (ms) the card could take, and what sets it."""
+    t_bytes = 1e3 * nbytes_ / PEAK_BYTES
+    t_ops = 1e3 * ops / PEAK_FP32
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def time_kernel(stats, rec, tag, fn, plain, work) -> str:
+    """Kernel and plain times of one call; at BENCH_TAG also its work for
+    the bound. Returns the log fragment."""
+    ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
+    if tag == BENCH_TAG:
+        stats[rec]["bench"] = (ms, plain_ms) + tuple(work)
+    b_ms, b_by = bound(*work)
+    return (f" {rec} {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by "
+            f"{b_by});")
+
+
+def grown_tables(state, params, engine, plain_density, lists, fixed=None):
+    """Pad and sort ``state``, build the candidate tables at
+    ``engine.step_config`` and run ``plain_density`` on them, growing the
+    capacities by the engine's rules until nothing is truncated;
+    ``lists(cand_sub, hits, cfg)`` gives the force lists and their flags.
+    ``fixed``: a predicate the config must keep (the growth rules may not
+    leave these tables). Returns (st, real, density args, density out,
+    lists)."""
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.ops.kernels import density
+
+    st, real, _ = step.pad_and_sort(state, params, True)
+    for _ in range(6):
+        cfg = engine.step_config
+        if fixed is not None and not fixed(cfg):
+            raise RuntimeError(f"the engine's growth rules left the tables: {cfg}")
+        cand_sub, count_sub, flags = step.build_candidates(st, real, params, cfg)
+        args = (density.pos_pack(st.position, real), cand_sub, count_sub, params)
+        out = plain_density(*args)
+        made = lists(cand_sub, out, cfg)
+        if not engine._needs_rerun(flags | made[-1]):
+            return st, real, args, out, made[:-1]
+    raise RuntimeError("capacity growth did not converge on the test tables")
+
+
+def force_pack_of(st, real, dens, params):
+    import torch
+
+    from libclsph_tpu_torch.ops.interactions import tait_pressure
+    from libclsph_tpu_torch.ops.kernels import forces
+
+    pres = torch.where(real, tait_pressure(dens, params), 0.0)
+    return forces.force_pack(st.position, st.velocity, dens, pres, real,
+                             params.particle_mass)
+
+
 def main_path_tables(state, params, engine):
     """The kernels' inputs on the main path for ``state``: padded and
     sorted, candidate tables (capacities grown by the engine's rules
     until nothing is truncated), and, from the plain density, the hit
     lists and force fields."""
-    import torch
-
     from libclsph_tpu_torch.engine import step
-    from libclsph_tpu_torch.ops.interactions import tait_pressure
-    from libclsph_tpu_torch.ops.kernels import density, forces
+    from libclsph_tpu_torch.ops.kernels import density
 
-    st, real, _ = step.pad_and_sort(state, params, True)
-    for _ in range(6):
-        cfg = engine.step_config
-        cand_sub, count_sub, flags = step.build_candidates(st, real, params, cfg)
-        pos4 = density.pos_pack(st.position, real)
-        dens, hits = density.density_c16_hit8_torch(pos4, cand_sub, count_sub, params)
-        cand8, count8, hflags = step.hit_lists(cand_sub, hits, cfg)
-        if not engine._needs_rerun(flags | hflags):
-            break
-    else:
-        raise RuntimeError("capacity growth did not converge on the test tables")
-    pres = torch.where(real, tait_pressure(dens, params), 0.0)
-    f8 = forces.force_pack(st.position, st.velocity, dens, pres, real,
-                           params.particle_mass)
-    return dict(density_args=(pos4, cand_sub, count_sub, params),
-                force_args=(f8, dens, real, cand8, count8, params),
+    st, real, args, (dens, hits), (cand8, count8) = grown_tables(
+        state, params, engine, density.density_c16_torch,
+        lambda cand, out, cfg: step.hit_lists(cand, out[1], cfg))
+    f8 = force_pack_of(st, real, dens, params)
+    return dict(density_args=args, force_args=(f8, dens, real, cand8, count8, params),
                 dens_plain=dens, hits_plain=hits)
 
 
 def compare_kernels(tag, t, stats, time_it):
-    """Kernel vs plain on one set of tables; records the worst errors."""
-    import torch
-
+    """Kernel vs plain on one set of main-path tables."""
     from libclsph_tpu_torch.ops.kernels import density, forces
 
-    d, hits = density.density_c16_hit8(*t["density_args"])
-    torch.cuda.synchronize()
-    d0, hits0 = t["dens_plain"], t["hits_plain"]
-    derr = float((d - d0).abs().max())
-    drel = float(((d - d0).abs() / d0.abs()).max())
-    hit_diff = int((hits != hits0).sum())
-    if drel > 1e-5 or hit_diff:
-        raise RuntimeError(f"{tag}: density rel err {drel:.3g}, {hit_diff} hit counts differ")
+    d, hits = density.density_c16(*t["density_args"])
+    drel = check_density(tag, "density_c16", d, hits, t["dens_plain"], t["hits_plain"],
+                         stats)
     a = forces.forces_q32_c8(*t["force_args"])
-    a0 = forces.forces_q32_c8_torch(*t["force_args"])
-    torch.cuda.synchronize()
-    aerr = float((a - a0).abs().max())
-    amax = float(a0.abs().max())
-    if not aerr <= 1e-5 * amax:
-        raise RuntimeError(f"{tag}: accel err {aerr:.3g} > 1e-5 * {amax:.3g}")
-    s = stats["density_c16_hit8"]
-    s["max_abs_err"] = max(s.get("max_abs_err", 0.0), derr)
-    s = stats["forces_q32_c8"]
-    s["max_abs_err"] = max(s.get("max_abs_err", 0.0), aerr)
-    line = (f"phase 2 {tag}: density max_abs_err {derr:.6g} (rel {drel:.3g}), "
-            f"hits equal ({hits.numel()} counts, {int(hits.sum())} pairs); "
-            f"accel max_abs_err {aerr:.6g} (max|a| {amax:.6g})")
+    aerr = check_accel(tag, "forces_q32_c8", a, forces.forces_q32_c8_torch(*t["force_args"]),
+                       stats)
+    line = (f"phase 2 {tag}: density rel err {drel:.3g}, hits equal ({hits.numel()} "
+            f"counts, {int(hits.sum())} pairs); accel err {aerr:.3g};")
     if time_it:
-        times = {
-            "density_c16_hit8": (
-                cuda_ms(lambda: density.density_c16_hit8(*t["density_args"])),
-                cuda_ms(lambda: density.density_c16_hit8_torch(*t["density_args"])),
-            ),
-            "forces_q32_c8": (
-                cuda_ms(lambda: forces.forces_q32_c8(*t["force_args"])),
-                cuda_ms(lambda: forces.forces_q32_c8_torch(*t["force_args"])),
-            ),
-        }
-        for name, (ms, plain_ms) in times.items():
-            stats[name].setdefault("times", {})[tag] = (ms, plain_ms)
-            line += f"; {name} {ms:.4f} ms (plain {plain_ms:.4f} ms)"
+        pairs_in = int(t["hits_plain"].sum())
+        line += time_kernel(stats, "density_c16", tag,
+                            lambda: density.density_c16(*t["density_args"]),
+                            lambda: density.density_c16_torch(*t["density_args"]),
+                            density_work(t["density_args"], (d, hits), 16))
+        line += time_kernel(stats, "forces_q32_c8", tag,
+                            lambda: forces.forces_q32_c8(*t["force_args"]),
+                            lambda: forces.forces_q32_c8_torch(*t["force_args"]),
+                            force_work(t["force_args"], 8, 32, pairs_in))
     log(line)
 
 
@@ -205,12 +295,37 @@ def kernel_fn(name):
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
-        kernel_fn(name).launches = 0
+    for fn_name, _, _, _ in KERNELS.values():
+        fn = kernel_fn(fn_name)
+        fn.launches = 0
+        if hasattr(fn, "variants"):
+            fn.variants = {}
 
 
 def read_launches() -> dict:
-    return {name: kernel_fn(name).launches for name in KERNELS}
+    out = {}
+    for rec, (fn_name, variant, _, _) in KERNELS.items():
+        fn = kernel_fn(fn_name)
+        out[rec] = fn.launches if variant is None else fn.variants.get(variant, 0)
+    return out
+
+
+def restore_launches(saved_fns) -> None:
+    for fn_name, (launches, variants) in saved_fns.items():
+        fn = kernel_fn(fn_name)
+        fn.launches = launches
+        if variants is not None:
+            fn.variants = variants
+
+
+def save_launches() -> dict:
+    """The raw counters, for runs made only to compare (they do not
+    count)."""
+    saved = {}
+    for fn_name, _, _, _ in KERNELS.values():
+        fn = kernel_fn(fn_name)
+        saved[fn_name] = (fn.launches, dict(fn.variants) if hasattr(fn, "variants") else None)
+    return saved
 
 
 def record_err(stats, name, err) -> None:
@@ -235,10 +350,10 @@ def check_density(tag, name, d, hits, d0, hits0, stats) -> float:
 
     torch.cuda.synchronize()
     drel = float(((d - d0).abs() / d0.abs()).max())
-    hit_diff = int((hits != hits0).sum())
-    if drel > 1e-5 or hit_diff or hits.shape != hits0.shape:
+    hit_diff = int((hits != hits0).sum()) if hits.shape == hits0.shape else -1
+    if drel > 1e-5 or hit_diff:
         raise RuntimeError(f"{tag} {name}: density rel err {drel:.3g}, "
-                           f"{hit_diff} hit counts differ")
+                           f"{hit_diff} hit counts differ (-1: shapes differ)")
     record_err(stats, name, float((d - d0).abs().max()))
     return drel
 
@@ -249,31 +364,23 @@ def q_path_tables(state, params, engine):
     per subgroup and per block from the plain density, the q32 and q128
     force lists (capacities grown by the engine's rules until nothing
     is truncated) and the force pack."""
-    import torch
-
     from libclsph_tpu_torch.engine import step
-    from libclsph_tpu_torch.ops.interactions import tait_pressure
-    from libclsph_tpu_torch.ops.kernels import density, forces
+    from libclsph_tpu_torch.ops.kernels import density
 
-    st, real, _ = step.pad_and_sort(state, params, True)
-    for _ in range(6):
-        cfg = engine.step_config
-        cand_sub, count_sub, flags = step.build_candidates(st, real, params, cfg)
-        pos4 = density.pos_pack(st.position, real)
-        dens, hits4 = density.density_c32_torch(pos4, cand_sub, count_sub, params, groups=4)
-        _, hits1 = density.density_c32_torch(pos4, cand_sub, count_sub, params, groups=1)
-        cand32, count32, f32 = step.hit_lists(cand_sub, hits4, cfg, 4)
-        cand128, count128, f128 = step.hit_lists(cand_sub, hits1, cfg, 1)
-        if not engine._needs_rerun(flags | f32 | f128):
-            break
-    else:
-        raise RuntimeError("capacity growth did not converge on the q-granular tables")
-    pres = torch.where(real, tait_pressure(dens, params), 0.0)
-    f8 = forces.force_pack(st.position, st.velocity, dens, pres, real,
-                           params.particle_mass)
-    return dict(density_args=(pos4, cand_sub, count_sub, params), dens_plain=dens,
-                hits4=hits4, hits1=hits1, f8=f8, real=real,
-                q32=(cand32, count32), q128=(cand128, count128), params=params)
+    def plain(*args):
+        d, h4 = density.density_c32_torch(*args, groups=4)
+        return d, h4, density.density_c32_torch(*args, groups=1)[1]
+
+    def lists(cand, out, cfg):
+        q32 = step.hit_lists(cand, out[1], cfg, 4)
+        q128 = step.hit_lists(cand, out[2], cfg, 1)
+        return q32[:2], q128[:2], q32[2] | q128[2]
+
+    st, real, args, (dens, hits4, hits1), (q32, q128) = grown_tables(
+        state, params, engine, plain, lists)
+    return dict(density_args=args, dens_plain=dens, hits4=hits4, hits1=hits1,
+                f8=force_pack_of(st, real, dens, params), real=real, q32=q32, q128=q128,
+                params=params)
 
 
 def compare_q_kernels(tag, t, stats, time_it):
@@ -283,11 +390,12 @@ def compare_q_kernels(tag, t, stats, time_it):
 
     d0 = t["dens_plain"]
     line = f"phase 2 {tag} (q-granular tables):"
-    for groups in (4, 1):
+    outs = {}
+    for groups, rec in ((4, "density_c32"), (1, "density_c32 groups 1")):
         d, hits = density.density_c32(*t["density_args"], groups=groups)
-        drel = check_density(tag, "density_c32", d, hits, d0, t[f"hits{groups}"], stats)
-        line += (f" density_c32 G={groups} rel err {drel:.3g}, hits equal "
-                 f"({hits.numel()} counts);")
+        drel = check_density(tag, rec, d, hits, d0, t[f"hits{groups}"], stats)
+        outs[rec] = (d, hits)
+        line += f" {rec} rel err {drel:.3g}, hits equal ({hits.numel()} counts);"
     fargs = (t["f8"], d0, t["real"])
     for name, lists in (("forces_q32_c32", "q32"), ("forces_q128_c32", "q128")):
         args = fargs + t[lists] + (t["params"],)
@@ -295,27 +403,164 @@ def compare_q_kernels(tag, t, stats, time_it):
         aerr = check_accel(tag, name, a, getattr(forces, name + "_torch")(*args), stats)
         line += f" {name} accel err {aerr:.3g};"
     if time_it:
-        timed = [
-            ("density_c32", lambda: density.density_c32(*t["density_args"], groups=4),
-             lambda: density.density_c32_torch(*t["density_args"], groups=4)),
-            ("density_c32 G=1", lambda: density.density_c32(*t["density_args"], groups=1),
-             lambda: density.density_c32_torch(*t["density_args"], groups=1)),
-        ]
-        for name, lists in (("forces_q32_c32", "q32"), ("forces_q128_c32", "q128")):
+        pairs_in = int(t["hits4"].sum())
+        for groups, rec in ((4, "density_c32"), (1, "density_c32 groups 1")):
+            line += time_kernel(
+                stats, rec, tag,
+                lambda g=groups: density.density_c32(*t["density_args"], groups=g),
+                lambda g=groups: density.density_c32_torch(*t["density_args"], groups=g),
+                density_work(t["density_args"], outs[rec], 32))
+        for name, lists, qrows in (("forces_q32_c32", "q32", 32),
+                                   ("forces_q128_c32", "q128", 128)):
             args = fargs + t[lists] + (t["params"],)
-            timed.append((name, lambda a=args, n=name: kernel_fn(n)(*a),
-                          lambda a=args, n=name: getattr(forces, n + "_torch")(*a)))
-        for name, fn, plain in timed:
-            ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
-            if name in stats:
-                stats[name].setdefault("times", {})[tag] = (ms, plain_ms)
-            line += f" {name} {ms:.4f} ms (plain {plain_ms:.4f} ms);"
+            line += time_kernel(stats, name, tag, lambda a=args, n=name: kernel_fn(n)(*a),
+                                lambda a=args, n=name: getattr(forces, n + "_torch")(*a),
+                                force_work(args, 32, qrows, pairs_in))
     log(line)
 
 
-def compare_qblock(tag, t_main, t_q, stats):
-    """Every kernel through the query-block map on a tier-2 pool (every
-    8th block, in reverse order) against its plain version."""
+def sub16_tables(state, params, engine, width):
+    """The 16-wide force path's inputs for ``state``: (True, True, False)
+    tables (``width`` 16) or (False, True, False) ones (32), hits at
+    hit_sub 16 from the plain density, the 16-wide lists (capacities grown
+    by the engine's rules, which must keep these tables) and the force
+    pack."""
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.ops.kernels import density
+
+    if width == 16:
+        def plain(*args):
+            return density.density_c16_torch(*args, hit_sub=16)
+    else:
+        def plain(*args):
+            return density.density_c32_torch(*args, hit_sub=16)
+
+    st, real, args, (dens, hits), (cand16, count16) = grown_tables(
+        state, params, engine, plain, lambda cand, out, cfg: step.hit_lists(cand, out[1], cfg),
+        fixed=lambda cfg: (cfg.density_sub16 == (width == 16) and cfg.force_sub16
+                           and not cfg.force_sub8))
+    f8 = force_pack_of(st, real, dens, params)
+    return dict(density_args=args, dens_plain=dens, hits_plain=hits,
+                force_args=(f8, dens, real, cand16, count16, params))
+
+
+def compare_sub16_kernels(tag, t16, t32, stats, time_it):
+    """The 16-wide force path's kernels against their plain versions:
+    ``density_c16`` at hit_sub 16 with and without the dilated tile
+    counts and ``forces_q32_c16`` on the (True, True, False) tables,
+    ``density_c32`` at hit_sub 16 and ``forces_q32_c16`` on the (False,
+    True, False) ones."""
+    import torch
+
+    from libclsph_tpu_torch.ops.kernels import density, forces
+
+    args16, args32 = t16["density_args"], t32["density_args"]
+    params = args16[3]
+    hit2_h = params.h * 1.25  # the build substep's (1 + cand_slack) h
+    line = f"phase 2 {tag} (16-wide force path):"
+    d, hits = density.density_c16(*args16, hit_sub=16)
+    out16 = (d, hits)
+    drel = check_density(tag, "density_c16 hit_sub 16", d, hits, t16["dens_plain"],
+                         t16["hits_plain"], stats)
+    line += f" density_c16 hit_sub 16 rel err {drel:.3g}, hits equal;"
+    d, hits, tiles = density.density_c16(*args16, hit_sub=16, hit2_h=hit2_h)
+    out_t = (d, hits, tiles)
+    d0, hits0, tiles0 = density.density_c16_torch(*args16, hit_sub=16, hit2_h=hit2_h)
+    drel = check_density(tag, "density_c16 hit_sub 16, hit2_h", d, hits, d0, hits0, stats)
+    if not torch.equal(tiles, tiles0):
+        raise RuntimeError(f"{tag}: {int((tiles != tiles0).sum())} tile counts differ")
+    line += (f" with hit2_h rel err {drel:.3g}, hits and {tiles.numel()} tile counts equal "
+             f"({int((tiles > 0).sum())} flagged);")
+    d, hits = density.density_c32(*args32, hit_sub=16)
+    out32 = (d, hits)
+    drel = check_density(tag, "density_c32 hit_sub 16", d, hits, t32["dens_plain"],
+                         t32["hits_plain"], stats)
+    line += f" density_c32 hit_sub 16 rel err {drel:.3g}, hits equal;"
+    for name, t in (("c16 tables", t16), ("c32 tables", t32)):
+        a = forces.forces_q32_c16(*t["force_args"])
+        aerr = check_accel(tag, "forces_q32_c16", a,
+                           forces.forces_q32_c16_torch(*t["force_args"]), stats)
+        line += f" forces_q32_c16 on {name} accel err {aerr:.3g};"
+    if time_it:
+        line += time_kernel(stats, "density_c16 hit_sub 16", tag,
+                            lambda: density.density_c16(*args16, hit_sub=16),
+                            lambda: density.density_c16_torch(*args16, hit_sub=16),
+                            density_work(args16, out16, 16))
+        line += time_kernel(
+            stats, "density_c16 hit_sub 16, hit2_h", tag,
+            lambda: density.density_c16(*args16, hit_sub=16, hit2_h=hit2_h),
+            lambda: density.density_c16_torch(*args16, hit_sub=16, hit2_h=hit2_h),
+            density_work(args16, out_t, 16, extra_ops=1))
+        line += time_kernel(stats, "density_c32 hit_sub 16", tag,
+                            lambda: density.density_c32(*args32, hit_sub=16),
+                            lambda: density.density_c32_torch(*args32, hit_sub=16),
+                            density_work(args32, out32, 32))
+        fa = t16["force_args"]
+        line += time_kernel(stats, "forces_q32_c16", tag,
+                            lambda: forces.forces_q32_c16(*fa),
+                            lambda: forces.forces_q32_c16_torch(*fa),
+                            force_work(fa, 16, 32, int(t16["hits_plain"].sum())))
+    log(line)
+
+
+def compare_gated(tag, state, params, scene, engine, stats, time_it):
+    """``density_gated16`` against the ungated ``density_c16`` (hit_sub
+    16) on the carried table and mask of a gated rebuild substep, three
+    reuse substeps later (inside the staleness guard): density and hits
+    bit for bit, and the plain gated version within tolerance."""
+    import dataclasses
+
+    import torch
+
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.ops.kernels import density
+
+    cfg = dataclasses.replace(engine.step_config, density_gate=True)
+    dt = torch.tensor(params.max_dt, dtype=torch.float32, device=state.device)
+    s, dt, flags, tab = step.substep(state, dt, params, scene, cfg)
+    for _ in range(3):
+        s, dt, f, _ = step.substep(s, dt, params, scene, cfg, do_sort=False, cand_in=tab)
+        flags = flags | f
+    if int(flags):
+        raise RuntimeError(f"{tag}: gated substeps raised flags {int(flags)}")
+    st, real, _ = step.pad_and_sort(s, params, False)
+    moved = torch.sqrt(torch.amax(torch.sum((st.position - tab[2]) ** 2, dim=1)[real]))
+    if not 2.0 * float(moved) <= cfg.cand_slack * params.h:
+        raise RuntimeError(f"{tag}: the state left the staleness guard")
+    pos4 = density.pos_pack(st.position, real)
+    args = (pos4, tab[0].contiguous(), tab[1].contiguous(), tab[3], params)
+    d, hits = density.density_gated16(*args)
+    d0, hits0 = density.density_c16(*args[:3], params, hit_sub=16)
+    torch.cuda.synchronize()
+    if not (torch.equal(d, d0) and torch.equal(hits, hits0)):
+        raise RuntimeError(f"{tag}: gated density differs from the ungated kernel's: "
+                           f"{int((d != d0).sum())} densities, "
+                           f"{int((hits != hits0).sum())} hit counts")
+    dp, hp = density.density_gated16_torch(*args)
+    drel = check_density(tag, "density_gated16", d, hits, dp, hp, stats)
+    cap = args[1].shape[1]
+    live = (torch.arange(cap, device=pos4.device)[None, None, :]
+            < args[2][:, None, None]).expand(-1, 4, -1)
+    panels = density.mask_panels(args[3], cap) & live
+    share = float(panels.sum()) / float(live.sum())
+    line = (f"phase 2 {tag}: density_gated16 three reuse substeps after its build "
+            f"(largest move {float(moved) / params.h:.4f} h): density and hits bit-equal "
+            f"to density_c16 hit_sub 16; plain rel err {drel:.3g}; {share:.4f} of the "
+            f"live (subgroup, slot) panels flagged;")
+    if time_it:
+        line += time_kernel(stats, "density_gated16", tag, lambda: density.density_gated16(*args),
+                            lambda: density.density_gated16_torch(*args),
+                            density_work(args, (args[3], d, hits), 16,
+                                         pairs=int(panels.sum()) * 32 * 16))
+        ungated = cuda_ms(lambda: density.density_c16(*args[:3], params, hit_sub=16))
+        line += f" ungated density_c16 hit_sub 16 on the same inputs {ungated:.4f} ms;"
+    log(line)
+
+
+def compare_qblock(tag, t_main, t_q, t16, t32, stats):
+    """Every table-driven kernel through the query-block map on a tier-2
+    pool (every 8th block, in reverse order) against its plain
+    version."""
     import torch
 
     from libclsph_tpu_torch.ops.kernels import density, forces
@@ -329,27 +574,42 @@ def compare_qblock(tag, t_main, t_q, stats):
         r = (li[:, None] * lists + torch.arange(lists, device=a.device)).reshape(-1)
         return a[r].contiguous()
 
-    cases = [("density_c16_hit8", (pos4, rows(cand16, 1), rows(count16, 1), params), {})]
-    _, cand32, count32, _ = t_q["density_args"]
-    for groups in (4, 1):
-        cases.append(("density_c32", (pos4, rows(cand32, 1), rows(count32, 1), params),
-                      dict(groups=groups)))
-    for name, args, kw in cases:
-        d, hits = kernel_fn(name)(*args, qblock=pool, **kw)
-        d0, hits0 = getattr(density, name + "_torch")(*args, qblock=pool, **kw)
-        check_density(tag, name, d, hits, d0, hits0, stats)
-    f8m, densm, realm, cand8, count8, _ = t_main["force_args"]
-    fcases = [("forces_q32_c8", (f8m, densm, realm, rows(cand8, 4), rows(count8, 4))),
-              ("forces_q32_c32", (t_q["f8"], t_q["dens_plain"], t_q["real"],
-                                  rows(t_q["q32"][0], 4), rows(t_q["q32"][1], 4))),
-              ("forces_q128_c32", (t_q["f8"], t_q["dens_plain"], t_q["real"],
-                                   rows(t_q["q128"][0], 1), rows(t_q["q128"][1], 1)))]
+    def dargs(t):
+        return (pos4, rows(t["density_args"][1], 1), rows(t["density_args"][2], 1), params)
+
+    hit2_h = params.h * 1.25
+    cases = [("density_c16", "density_c16", dargs(t_main), {}),
+             ("density_c16 hit_sub 16", "density_c16", dargs(t16), dict(hit_sub=16)),
+             ("density_c16 hit_sub 16, hit2_h", "density_c16", dargs(t16),
+              dict(hit_sub=16, hit2_h=hit2_h)),
+             ("density_c32", "density_c32", dargs(t_q), dict(groups=4)),
+             ("density_c32 groups 1", "density_c32", dargs(t_q), dict(groups=1)),
+             ("density_c32 hit_sub 16", "density_c32", dargs(t32), dict(hit_sub=16))]
+    for rec, name, args, kw in cases:
+        out = kernel_fn(name)(*args, qblock=pool, **kw)
+        ref = getattr(density, name + "_torch")(*args, qblock=pool, **kw)
+        check_density(tag, rec, out[0], out[1], ref[0], ref[1], stats)
+        if len(out) > 2 and not torch.equal(out[2], ref[2]):
+            raise RuntimeError(f"{tag} {rec}: tile counts differ through the map")
+
+    def fargs(t, lists):
+        f8, dens, real, cand, count = t[:5]
+        return (f8, dens, real, rows(cand, lists), rows(count, lists))
+
+    fcases = [("forces_q32_c8", fargs(t_main["force_args"], 4)),
+              ("forces_q32_c16", fargs(t16["force_args"], 4)),
+              ("forces_q32_c16", fargs(t32["force_args"], 4)),
+              ("forces_q32_c32", fargs((t_q["f8"], t_q["dens_plain"], t_q["real"])
+                                       + t_q["q32"], 4)),
+              ("forces_q128_c32", fargs((t_q["f8"], t_q["dens_plain"], t_q["real"])
+                                        + t_q["q128"], 1))]
     for name, args in fcases:
         a = kernel_fn(name)(*args, params, qblock=pool)
         check_accel(tag, name, a, getattr(forces, name + "_torch")(*args, params,
                                                                    qblock=pool), stats)
-    log(f"phase 2 {tag}: all five kernels through the query-block map on a pool of "
-        f"{len(li)} of {nb} blocks match their plain versions")
+    log(f"phase 2 {tag}: every table-driven kernel and mode ({len(cases)} density, "
+        f"{len(fcases)} force cases) through the query-block map on a pool of {len(li)} "
+        f"of {nb} blocks matches its plain version")
 
 
 def run_substeps(state, dt, params, scene, cfg, steps):
@@ -390,10 +650,135 @@ def run_with_growth(state, params, scene, engine, steps):
     raise RuntimeError("capacity growth did not converge")
 
 
+def timed_window(phase, st, dt, params, scene, engine):
+    """TIMED_STEPS substeps from (st, dt) on ``engine.step_config``; a
+    flagged window grows the flagged table and is re-run from the same
+    state, as the engine re-runs a frame (the number stands only for a
+    window that raised no flag). Returns (state, dt, ms/substep, the
+    window's launches by record)."""
+    import torch
+
+    for _ in range(6):
+        before = read_launches()
+        t0 = time.perf_counter()
+        st_t, dt_t, flags = run_substeps(st, dt, params, scene, engine.step_config,
+                                         TIMED_STEPS)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        if not engine._needs_rerun(flags):
+            break
+        log(f"phase {phase} timed window raised flags {int(flags)} -> grown to "
+            f"{engine.step_config}; re-running it")
+    else:
+        raise RuntimeError("timed window kept raising capacity flags")
+    if not (torch.isfinite(st_t.position).all() and torch.isfinite(st_t.density).all()):
+        raise RuntimeError(f"phase {phase}: non-finite state in the 1M run")
+    after = read_launches()
+    return st_t, dt_t, 1000.0 * elapsed / TIMED_STEPS, {
+        k: after[k] - before[k] for k in after}
+
+
+def substep_ms(st, dt, params, scene, cfg, reps=5):
+    """Median ms of one rebuild substep and of one reuse substep on its
+    tables, from the same state (host clock around synchronised
+    substeps)."""
+    import torch
+
+    from libclsph_tpu_torch.engine import step
+
+    def timed(fn):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1000.0 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    s1, d1, _, tab = step.substep(st, dt, params, scene, cfg)
+    rebuild = timed(lambda: step.substep(st, dt, params, scene, cfg))
+    reuse = timed(lambda: step.substep(s1, d1, params, scene, cfg, do_sort=False,
+                                       cand_in=tab))
+    return rebuild, reuse
+
+
+def phase4b_sub16(s1m, params, scene, engine, card):
+    """The 1M cube dam-break on the 16-wide force path (True, True,
+    False) as phase 4 runs it, then with the gated reuse density from the
+    same warm state; a growth rule that leaves the 16-wide tables fails
+    the phase."""
+    import dataclasses
+
+    import torch
+
+    def require_16_wide(cfg):
+        if not (cfg.density_sub16 and cfg.force_sub16 and not cfg.force_sub8):
+            raise RuntimeError(f"phase 4b: the growth rules left the 16-wide tables: {cfg}")
+
+    t0 = time.perf_counter()
+    st, dt = run_with_growth(s1m, params, scene, engine, WARMUP_STEPS)
+    torch.cuda.synchronize()
+    require_16_wide(engine.step_config)
+    log(f"phase 4b warm-up: {time.perf_counter() - t0:.2f} s, config {engine.step_config}")
+    # ungated and gated windows in turns from the same warm state, so the
+    # two are compared on one card under the same conditions
+    cfg = engine.step_config
+    gate = engine_with(engine, dataclasses.replace(cfg, density_gate=True))
+    reuse = TIMED_STEPS - -(-TIMED_STEPS // cfg.cand_interval)
+    ms = {"ungated": [], "gated": []}
+    for which in ("ungated", "gated", "gated", "ungated"):
+        eng = engine if which == "ungated" else gate
+        _, _, t, got = timed_window(f"4b {which}", st, dt, params, scene, eng)
+        require_16_wide(eng.step_config)
+        densities = (got["density_c16 hit_sub 16"] + got["density_c16 hit_sub 16, hit2_h"]
+                     + got["density_gated16"])
+        if min(got["forces_q32_c16"], densities) < TIMED_STEPS:
+            raise RuntimeError(f"phase 4b {which}: the 16-wide kernels launched {got}")
+        gated = got["density_gated16"]
+        if which == "gated" and (gated != reuse or got["density_c16 hit_sub 16, hit2_h"] < 1):
+            raise RuntimeError(f"phase 4b gated: {gated} gated launches for {reuse} reuse "
+                               f"substeps ({got})")
+        if which == "ungated" and gated:
+            raise RuntimeError(f"phase 4b ungated: density_gated16 launched {gated} times")
+        ms[which].append(t)
+    mean = {k: statistics.mean(v) for k, v in ms.items()}
+    log(f"phase 4b bench (16-wide force path): {N_BENCH} particles, {TIMED_STEPS} "
+        f"substeps, {mean['ungated']:.3f} ms/substep (windows {ms['ungated'][0]:.3f}, "
+        f"{ms['ungated'][1]:.3f}), {N_BENCH * 1e3 / mean['ungated']:.6g} particle-steps/s, "
+        f"timed_flags 0, forces_q32_c16 on every substep, config {engine.step_config}; "
+        f"card {card}")
+    a, _, fa = run_substeps(st, dt, params, scene, engine.step_config, 8)
+    b, _, fb = run_substeps(st, dt, params, scene, gate.step_config, 8)
+    torch.cuda.synchronize()
+    if int(fa) or int(fb):
+        raise RuntimeError(f"phase 4b: flags {int(fa)} / {int(fb)} in the 8-substep runs")
+    if not (torch.equal(a.position, b.position) and torch.equal(a.density, b.density)):
+        raise RuntimeError("phase 4b: the gated run's positions differ from the ungated run's "
+                           f"after 8 substeps (max {float((a.position - b.position).abs().max())})")
+    times = {name: substep_ms(st, dt, params, scene, c)
+             for name, c in (("ungated", engine.step_config), ("gated", gate.step_config))}
+    log(f"phase 4b gated: {mean['gated']:.3f} ms/substep (windows {ms['gated'][0]:.3f}, "
+        f"{ms['gated'][1]:.3f}; ungated {mean['ungated']:.3f}), timed_flags 0, "
+        f"density_gated16 launched on all {reuse} reuse substeps of each window; positions "
+        f"and densities bit-equal to the ungated run after 8 substeps; rebuild / reuse "
+        f"substep ms (median of 5): ungated {times['ungated'][0]:.3f} / "
+        f"{times['ungated'][1]:.3f}, gated {times['gated'][0]:.3f} / {times['gated'][1]:.3f}; "
+        f"card {card}")
+
+
+def engine_with(engine, cfg):
+    """A second engine on ``engine``'s device with ``cfg`` (its own
+    capacity growth)."""
+    from libclsph_tpu_torch.engine.simulation import SPHSimulation
+
+    return SPHSimulation(cfg, device=engine.device, pretune=False)
+
+
 def phase5_two_tier(state, params, scene):
     """A single-tier substep at full subblock capacity against a two-tier
-    one whose base capacity lies below the heavy blocks, for the main and
-    the q-granular config, on ``state``."""
+    one whose base capacity lies below the heavy blocks, for the main,
+    the two 16-wide and the q-granular configs, on ``state``."""
     import dataclasses
 
     import numpy as np
@@ -405,6 +790,8 @@ def phase5_two_tier(state, params, scene):
     dt = torch.tensor(params.max_dt, dtype=torch.float32, device=state.device)
     st, real, _ = step.pad_and_sort(state, params, True)
     for name, base in (("main", dict(max_candidates_hit8=192)),
+                       ("16-wide c16", SUB16),
+                       ("16-wide c32", dict(FTF, max_candidates_hit=256)),
                        ("q-granular", dict(Q_PATH, max_candidates_hit=256))):
         cfg = step.StepConfig(**base)
         wide = dataclasses.replace(cfg, max_candidates_sub=1 << 14)
@@ -421,44 +808,47 @@ def phase5_two_tier(state, params, scene):
         single = dataclasses.replace(cfg, max_candidates_sub=c1 * mult)
         two = dataclasses.replace(cfg, max_candidates_sub=c1, tier2_frac=frac,
                                   tier2_mult=mult)
-        q128_before = forces.forces_q128_c32.launches
         s1, _, f1, _ = step.substep(state, dt, params, scene, single)
+        before = (forces.forces_q128_c32.launches, forces.forces_q32_c16.launches)
         s2, _, f2, _ = step.substep(state, dt, params, scene, two)
         torch.cuda.synchronize()
+        q128 = forces.forces_q128_c32.launches - before[0]
+        c16 = forces.forces_q32_c16.launches - before[1]
         if int(f1) or int(f2):
             raise RuntimeError(f"phase 5 {name}: flags {int(f1)} / {int(f2)}")
         same = torch.equal(s1.density, s2.density)
         drel = float(((s1.density - s2.density).abs() / s1.density.abs()).max())
         aerr = float((s1.acceleration - s2.acceleration).abs().max())
         amax = float(s1.acceleration.abs().max())
-        if drel > 1e-6 or not aerr <= 1e-5 * amax:
+        if not same or not aerr <= 1e-5 * amax:
             raise RuntimeError(f"phase 5 {name}: density rel err {drel:.3g}, "
                                f"accel err {aerr:.3g} (max|a| {amax:.3g})")
-        q128 = forces.forces_q128_c32.launches - q128_before
-        if name == "q-granular" and q128 <= 0:
-            raise RuntimeError("phase 5: forces_q128_c32 did not launch in tier 2")
+        if not cfg.density_sub16 and q128 <= 0:
+            raise RuntimeError(f"phase 5 {name}: forces_q128_c32 did not launch in tier 2")
+        if cfg.density_sub16 and not cfg.force_sub8 and c16 < 2:
+            raise RuntimeError(f"phase 5 {name}: forces_q32_c16 did not run both tiers")
         hits = two_tier_hits(st, real, params, two)
         log(f"phase 5 two-tier {name}: {nb} blocks, base cap {c1}, {heavy} heavy blocks "
             f"in a pool of {-(-nb // frac)} (tier2_frac {frac}, tier2_mult {mult}); "
-            f"density {'bitwise equal' if same else f'rel err {drel:.3g}'} to the "
-            f"single-tier run at cap {c1 * mult}; accel err {aerr:.3g} (max|a| "
-            f"{amax:.6g}); forces_q128_c32 launches {q128}; {hits}")
+            f"density bitwise equal to the single-tier run at cap {c1 * mult}; accel err "
+            f"{aerr:.3g} (max|a| {amax:.6g}); two-tier launches forces_q128_c32 {q128}, "
+            f"forces_q32_c16 {c16}; {hits}")
 
 
 def two_tier_hits(st, real, params, cfg):
     """The hit counts of both tiers (route_overflow's split of the
     tier-2-width table, tier 2 through the query-block map) against the
-    single-tier kernel over the whole table: tier-1 rows equal its rows
-    on their first c1 slots, routed rows are zero in tier 1, and tier 2
-    equals its routed rows (one hit row per block on the q path's tier
-    2, so the single run takes that shape there too)."""
+    single-tier kernel over the whole table, each tier at its own hit
+    rows and width (the substep's ``_density_pass``): tier-1 rows equal
+    its rows on their first c1 slots, routed rows are zero in tier 1,
+    and tier 2 equals its routed rows."""
     import torch
 
     from libclsph_tpu_torch.engine import step
     from libclsph_tpu_torch.ops import tiles
     from libclsph_tpu_torch.ops.kernels import density
 
-    saved = read_launches()  # launches made to compare do not count
+    saved = save_launches()  # launches made to compare do not count
     cand, count, _ = step.build_candidates(st, real, params, cfg)
     pos4 = density.pos_pack(st.position, real)
     nb, c1 = cand.shape[0], cfg.max_candidates_sub
@@ -466,24 +856,22 @@ def two_tier_hits(st, real, params, cfg):
     li = idx.long()
     cand2 = cand[li].contiguous()
     count2 = torch.where(used, count[li], 0).to(torch.int32)
-    if cfg.density_sub16:
-        run = lambda *a, g, **k: density.density_c16_hit8(*a, params, **k)[1]  # noqa: E731
-        g1 = g2 = 4
-        width = 2 * c1  # two half-slot columns a slot
-    else:
-        run = lambda *a, g, **k: density.density_c32(*a, params, groups=g, **k)[1]  # noqa: E731
-        g1, g2 = (4 if cfg.force_query_rows == 32 else 1), 1
-        width = c1
-    whole1 = run(pos4, cand, count, g=g1).reshape(nb, g1, -1)
-    whole2 = run(pos4, cand, count, g=g2).reshape(nb, g2, -1)
-    tier1 = run(pos4, cand[:, :c1].contiguous(), count1, g=g1).reshape(nb, g1, -1)
-    tier2 = run(pos4, cand2, count2, g=g2, qblock=idx).reshape(len(li), g2, -1)
+    g1, g2 = step._groups(cfg, 1), step._groups(cfg, 2)
+
+    def run(cand_, count_, g, **kw):
+        return step._density_pass(pos4, cand_, count_, params, cfg, g, **kw)[1].reshape(
+            cand_.shape[0], g, -1)
+
+    width = c1 * cfg.subblock // cfg.hit_width(g1)  # hit columns of c1 slots
+    whole1 = run(cand, count, g1)
+    whole2 = run(cand, count, g2)
+    tier1 = run(cand[:, :c1], count1, g1)
+    tier2 = run(cand2, count2, g2, qblock=idx)
     heavy = count > c1
     ok1 = torch.equal(tier1[~heavy], whole1[~heavy][..., :width]) and not bool(
         tier1[heavy].any())
     ok2 = torch.equal(tier2[used], whole2[li][used])
-    for name, n in saved.items():
-        kernel_fn(name).launches = n
+    restore_launches(saved)
     if not (ok1 and ok2):
         raise RuntimeError(f"phase 5: two-tier hit counts differ (tier 1 {ok1}, tier 2 {ok2})")
     return (f"hits equal: tier 1 on {int((~heavy).sum())} rows, tier 2 on "
@@ -608,12 +996,13 @@ def phase6_river(tmp, dev, frames):
 
     sim._run_frame = timed_frame
     pretune.pretune_config = timed_probe
-    reset_launches()
+    before = read_launches()
     try:
         total = sim.simulate()
     finally:
         pretune.pretune_config = probe
-    launches = read_launches()
+    after = read_launches()
+    launches = {k: after[k] - before[k] for k in after}
     chosen, final = configs[0], sim.step_config
     st = sim.state
     rho0 = fluid["fluid_density"]
@@ -644,8 +1033,9 @@ def phase6_river(tmp, dev, frames):
     return launches
 
 
-def phase3_cli(tmp):
-    """sph-torch water default cube <tmp>/out_ at 64,000 particles."""
+def phase3_cli(tmp, phase="3", flags=()):
+    """sph-torch water default cube <tmp>/out_ [flags] at 64,000
+    particles."""
     import numpy as np
 
     from libclsph_tpu_torch import cli
@@ -666,7 +1056,7 @@ def phase3_cli(tmp):
     try:
         t0 = time.perf_counter()
         rc = cli.main(["water", "default", "cube", os.path.join(tmp, "out_"),
-                       "--root", root])
+                       "--root", root, *flags])
         seconds = time.perf_counter() - t0
     finally:
         os.chdir(cwd)
@@ -700,7 +1090,8 @@ def phase3_cli(tmp):
     med = float(np.median(dens))
     if not (0.5 * rho0 < med < 2.0 * rho0 and float(dens.max()) < 10 * rho0):
         raise RuntimeError(f"densities off: median {med}, max {float(dens.max())}")
-    log(f"phase 3 cli: {len(names)} frames of 64000 points in {seconds:.2f} s "
+    log(f"phase {phase} cli {' '.join(flags)}: {len(names)} frames of 64000 points in "
+        f"{seconds:.2f} s "
         f"(scene bake, 3 frames and export included); min y {ymin:.4f}, "
         f"max |x|,|z| {xzmax:.4f} (bound {half + 0.05:.4f}); "
         f"density median {med:.2f} max {float(dens.max()):.2f}")
@@ -725,7 +1116,7 @@ def main(argv=None) -> int:
     from libclsph_tpu_torch.engine import step
     from libclsph_tpu_torch.engine.simulation import SPHSimulation, configure_device
     from libclsph_tpu_torch.ops import collisions
-    from libclsph_tpu_torch.ops.kernels import build, density, forces
+    from libclsph_tpu_torch.ops.kernels import build
     from libclsph_tpu_torch.scene.scene import Scene
 
     dev = configure_device("cuda")
@@ -748,76 +1139,65 @@ def main(argv=None) -> int:
 
     # phase 2
     stats = {name: {} for name in KERNELS}
-    cfg = step.StepConfig()
-    qcfg = step.StepConfig(**Q_PATH)
+    engines = {}
+
+    def engine_for(tag, over):
+        key = (tag, tuple(sorted(over.items())))
+        if key not in engines:  # the engine's growth, per table shape and cell
+            engines[key] = SPHSimulation(step.StepConfig(**over), device=dev, pretune=False)
+        return engines[key]
+
+    def scene_for(p):
+        return collisions.build_device_scene(
+            Scene.load("cube.obj", p.h * 2.0, scenes_dir=os.path.join(ROOT, "scenes")), dev)
+
+    def compare_all(tag, state, p, scene, time_it, qblock=False):
+        cell = tag.split()[0]
+        t_main = main_path_tables(state, p, engine_for(cell, {}))
+        compare_kernels(tag, t_main, stats, time_it)
+        t_q = q_path_tables(state, p, engine_for(cell, Q_PATH))
+        compare_q_kernels(tag, t_q, stats, time_it)
+        t16 = sub16_tables(state, p, engine_for(cell, SUB16), 16)
+        t32 = sub16_tables(state, p, engine_for(cell, FTF), 32)
+        compare_sub16_kernels(tag, t16, t32, stats, time_it)
+        compare_gated(tag, state, p, scene, engine_for(cell, SUB16), stats, time_it)
+        if qblock:
+            compare_qblock(tag, t_main, t_q, t16, t32, stats)
+
     p64 = water_params(65536)
-    scene64 = collisions.build_device_scene(
-        Scene.load("cube.obj", p64.h * 2.0, scenes_dir=os.path.join(ROOT, "scenes")), dev)
+    scene64 = scene_for(p64)
     s64 = init_state(p64, dev)
-    engine64 = SPHSimulation(cfg, device=dev, pretune=False)  # the engine's growth
-    q64 = SPHSimulation(qcfg, device=dev, pretune=False)
-    compare_kernels("64k lattice", main_path_tables(s64, p64, engine64), stats, True)
-    compare_q_kernels("64k lattice", q_path_tables(s64, p64, q64), stats, True)
-    s64, _ = run_with_growth(s64, p64, scene64, engine64, 10)
-    compare_kernels("64k after 10 substeps", main_path_tables(s64, p64, engine64),
-                    stats, True)
-    compare_q_kernels("64k after 10 substeps", q_path_tables(s64, p64, q64), stats, True)
+    compare_all("64k lattice", s64, p64, scene64, True)
+    s64, _ = run_with_growth(s64, p64, scene64, engine_for("64k", {}), 10)
+    compare_all("64k after 10 substeps", s64, p64, scene64, True)
     p1m = water_params(N_BENCH)
+    scene1m = scene_for(p1m)
     s1m = init_state(p1m, dev)
-    engine = SPHSimulation(cfg, device=dev, pretune=False)
-    t_main = main_path_tables(s1m, p1m, engine)
-    compare_kernels("1M lattice", t_main, stats, True)
-    t_q = q_path_tables(s1m, p1m, SPHSimulation(qcfg, device=dev, pretune=False))
-    compare_q_kernels("1M lattice", t_q, stats, True)
-    compare_qblock("1M lattice", t_main, t_q, stats)
-    del s64, t_main, t_q
+    compare_all(BENCH_TAG, s1m, p1m, scene1m, True, qblock=True)
+    del s64
     torch.cuda.empty_cache()
 
     # phases 3 and 4 drive the main path; count the kernels' launches there
     reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         phase3_cli(tmp)
-    cli_launches = (density.density_c16_hit8.launches, forces.forces_q32_c8.launches)
-    if min(cli_launches) <= 0:
-        raise RuntimeError(f"CLI run launched the kernels {cli_launches} times")
+    cli_launches = read_launches()
+    if min(cli_launches["density_c16"], cli_launches["forces_q32_c8"]) <= 0:
+        raise RuntimeError(f"CLI run launched the main kernels {cli_launches}")
 
     # phase 4: bench.py's 1M cube dam-break
-    scene1m = collisions.build_device_scene(
-        Scene.load("cube.obj", p1m.h * 2.0, scenes_dir=os.path.join(ROOT, "scenes")), dev)
+    engine = SPHSimulation(step.StepConfig(), device=dev, pretune=False)
     t0 = time.perf_counter()
     st, dt = run_with_growth(s1m, p1m, scene1m, engine, WARMUP_STEPS)
     torch.cuda.synchronize()
     log(f"phase 4 warm-up: {time.perf_counter() - t0:.2f} s")
-    # a flag in the timed window grows the flagged table and re-runs the
-    # window from the warm-up state, as the engine re-runs a frame; the
-    # number stands only for a window that raised no flag
-    for _ in range(6):
-        bench_before = (density.density_c16_hit8.launches, forces.forces_q32_c8.launches)
-        t0 = time.perf_counter()
-        st_t, dt_t, timed_flags = run_substeps(st, dt, p1m, scene1m, engine.step_config,
-                                               TIMED_STEPS)
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
-        if not engine._needs_rerun(timed_flags):
-            break
-        log(f"phase 4 timed window raised flags {int(timed_flags)} -> grown to "
-            f"{engine.step_config}; re-running it")
-    else:
-        raise RuntimeError("timed window kept raising capacity flags")
-    st, dt = st_t, dt_t
-    bench_launches = (density.density_c16_hit8.launches - bench_before[0],
-                      forces.forces_q32_c8.launches - bench_before[1])
-    if min(bench_launches) < TIMED_STEPS:
-        raise RuntimeError(f"timed run launched the kernels {bench_launches} times")
-    if not (torch.isfinite(st.position).all() and torch.isfinite(st.density).all()):
-        raise RuntimeError("non-finite state in the 1M run")
-    ms = 1000.0 * elapsed / TIMED_STEPS
+    st, dt, ms, got = timed_window("4", st, dt, p1m, scene1m, engine)
+    if min(got["density_c16"], got["forces_q32_c8"]) < TIMED_STEPS:
+        raise RuntimeError(f"timed run launched the kernels {got}")
     log(f"phase 4 bench: {N_BENCH} particles, {TIMED_STEPS} substeps, "
-        f"{ms:.3f} ms/substep, {N_BENCH * TIMED_STEPS / elapsed:.6g} particle-steps/s, "
+        f"{ms:.3f} ms/substep, {N_BENCH * 1e3 / ms:.6g} particle-steps/s, "
         f"timed_flags 0, final dt {float(dt):.6g}, config {engine.step_config}; "
         f"card {card}")
-    launches = read_launches()
-
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
 
@@ -829,28 +1209,48 @@ def main(argv=None) -> int:
         with open(os.path.join(args.profile, "profile_1m.txt"), "w") as f:
             f.write(f"card {card}\n{table}\n")
         log(f"profile: {os.path.join(args.profile, 'profile_1m.txt')}")
+    paths = {"main": read_launches()}
+
+    # phases 3b and 4b drive the 16-wide force path and the gated density
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase3_cli(tmp, "3b", ("--no-force-sub8",))
+    got = read_launches()
+    if min(got["density_c16 hit_sub 16"], got["forces_q32_c16"]) <= 0:
+        raise RuntimeError(f"the --no-force-sub8 CLI run launched {got}")
+    phase4b_sub16(s1m, p1m, scene1m, engine_with(engine, step.StepConfig(**SUB16)), card)
+    paths["16-wide"] = read_launches()
 
     # phases 5 and 6 drive the deep-column path: two-tier routing and the
-    # q-granular tables; count the q-granular kernels' launches there
+    # q-granular tables
     reset_launches()
     phase5_two_tier(st, p1m, scene1m)
-    deep = read_launches()
     del st, s1m
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        river = phase6_river(tmp, dev, args.river_frames)
-    for name in ("density_c32", "forces_q32_c32", "forces_q128_c32"):
-        launches[name] = deep[name] + river[name]
-        if launches[name] <= 0:
-            raise RuntimeError(f"{name} did not launch on the deep-column path")
+        phase6_river(tmp, dev, args.river_frames)
+    paths["deep"] = read_launches()
+
+    launches = {rec: sum(counts[rec] for counts in paths.values()) for rec in KERNELS}
+    required = {"main": ("density_c16", "forces_q32_c8"),
+                "16-wide": ("density_c16 hit_sub 16", "density_c16 hit_sub 16, hit2_h",
+                            "density_gated16", "forces_q32_c16"),
+                "deep": ("density_c32", "density_c32 groups 1", "density_c32 hit_sub 16",
+                         "forces_q32_c16", "forces_q32_c32", "forces_q128_c32")}
+    for path, recs in required.items():
+        missing = [rec for rec in recs if paths[path][rec] <= 0]
+        if missing:
+            raise RuntimeError(f"the {path} path did not launch {missing}: {paths[path]}")
+    log(f"launches by path: {json.dumps(paths)}")
 
     record = []
-    for name, (src, replaces) in KERNELS.items():
-        ms_k, ms_p = stats[name]["times"]["1M lattice"]
-        record.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                           launches=launches[name],
-                           max_abs_err=stats[name]["max_abs_err"],
-                           ms=ms_k, plain_ms=ms_p))
+    for rec, (_, _, src, replaces) in KERNELS.items():
+        ms_k, ms_p, nbytes_, ops = stats[rec]["bench"]
+        bound_ms, bound_by = bound(nbytes_, ops)
+        record.append(dict(name=rec, route="cuda", source=src, replaces=replaces,
+                           launches=launches[rec], max_abs_err=stats[rec]["max_abs_err"],
+                           ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=None))
     print(card)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,10 @@ resolving ``fluid_properties/<fluid>.json``,
 the parameter table, writes Houdini frames (and the checkpoint when the
 config asks for it) and times the run. Capacity, table and cadence
 defaults come from :class:`engine.step.StepConfig`; a combination the
-port does not run exits -1 with ``StepConfig``'s message. Exit codes: 0
-done, -1 bad configuration or scene, 1 refused checkpoint or failed
-run.
+port does not run exits -1 with ``StepConfig``'s message. As in the JAX
+CLI, there is no flag for ``density_gate``: it is a ``StepConfig`` field.
+Exit codes: 0 done, -1 bad configuration or scene, 1 refused checkpoint
+or failed run.
 """
 
 from __future__ import annotations
@@ -56,11 +57,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     "--force-query-rows 128, half of it per subgroup at 32)")
     ap.add_argument("--max-candidates-hit16", type=int,
                     default=_DEFAULTS.max_candidates_hit16,
-                    help="16-wide hit capacity that the pretune's downgrade rule reads")
+                    help="per-subgroup capacity of the 16-wide force pass "
+                    "(--no-force-sub8 or --no-density-sub16)")
     ap.add_argument("--force-query-rows", type=int, choices=[32, 128],
                     default=_DEFAULTS.force_query_rows,
-                    help="query rows per force-pass list (128 needs the q-granular "
-                    "tables: --no-density-sub16 --no-force-sub16 --no-force-sub8)")
+                    help="query rows per force-pass list (128 needs the 32-wide "
+                    "tables: --no-density-sub16)")
     ap.add_argument("--density-sub16", action=argparse.BooleanOptionalAction,
                     default=_DEFAULTS.density_sub16,
                     help="16-wide candidate subblocks (else 32-wide)")
@@ -69,7 +71,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="16-granular force-pass tables")
     ap.add_argument("--force-sub8", action=argparse.BooleanOptionalAction,
                     default=_DEFAULTS.force_sub8,
-                    help="8-wide force-pass hit lists (needs --density-sub16)")
+                    help="8-wide force-pass hit lists (needs --density-sub16); "
+                    "--no-force-sub8 runs the 16-wide force pass")
     ap.add_argument("--tier2-frac", type=int, default=_DEFAULTS.tier2_frac,
                     help="two-tier capacity routing: heavy blocks go to "
                     "ceil(blocks / k) tier-2 slots (0 = off)")

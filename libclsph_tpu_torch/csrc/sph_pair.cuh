@@ -31,6 +31,16 @@ __device__ __forceinline__ float pair_r2(float ax, float ay, float az,
                    __fmul_rn(dz, dz));
 }
 
+// sum + poly6 * real_j * max(h^2 - r^2, 0)^3 as one explicit fma, so two
+// kernels that add the same pairs in the same order get the same bits
+// (the gated density against the ungated one); a pair with r >= h adds
+// exactly +0.
+__device__ __forceinline__ float density_add(float sum, float r2, float h2,
+                                             float poly6, float real) {
+  const float tt = fmaxf(h2 - r2, 0.f);
+  return __fmaf_rn(poly6 * real, (tt * tt) * tt, sum);
+}
+
 // Raw force sums of one query over its candidates (forces.cl:14-111).
 struct ForceSums {
   float px = 0.f, py = 0.f, pz = 0.f;  // pressure

@@ -149,8 +149,8 @@ def pretune_config(state, params, config, probe_cap_sub: int | None = None):
     * hit16 pressure: if the max per-subgroup 16-granular hit count
       exceeds HEADROOM x max_candidates_hit16, downgrade to the
       q-granular tables now and size max_candidates_hit from the
-      32-granular max; else size max_candidates_hit8 from the 8-granular
-      max (16-slot steps).
+      32-granular max; else, with force_sub8, size max_candidates_hit8
+      from the 8-granular max (16-slot steps).
     * block cap: grow max_candidates until the measured max fits.
     * subblock depths: if they exceed HEADROOM x max_candidates_sub,
       turn two-tier routing on with a pool and multiplier that hold the

@@ -160,10 +160,11 @@ class SPHSimulation:
         * subblock cap: the first overflow turns two-tier routing on
           (tier2_frac 8), later ones double tier2_mult;
         * tier-2 pool: tier2_frac halves;
-        * hit cap: max_candidates_hit8 +32 while below 160; past that the
-          deep-column regime downgrades the main path's tables to the
-          q-granular ones (density_sub16, force_sub16, force_sub8 off);
-          on the q-granular path max_candidates_hit doubles."""
+        * hit cap: max_candidates_hit8 +32 while below 160 (force_sub8);
+          past that, or on the 16-wide force path's tables at once, the
+          deep-column regime downgrades to the q-granular tables
+          (density_sub16, force_sub16, force_sub8 off); on the
+          q-granular path max_candidates_hit doubles."""
         cfg = self.step_config
         self.capacity_retries += 1
         if self.capacity_retries > MAX_CAPACITY_RETRIES:

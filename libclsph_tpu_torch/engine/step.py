@@ -4,20 +4,27 @@ PyTorch counterpart of ``libclsph_tpu/engine/step.py`` at the shapes
 the engine runs: Morton blocks of 128 particles, the exact refine to
 candidate subblocks, the density kernel's hit counts, hit compaction
 and the force kernel, a re-sort and candidate rebuild every 4th substep
-with a 0.25 h slack, and the adaptive time step with its retry. Two
-table granularities are ported:
+with a 0.25 h slack, and the adaptive time step with its retry. Four
+table shapes (density_sub16, force_sub16, force_sub8) are ported:
 
-* the main path (``density_sub16``, ``force_sub16``, ``force_sub8``
-  all True, the defaults): 16-particle subblocks, hits per (32-row
-  query subgroup, 8-particle half-slot), the 8-wide force pass;
-* the q-granular path (all three False), which the capacity autotune
-  and the pretune switch to on deep columns: 32-particle subblocks and
-  either the 32-row force pass (``force_query_rows=32``) or the
-  whole-block one (``force_query_rows=128``);
+* the main path, (True, True, True), the defaults: 16-particle
+  subblocks, hits per (32-row query subgroup, 8-particle half-slot),
+  the 8-wide force pass;
+* the 16-wide force path, (True, True, False) (``--no-force-sub8``):
+  16-particle subblocks, hits per (subgroup, slot), the 16-wide force
+  pass; on its reuse substeps the density may be gated per (subgroup,
+  tile) by the build substep's dilated hit counts (``density_gate``);
+* (False, True, False) (``--no-density-sub16``): 32-particle subblocks
+  with hits per (subgroup, half-slot) and the 16-wide force pass;
+* the q-granular path, (False, False, False), which the capacity
+  autotune and the pretune switch to on deep columns: 32-particle
+  subblocks and either the 32-row force pass (``force_query_rows=32``)
+  or the whole-block one (``force_query_rows=128``);
 
-each with or without two-tier routing (``tier2_frac > 0``). Every other
-variant of the JAX package's ``StepConfig`` is refused with the ROADMAP
-item that will port it.
+each with or without two-tier routing (``tier2_frac > 0``). Other
+variants of the JAX package's ``StepConfig`` are refused, with the JAX
+package's reason where it refuses them too and with the ROADMAP item
+that will port them where it does not.
 
 PyTorch runs eagerly, so the loops are Python loops: the dt retry
 condition, the frame's time left and the predictive staleness check
@@ -55,8 +62,6 @@ FLAGS_ALL_CAPACITY = (
 
 BLOCK = 128  # particles per Morton block (= density/force query rows)
 GROUPS = 4  # 32-row query subgroups per block
-MAIN_TABLES = (True, True, True)  # (density_sub16, force_sub16, force_sub8)
-Q_TABLES = (False, False, False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,8 +88,9 @@ class StepConfig:
     # q-granular force capacity: per block at force_query_rows=128, and
     # cap32 = max(32, max_candidates_hit // 2) per subgroup at 32
     max_candidates_hit: int = 96
-    # 16-wide hit capacity: read only by the c16 -> q downgrade rule of
-    # the pretune (the 16-wide force pass is not ported)
+    # 16-wide hit runs per query subgroup: the capacity of the 16-wide
+    # force pass (force_sub16 without force_sub8); a shortfall downgrades
+    # to the q-granular tables (the autotune's and the pretune's rule)
     max_candidates_hit16: int = 64
     # tier-2 capacities = tier2_mult x the base capacities
     tier2_mult: int = 2
@@ -108,7 +114,6 @@ class StepConfig:
             ),
             "block_size": (128, "ROADMAP.md queue 1 item 12 (other block shapes)"),
             "nl_query_rows": (128, "ROADMAP.md queue 1 item 12 (finer query blocks)"),
-            "density_gate": (False, "ROADMAP.md queue 2 item 6 (gated density)"),
         }
         for name, (value, item) in not_yet.items():
             if getattr(self, name) != value:
@@ -116,31 +121,23 @@ class StepConfig:
                     f"StepConfig.{name}={getattr(self, name)!r} is not ported yet: "
                     f"the port runs only {name}={value!r}; see {item}"
                 )
-        tables = (self.density_sub16, self.force_sub16, self.force_sub8)
-        ported = ("the port runs (density_sub16, force_sub16, force_sub8) = "
-                  "(True, True, True), the main path, and (False, False, False), "
-                  "the q-granular path")
-        if tables in ((True, True, False), (False, True, False)):
-            raise ValueError(
-                f"(density_sub16, force_sub16, force_sub8)={tables} runs the 16-wide "
-                f"force pass, which is not ported yet (ROADMAP.md queue 2 item 3); "
-                f"{ported}"
-            )
-        if tables not in (MAIN_TABLES, Q_TABLES):
-            raise ValueError(
-                f"(density_sub16, force_sub16, force_sub8)={tables} is not a "
-                f"configuration of the JAX package either (step.py:392-410); {ported} "
-                f"(ROADMAP.md queue 2 item 3 holds the 16-wide force pass)"
-            )
-        if self.force_query_rows not in (32, 128) or (
-            self.force_query_rows == 128 and tables != Q_TABLES
-        ):
+        if self.force_query_rows not in (32, 128):
             raise ValueError(
                 f"StepConfig.force_query_rows={self.force_query_rows!r}: the port runs "
-                f"32, and 128 with the q-granular tables (density_sub16=force_sub16="
-                f"force_sub8=False), as the JAX package does (step.py:392-404); other "
-                f"query granularities are ROADMAP.md queue 1 item 12"
+                f"32 and 128, as the JAX package does; other query granularities are "
+                f"ROADMAP.md queue 1 item 12"
             )
+        # the JAX package's own refusals, with its reasons (step.py:392-410)
+        if self.density_sub16 and (self.force_query_rows != 32 or not self.force_sub16):
+            raise ValueError(
+                "density_sub16 requires the nl variant at whole-128 query rows "
+                "(block_size >= 128) with force_query_rows=32 + force_sub16 + "
+                "hit_compact"
+            )
+        if self.force_sub8 and not self.density_sub16:
+            raise ValueError("force_sub8 requires density_sub16 (16-granular tables)")
+        if self.force_sub8 and self.density_gate:
+            raise ValueError("force_sub8 is incompatible with density_gate")
         if self.tier2_frac < 0 or self.tier2_mult < 1:
             raise ValueError("tier2_frac must be >= 0 and tier2_mult >= 1")
         if self.sort_interval < 1 or self.cand_interval < 1:
@@ -153,9 +150,26 @@ class StepConfig:
 
     @property
     def subblock(self) -> int:
-        """Particles per refined candidate subblock: 16 on the main path,
-        32 on the q-granular one."""
+        """Particles per refined candidate subblock: 16 on the 16-granular
+        tables (density_sub16), else 32."""
         return 16 if self.density_sub16 else 32
+
+    @property
+    def gate_on(self) -> bool:
+        """Whether reuse substeps run the gated density (step.py:424): on
+        the 16-granular tables with candidate reuse and no tier 2."""
+        return (self.density_gate and self.density_sub16 and self.cand_interval > 1
+                and not self.tier2_frac)
+
+    def hit_width(self, groups: int) -> int:
+        """Particles per force-list entry for hit rows of ``groups`` lists
+        per block: 8 on the sub-8 pass, 16 on the 16-wide q32 pass, else
+        whole 32-wide subblocks (one list per block is always 32-wide)."""
+        if groups == GROUPS and self.force_sub8:
+            return 8
+        if groups == GROUPS and self.force_sub16 and self.force_query_rows == 32:
+            return 16
+        return 32
 
 
 def build_candidates(state: ParticleState, real: torch.Tensor,
@@ -188,15 +202,17 @@ def build_candidates(state: ParticleState, real: torch.Tensor,
 def hit_lists(cand_sub: torch.Tensor, hits: torch.Tensor, config: StepConfig,
               groups: int = GROUPS, cap: Optional[int] = None, qblock=None):
     """The force pass's lists: ``cand_sub``'s entries with a pair inside
-    the support, per hit row, self ids first (step.py:623-672).
+    the support, per hit row, self ids first (step.py:623-672). The ids
+    are split to the force width w = ``config.hit_width(groups)``: an
+    s-particle subblock c becomes the w-particle runs [c*s/w, ...,
+    c*s/w + s/w - 1], slot-aligned with the hit columns, and the self
+    range scales with it. Default capacities:
 
-    * Main path: 16-granular ids -> 8-granular half ids [2c, 2c + 1]
-      (slot-aligned with the hit columns 2k + e), repeated per query
-      subgroup; cap ``max_candidates_hit8``.
-    * q-granular, ``groups=4``: 32-granular ids repeated per subgroup;
-      cap32 = max(32, max_candidates_hit // 2).
-    * q-granular, ``groups=1``: one list per block; cap
-      ``max_candidates_hit``.
+    * 8-wide runs (the main path): ``max_candidates_hit8``;
+    * 16-wide runs (16-granular ids as they are, or 32-granular ids split
+      in two): ``max_candidates_hit16``;
+    * 32-wide subblocks per subgroup: cap32 = max(32,
+      max_candidates_hit // 2); one list per block: ``max_candidates_hit``.
 
     ``cap`` overrides the capacity (tier 2); ``qblock`` (nq,) names the
     query block of each row (the self range), default the identity.
@@ -205,53 +221,62 @@ def hit_lists(cand_sub: torch.Tensor, hits: torch.Tensor, config: StepConfig,
     sub = BLOCK // config.subblock
     if qblock is None:
         qblock = torch.arange(nq, dtype=torch.int32, device=cand_sub.device)
-    self_lo = qblock * sub
-    ids, width = cand_sub, sub
-    if config.force_sub8:
+    width = config.hit_width(groups)
+    split = config.subblock // width
+    ids, self_lo, self_width = cand_sub, qblock * sub * split, sub * split
+    if split > 1:
         sent = tiles_ops.REFINE_SENTINEL
-        dead = cand_sub == sent
-        twice = torch.where(dead, sent, cand_sub * 2)
-        ids = torch.stack([twice, torch.where(dead, sent, twice + 1)], dim=-1)
-        ids = ids.reshape(nq, -1)
-        self_lo, width = self_lo * 2, 2 * sub
-        default_cap = config.max_candidates_hit8
-    elif groups == GROUPS:
-        default_cap = max(32, config.max_candidates_hit // 2)
-    else:
-        default_cap = config.max_candidates_hit
+        dead = (cand_sub == sent)[..., None]
+        parts = cand_sub[..., None] * split + torch.arange(
+            split, dtype=cand_sub.dtype, device=cand_sub.device)
+        ids = torch.where(dead, sent, parts).reshape(nq, -1)
     if groups > 1:
         ids = torch.repeat_interleave(ids, groups, dim=0)
         self_lo = torch.repeat_interleave(self_lo, groups)
     cand_f, count_f, ovf = tiles_ops.compact_hits(
-        ids, hits[:, : ids.shape[1]], cap or default_cap,
-        self_lo=self_lo, self_width=width,
+        ids, hits[:, : ids.shape[1]], cap or _hit_cap(config, width, groups),
+        self_lo=self_lo, self_width=self_width,
     )
     return cand_f.contiguous(), count_f, ovf.to(torch.int32) * FLAG_CAPACITY_HIT
 
 
+def _hit_cap(config: StepConfig, width: int, groups: int) -> int:
+    if width == 8:
+        return config.max_candidates_hit8
+    if width == 16:
+        return config.max_candidates_hit16
+    if groups == GROUPS:
+        return max(32, config.max_candidates_hit // 2)
+    return config.max_candidates_hit
+
+
 def _groups(config: StepConfig, tier: int) -> int:
-    """Hit rows per block of a tier's passes (step.py:827-841): 4 query
-    subgroups on the main path and on the q32 path's tier 1, one row per
-    block at q128 and on the q path's tier 2."""
-    if config.force_sub8 or (tier == 1 and config.force_query_rows == 32):
+    """Hit rows per block of a tier's passes (step.py:614-622, :827-841):
+    4 query subgroups on the 16-granular tables (both tiers) and on
+    tier 1 of the 32-row force pass; one row per block at q128 and on
+    tier 2 of the 32-wide tables."""
+    if config.density_sub16 or (tier == 1 and config.force_query_rows == 32):
         return GROUPS
     return 1
 
 
 def _density_pass(pos4, cand, count, params, config, groups, qblock=None):
+    """The density kernel for ``groups`` hit rows a block, with hits at
+    the force width of those rows."""
     cand, count = cand.contiguous(), count.contiguous()
+    hit_sub = config.hit_width(groups)
     if config.density_sub16:
-        return kernels.density_c16_hit8(pos4, cand, count, params, qblock=qblock)
-    return kernels.density_c32(pos4, cand, count, params, groups=groups, qblock=qblock)
+        return kernels.density_c16(pos4, cand, count, params, hit_sub=hit_sub,
+                                   qblock=qblock)
+    return kernels.density_c32(pos4, cand, count, params, groups=groups,
+                               hit_sub=hit_sub, qblock=qblock)
 
 
 def _force_pass(f8, density, real, cand_f, count_f, params, config, groups, qblock=None):
-    if config.force_sub8:
-        fn = kernels.forces_q32_c8
-    elif groups == GROUPS:
-        fn = kernels.forces_q32_c32
-    else:
-        fn = kernels.forces_q128_c32
+    fn = {8: kernels.forces_q32_c8, 16: kernels.forces_q32_c16}.get(
+        config.hit_width(groups))
+    if fn is None:
+        fn = kernels.forces_q32_c32 if groups == GROUPS else kernels.forces_q128_c32
     return fn(f8, density, real, cand_f, count_f, params, qblock=qblock)
 
 
@@ -268,30 +293,50 @@ def _density_forces(state: ParticleState, real: torch.Tensor,
     """Candidate tables (built, or carried in ``cand_in``), the density
     kernel, hit compaction, Tait pressure and the force kernel
     (step.py:360-735), or their two-tier form (:func:`two_tier_passes`).
+    With ``config.gate_on`` the build substep also emits the dilated
+    per-tile hit counts at (1 + cand_slack) h, packed into the mask that
+    the carried tables hold as a fourth leaf, and a reuse substep runs
+    the gated density over the carried table and mask (step.py:596-612).
     Returns (density, pressure, accel, flags, cand_out)."""
+    gate = config.gate_on
+    mask = None
     if cand_in is None:
         cand_sub, count_sub, flags = build_candidates(state, real, params, config)
         pos_anchor = state.position
     else:
         # carried lists were built against pos_anchor at (1 + slack) h: a
         # pair can close by at most twice the largest displacement since
-        cand_sub, count_sub, pos_anchor = cand_in
+        # (the same bound covers the gate's dilated tile counts)
+        cand_sub, count_sub, pos_anchor = cand_in[:3]
+        if gate:
+            mask = cand_in[3]
         d2 = torch.sum((state.position - pos_anchor) ** 2, dim=1)
         d2max = torch.amax(torch.where(real, d2, 0.0))
         stale = 4.0 * d2max > (config.cand_slack * params.h) ** 2
         flags = stale.to(torch.int32) * FLAG_CAND_STALE
-    # the carried table is the one built here: at the tier-2 width when
-    # two-tier routing is on
-    cand_out = (cand_sub, count_sub, pos_anchor) if config.cand_interval > 1 else None
     pos4 = kernels.pos_pack(state.position, real)
     if config.tier2_frac > 0:
+        # the carried table is the one built here, at the tier-2 width
         density, pressure, accel, flags = two_tier_passes(
             state, real, pos4, params, config, cand_sub, count_sub, flags
         )
+        cand_out = (cand_sub, count_sub, pos_anchor) if config.cand_interval > 1 else None
         return density, pressure, accel, flags, cand_out
 
     groups = _groups(config, 1)
-    density, hits = _density_pass(pos4, cand_sub, count_sub, params, config, groups)
+    if gate and mask is not None:
+        density, hits = kernels.density_gated16(pos4, cand_sub.contiguous(),
+                                                count_sub.contiguous(), mask, params)
+    elif gate:
+        density, hits, tiles = kernels.density_c16(
+            pos4, cand_sub.contiguous(), count_sub.contiguous(), params, hit_sub=16,
+            hit2_h=params.h * (1.0 + config.cand_slack))
+        mask = kernels.pack_tile_nibbles(tiles)
+    else:
+        density, hits = _density_pass(pos4, cand_sub, count_sub, params, config, groups)
+    cand_out = None
+    if config.cand_interval > 1:
+        cand_out = (cand_sub, count_sub, pos_anchor) + ((mask,) if gate else ())
     cand_f, count_f, hit_flags = hit_lists(cand_sub, hits, config, groups)
     pressure, f8 = _pressure_and_pack(state, real, density, params)
     accel = _force_pass(f8, density, real, cand_f, count_f, params, config, groups)
@@ -333,9 +378,8 @@ def two_tier_passes(state, real, pos4, params, config, cand_full, count_sub, fla
     pressure, f8 = _pressure_and_pack(state, real, density, params)
 
     cand_f1, count_f1, ovf3 = hit_lists(cand1, hits1, config, g1)
-    base_cap = config.max_candidates_hit8 if config.force_sub8 else config.max_candidates_hit
-    cand_f2, count_f2, ovf4 = hit_lists(cand2, hits2, config, g2,
-                                        cap=base_cap * config.tier2_mult, qblock=idx)
+    cap2 = _hit_cap(config, config.hit_width(g2), g2) * config.tier2_mult
+    cand_f2, count_f2, ovf4 = hit_lists(cand2, hits2, config, g2, cap=cap2, qblock=idx)
     accel1 = _force_pass(f8, density, real, cand_f1, count_f1, params, config, g1)
     accel2 = _force_pass(f8, density, real, cand_f2, count_f2, params, config, g2,
                          qblock=idx)
@@ -411,8 +455,9 @@ def substep(state: ParticleState, dt: torch.Tensor, params: SimulationParameters
 
     ``dt`` and ``dt_next`` are 0-d float32 device tensors and ``flags``
     a 0-d int32 device tensor with the FLAG_* bits. ``cand_out`` is the
-    carried candidate state when ``config.cand_interval > 1`` (pass it
-    back as ``cand_in`` on reuse substeps, which must not sort), else
+    carried candidate state when ``config.cand_interval > 1``: (table,
+    counts, anchor positions) and, with the gate, the tile mask (pass it
+    back as ``cand_in`` on reuse substeps, which must not sort); else
     None. The input state is not modified. Like the reference, the
     returned state is in Morton-sorted order; ``grid_index`` holds the
     codes.

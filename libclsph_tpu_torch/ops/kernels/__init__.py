@@ -2,16 +2,21 @@
 the wrappers dispatch by the tensors' device."""
 
 from .density import (
-    density_c16_hit8,
-    density_c16_hit8_torch,
+    density_c16,
+    density_c16_torch,
     density_c32,
     density_c32_torch,
+    density_gated16,
+    density_gated16_torch,
+    pack_tile_nibbles,
     pos_pack,
 )
 from .forces import (
     force_pack,
     forces_q32_c8,
     forces_q32_c8_torch,
+    forces_q32_c16,
+    forces_q32_c16_torch,
     forces_q32_c32,
     forces_q32_c32_torch,
     forces_q128_c32,
@@ -19,13 +24,18 @@ from .forces import (
 )
 
 __all__ = [
-    "density_c16_hit8",
-    "density_c16_hit8_torch",
+    "density_c16",
+    "density_c16_torch",
     "density_c32",
     "density_c32_torch",
+    "density_gated16",
+    "density_gated16_torch",
+    "pack_tile_nibbles",
     "pos_pack",
     "forces_q32_c8",
     "forces_q32_c8_torch",
+    "forces_q32_c16",
+    "forces_q32_c16_torch",
     "forces_q32_c32",
     "forces_q32_c32_torch",
     "forces_q128_c32",

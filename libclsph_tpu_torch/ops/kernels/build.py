@@ -35,10 +35,11 @@ _F = ctypes.c_float
 # argument types of every C entry point (pointers and the stream as
 # c_void_p so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    "density_c16_hit8_launch": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P, _P],
-    "density_c32_launch": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P],
-    "forces_q32_c8_launch": [_P] * 6 + [_I, _I] + [_F] * 14 + [_P, _P],
-    "forces_c32_launch": [_P] * 6 + [_I, _I, _I] + [_F] * 14 + [_P, _P],
+    "density_c16_launch": [_P] * 4 + [_I] * 3 + [_F] * 5 + [_P] * 4,
+    "density_c32_launch": [_P] * 4 + [_I] * 4 + [_F] * 4 + [_P] * 3,
+    "density_gated16_launch": [_P] * 4 + [_I] * 3 + [_F] * 4 + [_P] * 3,
+    "forces_q32_launch": [_P] * 6 + [_I] * 3 + [_F] * 14 + [_P, _P],
+    "forces_c32_launch": [_P] * 6 + [_I] * 2 + [_F] * 14 + [_P, _P],
 }
 
 _lock = threading.Lock()

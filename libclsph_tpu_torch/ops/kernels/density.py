@@ -1,13 +1,18 @@
 """Density passes with true-hit counts: the CUDA kernels, their plain
 PyTorch versions and the wrappers that pick between them by device.
 
-Two kernels replace ``libclsph_tpu/ops/pallas/neighbor_nl.py``
-``fused_density_nl``:
+Three kernels replace ``libclsph_tpu/ops/pallas/neighbor_nl.py``
+``fused_density_nl`` and ``fused_density_gated16``:
 
-* :func:`density_c16_hit8` at ``c16=True, hit_sub=8, hit_groups=4``
-  (the main path); ``csrc/density_c16_hit8.cu``;
+* :func:`density_c16` at ``c16=True, hit_groups=4``: ``hit_sub`` 8 (the
+  main path) or 16 (the 16-wide force path), the latter optionally with
+  the dilated per-tile counts of ``hit2_h``; ``csrc/density_c16.cu``;
 * :func:`density_c32` at ``c16=False`` with ``hit_groups`` 4 or 1 (the
-  q-granular path and its tier 2); ``csrc/density_c32.cu``.
+  q-granular path and its tier 2), and at 4 groups with ``hit_sub`` 16
+  (the 16-wide force pass over 32-wide tables); ``csrc/density_c32.cu``;
+* :func:`density_gated16`, the reuse substep's c16 density at hit_sub 16
+  over the (subgroup, tile) panels that a mask from
+  :func:`pack_tile_nibbles` flags; ``csrc/density_gated16.cu``.
 
 Inputs, for ``np`` particles in ``np / 128`` Morton blocks:
 
@@ -21,13 +26,15 @@ Inputs, for ``np`` particles in ``np / 128`` Morton blocks:
   None is the identity, nq = np / 128.
 
 Outputs: ``density`` (nq*128,) float32 for the rows' queries (rest
-density on padding queries) and ``hits`` int32. ``density_c16_hit8``:
-(nq*4, 2*cap), the pairs with r < h between query subgroup g (rows
-g*32 .. g*32+31, row b*4 + g) and half e of slot k (column 2k + e).
-``density_c32``: (nq*4, cap) pair counts per (subgroup, slot) at
-``groups=4``; (nq, cap) at ``groups=1``, the particles of the slot
-within h of some query of the block. Only ``hits > 0`` is read
-downstream; the counts are the JAX kernel's.
+density on padding queries) and ``hits`` int32. At 4 groups: (nq*4,
+cap * sub / hit_sub), the pairs with r < h between query subgroup g
+(rows g*32 .. g*32+31, row b*4 + g) and run e of ``hit_sub`` particles
+of slot k (column k * sub / hit_sub + e). ``density_c32`` at
+``groups=1``: (nq, cap), the particles of the slot within h of some
+query of the block. With ``hit2_h``, ``tiles`` (nq*4, ceil(cap / 8))
+counts the pairs within ``hit2_h`` between subgroup g and tile t (slots
+8t .. 8t+7). Only ``hits > 0`` and ``tiles > 0`` are read downstream;
+the counts are the JAX kernel's.
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ from . import build
 
 BLOCK = 128  # queries per block
 GROUPS = 4  # query subgroups of 32 rows
+TILE = 8  # candidate slots per tile of the dilated counts and the gate
+TILES_PER_WORD = 32 // GROUPS  # tiles packed into one int32 mask word
 # pair elements per chunk of the plain versions
 CHUNK_PAIRS = 1 << 24
 
@@ -49,28 +58,38 @@ def pos_pack(position: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
     return torch.cat([position, real.to(torch.float32)[:, None]], dim=1).contiguous()
 
 
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
 def _consts(params: SimulationParameters):
     h = float(params.h)
     return dict(
-        h2=float(np.float32(h * h)),
-        poly6=float(np.float32(params.precomputed().poly_6)),
-        mass=float(np.float32(params.particle_mass)),
-        fluid_density=float(np.float32(params.fluid_density)),
+        h2=_f32(h * h),
+        poly6=_f32(params.precomputed().poly_6),
+        mass=_f32(params.particle_mass),
+        fluid_density=_f32(params.fluid_density),
     )
 
 
 def _density_torch(pos4, cand, count, params, qblock, sub: int, hit_sub: int,
-                   groups: int):
+                   groups: int, hit2_h=None, panels=None):
     """Plain density over ``sub``-particle candidate subblocks with hit
     counts per (query subgroup of 128/groups rows, run of ``hit_sub``
     candidate particles); at groups=1 the count is of the run's particles
-    that some query hits. Chunked over list rows."""
+    that some query hits. ``hit2_h`` adds the dilated per-(subgroup,
+    tile) pair counts; ``panels`` (nq, 4, cap) bool restricts the sums and
+    counts to the flagged (subgroup, slot) panels. Chunked over list
+    rows."""
     c = _consts(params)
     nq, cap = cand.shape
     dev = pos4.device
     runs = sub // hit_sub
     density = torch.empty(nq * BLOCK, dtype=torch.float32, device=dev)
     hits = torch.zeros((nq * groups, cap * runs), dtype=torch.int32, device=dev)
+    ntiles = -(-cap // TILE)
+    tiles = (None if hit2_h is None else
+             torch.zeros((nq * GROUPS, ntiles), dtype=torch.int32, device=dev))
     slot = torch.arange(cap, device=dev)
     lane = torch.arange(sub, device=dev)
     qlane = torch.arange(BLOCK, device=dev)
@@ -90,6 +109,9 @@ def _density_torch(pos4, cand, count, params, qblock, sub: int, hit_sub: int,
         dz = q[..., 2] - cq[..., 2]
         r2 = (dx * dx + dy * dy) + dz * dz  # (r, 128, cap, sub)
         live4 = live[:, None, :, None]
+        if panels is not None:
+            rows_on = panels[b0:b1, :, None, :].expand(r, GROUPS, BLOCK // GROUPS, cap)
+            live4 = live4 & rows_on.reshape(r, BLOCK, cap, 1)
         t = torch.clamp(c["h2"] - r2, min=0.0)
         w = (c["poly6"] * cq[..., 3]) * (t * t * t)
         wsum = torch.where(live4, w, 0.0).sum(dim=(2, 3))
@@ -105,22 +127,73 @@ def _density_torch(pos4, cand, count, params, qblock, sub: int, hit_sub: int,
             cnt = incl.reshape(r, groups, BLOCK // groups, cap, runs, hit_sub).sum(
                 dim=(2, 5), dtype=torch.int32)
         hits[b0 * groups : b1 * groups] = cnt.reshape(r * groups, cap * runs)
+        if tiles is not None:
+            near = (r2 < _f32(hit2_h * hit2_h)) & live4
+            per_slot = near.reshape(r, GROUPS, BLOCK // GROUPS, cap, sub).sum(
+                dim=(2, 4), dtype=torch.int32)
+            padded = torch.zeros((r, GROUPS, ntiles * TILE), dtype=torch.int32,
+                                 device=dev)
+            padded[..., :cap] = per_slot
+            tiles[b0 * GROUPS : b1 * GROUPS] = padded.reshape(
+                r * GROUPS, ntiles, TILE).sum(dim=-1, dtype=torch.int32)
+    if tiles is not None:
+        return density, hits, tiles
     return density, hits
 
 
-def density_c16_hit8_torch(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
-                           params: SimulationParameters, qblock=None):
-    """Plain PyTorch version of :func:`density_c16_hit8`."""
-    return _density_torch(pos4, cand, count, params, qblock, 16, 8, GROUPS)
+def density_c16_torch(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
+                      params: SimulationParameters, hit_sub: int = 8, hit2_h=None,
+                      qblock=None):
+    """Plain PyTorch version of :func:`density_c16`."""
+    return _density_torch(pos4, cand, count, params, qblock, 16, hit_sub, GROUPS,
+                          hit2_h=hit2_h)
 
 
 def density_c32_torch(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
-                      params: SimulationParameters, groups: int = GROUPS, qblock=None):
+                      params: SimulationParameters, groups: int = GROUPS,
+                      hit_sub: int = 32, qblock=None):
     """Plain PyTorch version of :func:`density_c32`."""
-    return _density_torch(pos4, cand, count, params, qblock, 32, 32, groups)
+    return _density_torch(pos4, cand, count, params, qblock, 32, hit_sub, groups)
 
 
-def _check(pos4, cand, count, qblock):
+def pack_tile_nibbles(tiles: torch.Tensor) -> torch.Tensor:
+    """(nb*4, ntiles) dilated per-tile counts (rows b*4 + g) -> (nb,
+    ceil(ntiles / 8)) int32 words: bit (t % 8) * 4 + g of word t // 8 is
+    set iff subgroup g of block b has a dilated pair in tile t
+    (``neighbor_nl.py`` ``pack_tile_nibbles``, whose word per 8 tiles
+    this keeps)."""
+    rows, ntiles = tiles.shape
+    nb = rows // GROUPS
+    words = -(-ntiles // TILES_PER_WORD)
+    flags = torch.zeros((nb, GROUPS, words * TILES_PER_WORD), dtype=torch.int64,
+                        device=tiles.device)
+    flags[..., :ntiles] = (tiles > 0).reshape(nb, GROUPS, ntiles)
+    tile = torch.arange(words * TILES_PER_WORD, device=tiles.device)
+    shift = (tile % TILES_PER_WORD)[None, :] * GROUPS + torch.arange(
+        GROUPS, device=tiles.device)[:, None]
+    bits = (flags << shift).reshape(nb, GROUPS, words, TILES_PER_WORD).sum(dim=(1, 3))
+    return torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(torch.int32)
+
+
+def mask_panels(mask: torch.Tensor, cap: int) -> torch.Tensor:
+    """The (nb, 4, cap) bool (subgroup, slot) panels that ``mask`` flags:
+    slot k lies in tile k // 8."""
+    tile = torch.arange(cap, device=mask.device) // TILE
+    words = (mask.to(torch.int64) & 0xFFFFFFFF)[:, tile // TILES_PER_WORD]  # (nb, cap)
+    shift = (tile % TILES_PER_WORD)[None, :] * GROUPS + torch.arange(
+        GROUPS, device=mask.device)[:, None]
+    return ((words[:, None, :] >> shift) & 1).bool()
+
+
+def density_gated16_torch(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
+                          mask: torch.Tensor, params: SimulationParameters):
+    """Plain PyTorch version of :func:`density_gated16`: the c16 density
+    at hit_sub 16 with every pair outside the flagged panels dropped."""
+    return _density_torch(pos4, cand, count, params, None, 16, 16, GROUPS,
+                          panels=mask_panels(mask, cand.shape[1]))
+
+
+def _check(pos4, cand, count, qblock, extra=()):
     if pos4.dtype != torch.float32 or pos4.dim() != 2 or pos4.shape[1] != 4:
         raise ValueError("pos4 must be (np, 4) float32")
     if pos4.shape[0] % BLOCK:
@@ -137,7 +210,7 @@ def _check(pos4, cand, count, qblock):
     if count.dtype != torch.int32 or count.shape != (nq,):
         raise ValueError("count must be (nq,) int32")
     named = (("pos4", pos4), ("cand", cand), ("count", count)) + (
-        () if qblock is None else (("qblock", qblock),))
+        () if qblock is None else (("qblock", qblock),)) + tuple(extra)
     for name, t in named:
         if t.device != pos4.device:
             raise ValueError(f"{name} is on {t.device}, pos4 on {pos4.device}")
@@ -145,58 +218,109 @@ def _check(pos4, cand, count, qblock):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(name, pos4, cand, count, qblock, params, hit_shape, *extra):
-    c = _consts(params)
+def _device(name, pos4):
+    """True for CPU tensors (the plain version), False for CUDA ones;
+    raises on any other device."""
+    if pos4.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {pos4.device}")
+    return pos4.device.type == "cpu"
+
+
+def _count(fn, variant: str) -> None:
+    fn.launches += 1
+    fn.variants[variant] = fn.variants.get(variant, 0) + 1
+
+
+def _launch(entry, pos4, cand, count, table, mode, consts, hit_shape, tile_shape=None):
+    """Launch C entry point ``entry`` on (pos4, cand, count, ``table``: the
+    qblock map or the gate mask) with its integer ``mode`` arguments and
+    float ``consts``; density_c16's entry also takes the tile counts
+    (a null pointer without ``tile_shape``)."""
     nq, cap = cand.shape
     density = torch.empty(nq * BLOCK, dtype=torch.float32, device=pos4.device)
     hits = torch.zeros(hit_shape, dtype=torch.int32, device=pos4.device)
+    tiles = (None if tile_shape is None else
+             torch.zeros(tile_shape, dtype=torch.int32, device=pos4.device))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    outs = (density.data_ptr(), hits.data_ptr())
+    if entry == "density_c16":
+        outs += (ptr(tiles),)
     stream = torch.cuda.current_stream(pos4.device).cuda_stream
-    status = getattr(build.load_library(), name + "_launch")(
-        pos4.data_ptr(), cand.data_ptr(), count.data_ptr(),
-        None if qblock is None else qblock.data_ptr(), nq, cap, *extra,
-        c["h2"], c["poly6"], c["mass"], c["fluid_density"],
-        density.data_ptr(), hits.data_ptr(), stream,
+    status = getattr(build.load_library(), entry + "_launch")(
+        pos4.data_ptr(), cand.data_ptr(), count.data_ptr(), ptr(table), nq, cap, *mode,
+        *consts, *outs, stream,
     )
-    build.check(status, name)
-    return density, hits
+    build.check(status, entry)
+    return (density, hits) if tiles is None else (density, hits, tiles)
 
 
-def density_c16_hit8(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
-                     params: SimulationParameters, qblock=None):
-    """Density and hit counts over 16-wide lists. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (building it at first
-    use) or raise."""
+def _kernel_consts(params, *h2_dil):
+    c = _consts(params)
+    return (c["h2"], *h2_dil, c["poly6"], c["mass"], c["fluid_density"])
+
+
+def density_c16(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
+                params: SimulationParameters, hit_sub: int = 8, hit2_h=None,
+                qblock=None):
+    """Density and hit counts over 16-wide lists at ``hit_sub`` 8 or 16;
+    with ``hit2_h`` (hit_sub 16 only) also the dilated per-tile counts,
+    returned third. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (building it at first use) or raise."""
     _check(pos4, cand, count, qblock)
-    if pos4.device.type == "cpu":
-        return density_c16_hit8_torch(pos4, cand, count, params, qblock)
-    if pos4.device.type != "cuda":
-        raise ValueError(f"density_c16_hit8: unsupported device {pos4.device}")
+    if hit_sub not in (8, 16) or (hit2_h is not None and hit_sub != 16):
+        raise ValueError(f"density_c16: hit_sub must be 8 or 16 (16 with hit2_h), "
+                         f"not {hit_sub}")
+    if _device("density_c16", pos4):
+        return density_c16_torch(pos4, cand, count, params, hit_sub, hit2_h, qblock)
     nq, cap = cand.shape
-    out = _launch("density_c16_hit8", pos4, cand, count, qblock, params,
-                  (nq * GROUPS, 2 * cap))
-    density_c16_hit8.launches += 1
+    tile_shape = None if hit2_h is None else (nq * GROUPS, -(-cap // TILE))
+    h2_dil = 0.0 if hit2_h is None else _f32(hit2_h * hit2_h)
+    out = _launch("density_c16", pos4, cand, count, qblock, (hit_sub,),
+                  _kernel_consts(params, h2_dil), (nq * GROUPS, cap * 16 // hit_sub),
+                  tile_shape)
+    _count(density_c16, f"hit_sub {hit_sub}" + ("" if hit2_h is None else ", hit2_h"))
     return out
 
 
 def density_c32(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
-                params: SimulationParameters, groups: int = GROUPS, qblock=None):
+                params: SimulationParameters, groups: int = GROUPS, hit_sub: int = 32,
+                qblock=None):
     """Density and hit counts over 32-wide lists, hits per query subgroup
-    (``groups=4``) or per block (``groups=1``). CPU tensors take the
-    plain version; CUDA tensors launch the kernel (building it at first
-    use) or raise."""
+    (``groups=4``, at ``hit_sub`` 32 or 16) or per block (``groups=1``,
+    hit_sub 32). CPU tensors take the plain version; CUDA tensors launch
+    the kernel (building it at first use) or raise."""
     _check(pos4, cand, count, qblock)
-    if groups not in (1, GROUPS):
-        raise ValueError(f"density_c32: groups must be 1 or {GROUPS}, not {groups}")
-    if pos4.device.type == "cpu":
-        return density_c32_torch(pos4, cand, count, params, groups, qblock)
-    if pos4.device.type != "cuda":
-        raise ValueError(f"density_c32: unsupported device {pos4.device}")
+    if (groups, hit_sub) not in ((GROUPS, 32), (1, 32), (GROUPS, 16)):
+        raise ValueError(f"density_c32: groups must be 1 or {GROUPS} and hit_sub 32, "
+                         f"or groups {GROUPS} at hit_sub 16; not ({groups}, {hit_sub})")
+    if _device("density_c32", pos4):
+        return density_c32_torch(pos4, cand, count, params, groups, hit_sub, qblock)
     nq, cap = cand.shape
-    out = _launch("density_c32", pos4, cand, count, qblock, params,
-                  (nq * groups, cap), groups)
-    density_c32.launches += 1
+    out = _launch("density_c32", pos4, cand, count, qblock, (groups, hit_sub),
+                  _kernel_consts(params), (nq * groups, cap * 32 // hit_sub))
+    _count(density_c32, f"groups {groups}, hit_sub {hit_sub}")
     return out
 
 
-density_c16_hit8.launches = 0
-density_c32.launches = 0
+def density_gated16(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
+                    mask: torch.Tensor, params: SimulationParameters):
+    """Reuse-substep density and hit_sub-16 counts over a carried 16-wide
+    table (nb rows), gated by ``mask`` ((nb, ceil(cap / 64)) int32 from
+    :func:`pack_tile_nibbles`). CPU tensors take the plain version; CUDA
+    tensors launch the kernel (building it at first use) or raise."""
+    _check(pos4, cand, count, None, (("mask", mask),))
+    nb, cap = cand.shape
+    words = -(-cap // (TILE * TILES_PER_WORD))
+    if mask.dtype != torch.int32 or mask.shape != (nb, words):
+        raise ValueError(f"mask must be ({nb}, {words}) int32 for cap {cap}")
+    if _device("density_gated16", pos4):
+        return density_gated16_torch(pos4, cand, count, mask, params)
+    out = _launch("density_gated16", pos4, cand, count, mask, (words,),
+                  _kernel_consts(params), (nb * GROUPS, cap))
+    _count(density_gated16, "hit_sub 16")
+    return out
+
+
+for _fn in (density_c16, density_c32, density_gated16):
+    _fn.launches = 0
+    _fn.variants = {}

@@ -4,12 +4,15 @@ device. Each replaces a ``libclsph_tpu/ops/pallas/neighbor_nl.py``
 force kernel together with its ``_combine_forces``:
 
 * :func:`forces_q32_c8`: ``fused_forces_nl32_c8``, 8-particle hit runs
-  per 32-row query subgroup (the main path); ``csrc/forces_q32_c8.cu``;
+  per 32-row query subgroup (the main path);
+* :func:`forces_q32_c16`: ``fused_forces_nl32_c16``, 16-particle hit
+  runs per 32-row query subgroup (the 16-wide force path);
 * :func:`forces_q32_c32`: ``fused_forces_nl32``, 32-particle subblocks
-  per 32-row query subgroup (the q-granular path);
+  per 32-row query subgroup (the q-granular path); the three in
+  ``csrc/forces_q32.cu``;
 * :func:`forces_q128_c32`: ``fused_forces_nl``, 32-particle subblocks
-  per 128-row query block (the q128 path and the q path's tier 2);
-  both in ``csrc/forces_c32.cu``.
+  per 128-row query block (the q128 path and the tier 2 of the 32-wide
+  tables); ``csrc/forces_c32.cu``.
 
 Inputs, for ``np`` particles in ``np / 128`` Morton blocks:
 
@@ -158,6 +161,12 @@ def forces_q32_c8_torch(f8, density, real, cand8, count8, params: SimulationPara
     return _forces_torch(f8, density, real, cand8, count8, params, qblock, 32, 8)
 
 
+def forces_q32_c16_torch(f8, density, real, cand16, count16, params: SimulationParameters,
+                         qblock=None):
+    """Plain PyTorch version of :func:`forces_q32_c16`."""
+    return _forces_torch(f8, density, real, cand16, count16, params, qblock, 32, 16)
+
+
 def forces_q32_c32_torch(f8, density, real, cand, count, params: SimulationParameters,
                          qblock=None):
     """Plain PyTorch version of :func:`forces_q32_c32`."""
@@ -236,8 +245,17 @@ def forces_q32_c8(f8, density, real, cand8, count8, params: SimulationParameters
     """Accelerations over 8-particle hit runs per 32-row subgroup. CPU
     tensors take the plain version; CUDA tensors launch the kernel
     (building it at first use) or raise."""
-    return _dispatch(forces_q32_c8, forces_q32_c8_torch, "forces_q32_c8", f8, density,
-                     real, cand8, count8, params, qblock, 32)
+    return _dispatch(forces_q32_c8, forces_q32_c8_torch, "forces_q32", f8, density,
+                     real, cand8, count8, params, qblock, 32, 8)
+
+
+def forces_q32_c16(f8, density, real, cand16, count16, params: SimulationParameters,
+                   qblock=None):
+    """Accelerations over 16-particle hit runs per 32-row subgroup (lists
+    (nq*4, cap)). CPU tensors take the plain version; CUDA tensors launch
+    the kernel (building it at first use) or raise."""
+    return _dispatch(forces_q32_c16, forces_q32_c16_torch, "forces_q32", f8, density,
+                     real, cand16, count16, params, qblock, 32, 16)
 
 
 def forces_q32_c32(f8, density, real, cand, count, params: SimulationParameters,
@@ -245,7 +263,7 @@ def forces_q32_c32(f8, density, real, cand, count, params: SimulationParameters,
     """Accelerations over 32-particle subblocks per 32-row subgroup
     (lists (nq*4, cap)). CPU tensors take the plain version; CUDA
     tensors launch the kernel (building it at first use) or raise."""
-    return _dispatch(forces_q32_c32, forces_q32_c32_torch, "forces_c32", f8, density,
+    return _dispatch(forces_q32_c32, forces_q32_c32_torch, "forces_q32", f8, density,
                      real, cand, count, params, qblock, 32, 32)
 
 
@@ -255,9 +273,8 @@ def forces_q128_c32(f8, density, real, cand, count, params: SimulationParameters
     (nq, cap)). CPU tensors take the plain version; CUDA tensors launch
     the kernel (building it at first use) or raise."""
     return _dispatch(forces_q128_c32, forces_q128_c32_torch, "forces_c32", f8, density,
-                     real, cand, count, params, qblock, 128, 128)
+                     real, cand, count, params, qblock, 128)
 
 
-forces_q32_c8.launches = 0
-forces_q32_c32.launches = 0
-forces_q128_c32.launches = 0
+for _fn in (forces_q32_c8, forces_q32_c16, forces_q32_c32, forces_q128_c32):
+    _fn.launches = 0

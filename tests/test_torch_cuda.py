@@ -1,9 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card (marked ``cuda``; they skip without a GPU): the main path's two,
 the q-granular path's three (``density_c32`` at 4 and 1 hit rows per
-block, ``forces_q32_c32``, ``forces_q128_c32``), the query-block map of
-all of them, and whole substeps of the main, q32 + tier-2 and q128
-configurations.
+block, ``forces_q32_c32``, ``forces_q128_c32``), the 16-wide force
+path's (``density_c16`` at hit_sub 16 with and without the dilated tile
+counts, ``density_c32`` at hit_sub 16, ``forces_q32_c16``,
+``density_gated16`` against the ungated kernel bit for bit), the
+query-block map of all of them, and whole substeps of the main, q32 +
+tier-2, q128 and 16-wide configurations.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -57,7 +60,7 @@ def tables():
     st, real, _ = step.pad_and_sort(st, params, True)
     cand_sub, count_sub, flags = step.build_candidates(st, real, params, cfg)
     pos4 = density.pos_pack(st.position, real)
-    dens, hits = density.density_c16_hit8_torch(pos4, cand_sub, count_sub, params)
+    dens, hits = density.density_c16_torch(pos4, cand_sub, count_sub, params)
     cand8, count8, hflags = step.hit_lists(cand_sub, hits, cfg)
     assert int(flags) == 0 and int(hflags) == 0
     pres = torch.where(real, tait_pressure(dens, params), 0.0)
@@ -71,11 +74,11 @@ def tables():
 def test_density_kernel_matches_plain(tables, cuda):
     t = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in tables.items()}
     args = (t["pos4"], t["cand_sub"], t["count_sub"], t["params"])
-    before = density.density_c16_hit8.launches
-    d, hits = density.density_c16_hit8(*args)
+    before = density.density_c16.launches
+    d, hits = density.density_c16(*args)
     torch.cuda.synchronize()
-    assert density.density_c16_hit8.launches == before + 1
-    d0, hits0 = density.density_c16_hit8_torch(*args)
+    assert density.density_c16.launches == before + 1
+    d0, hits0 = density.density_c16_torch(*args)
     np.testing.assert_allclose(d.cpu().numpy(), d0.cpu().numpy(), rtol=1e-5)
     assert torch.equal(hits, hits0)
 
@@ -205,9 +208,9 @@ def test_density_c16_qblock_matches_plain(tables, cuda):
     qblock = _pool(t["cand_sub"].shape[0], cuda)
     args = (t["pos4"], t["cand_sub"][qblock.long()].contiguous(),
             t["count_sub"][qblock.long()].contiguous(), t["params"])
-    d, hits = density.density_c16_hit8(*args, qblock=qblock)
+    d, hits = density.density_c16(*args, qblock=qblock)
     torch.cuda.synchronize()
-    d0, hits0 = density.density_c16_hit8_torch(*args, qblock=qblock)
+    d0, hits0 = density.density_c16_torch(*args, qblock=qblock)
     np.testing.assert_allclose(d.cpu().numpy(), d0.cpu().numpy(), rtol=1e-5)
     assert torch.equal(hits, hits0)
 
@@ -232,3 +235,154 @@ def test_q_and_tier2_substeps_on_gpu_match_cpu(tables, cuda, over):
     np.testing.assert_allclose(g1.density.cpu().numpy(), c1.density.numpy(), rtol=1e-5)
     a = c1.acceleration.numpy()
     np.testing.assert_allclose(g1.acceleration.cpu().numpy(), a, atol=1e-5 * np.abs(a).max())
+
+
+SUB16 = dict(force_sub8=False, max_candidates_hit16=192)
+
+
+@pytest.fixture(scope="module")
+def sub16_tables(tables):
+    """The 16-wide force path's inputs on the main fixture's cloud: the
+    c16 table at hit_sub 16, its 16-wide lists and force pack."""
+    p = tables["params"]
+    cfg = step.StepConfig(**SUB16)
+    _, hits16 = density.density_c16_torch(tables["pos4"], tables["cand_sub"],
+                                          tables["count_sub"], p, hit_sub=16)
+    cand16, count16, flags = step.hit_lists(tables["cand_sub"], hits16, cfg)
+    assert int(flags) == 0
+    return dict(tables, cand16=cand16, count16=count16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["hit16", "hit16+tiles"])
+@pytest.mark.parametrize("mapped", [False, True], ids=["identity", "qblock"])
+def test_density_c16_hit16_matches_plain(tables, cuda, mode, mapped):
+    t = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in tables.items()}
+    cand, count = t["cand_sub"], t["count_sub"]
+    qblock = None
+    if mapped:
+        qblock = _pool(cand.shape[0], cuda)
+        cand, count = cand[qblock.long()].contiguous(), count[qblock.long()].contiguous()
+    args = (t["pos4"], cand, count, t["params"])
+    hit2_h = 1.25 * t["params"].h if mode == "hit16+tiles" else None
+    before = density.density_c16.launches
+    out = density.density_c16(*args, hit_sub=16, hit2_h=hit2_h, qblock=qblock)
+    torch.cuda.synchronize()
+    assert density.density_c16.launches == before + 1
+    ref = density.density_c16_torch(*args, hit_sub=16, hit2_h=hit2_h, qblock=qblock)
+    np.testing.assert_allclose(out[0].cpu().numpy(), ref[0].cpu().numpy(), rtol=1e-5)
+    assert len(out) == len(ref)
+    for a, b in zip(out[1:], ref[1:]):
+        assert torch.equal(a, b) and int(b.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mapped", [False, True], ids=["identity", "qblock"])
+def test_density_c32_hit16_matches_plain(q_tables, cuda, mapped):
+    t = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in q_tables.items()}
+    cand, count = t["cand_sub"], t["count_sub"]
+    qblock = None
+    if mapped:
+        qblock = _pool(cand.shape[0], cuda)
+        cand, count = cand[qblock.long()].contiguous(), count[qblock.long()].contiguous()
+    args = (t["pos4"], cand, count, t["params"])
+    d, hits = density.density_c32(*args, hit_sub=16, qblock=qblock)
+    torch.cuda.synchronize()
+    d0, hits0 = density.density_c32_torch(*args, hit_sub=16, qblock=qblock)
+    np.testing.assert_allclose(d.cpu().numpy(), d0.cpu().numpy(), rtol=1e-5)
+    assert torch.equal(hits, hits0) and int(hits0.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mapped", [False, True], ids=["identity", "qblock"])
+def test_forces_q32_c16_matches_plain(sub16_tables, cuda, mapped):
+    t = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in sub16_tables.items()}
+    cand, count = t["cand16"], t["count16"]
+    qblock = None
+    if mapped:
+        qblock = _pool(t["f8"].shape[0] // 128, cuda)
+        rows = (qblock.long()[:, None] * 4 + torch.arange(4, device=cuda)).reshape(-1)
+        cand, count = cand[rows].contiguous(), count[rows].contiguous()
+    args = (t["f8"], t["dens"], t["real"], cand, count, t["params"])
+    before = forces.forces_q32_c16.launches
+    a = forces.forces_q32_c16(*args, qblock=qblock)
+    torch.cuda.synchronize()
+    assert forces.forces_q32_c16.launches == before + 1
+    a0 = forces.forces_q32_c16_torch(*args, qblock=qblock).cpu().numpy()
+    np.testing.assert_allclose(a.cpu().numpy(), a0, atol=1e-5 * np.abs(a0).max())
+
+
+@pytest.mark.cuda
+def test_density_gated16_equals_ungated_bitwise(tables, cuda):
+    """A c16 table built at (1 + slack) h and its mask; positions moved by
+    up to 0.1 h: the gated kernel equals the ungated one bit for bit and
+    its plain version."""
+    p = tables["params"]
+    cfg = step.StepConfig(**SUB16, cand_interval=4)
+    rng = np.random.default_rng(14)
+    st = _clumped_state(p, 15)
+    st, real, _ = step.pad_and_sort(st, p, True)
+    cand, count, flags = step.build_candidates(st, real, p, cfg)
+    assert int(flags) == 0
+    pos4 = density.pos_pack(st.position, real).to(cuda)
+    cand, count = cand.to(cuda), count.to(cuda)
+    _, _, tiles = density.density_c16(pos4, cand, count, p, hit_sub=16,
+                                      hit2_h=p.h * (1 + cfg.cand_slack))
+    mask = density.pack_tile_nibbles(tiles)
+    step_ = torch.as_tensor(rng.uniform(-1, 1, st.position.shape).astype(np.float32))
+    moved = density.pos_pack((st.position + 0.057 * p.h * step_), real).to(cuda)
+    before = density.density_gated16.launches
+    d, hits = density.density_gated16(moved, cand, count, mask, p)
+    torch.cuda.synchronize()
+    assert density.density_gated16.launches == before + 1
+    d0, hits0 = density.density_c16(moved, cand, count, p, hit_sub=16)
+    assert torch.equal(d, d0) and torch.equal(hits, hits0)
+    dp, hp = density.density_gated16_torch(moved, cand, count, mask, p)
+    np.testing.assert_allclose(d.cpu().numpy(), dp.cpu().numpy(), rtol=1e-5)
+    assert torch.equal(hits, hp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [
+    dict(SUB16, max_candidates_sub=1024),
+    dict(SUB16, density_sub16=False, max_candidates_sub=512, max_candidates_hit=256),
+    dict(SUB16, max_candidates_sub=100, tier2_frac=2, tier2_mult=8),
+    dict(SUB16, density_sub16=False, max_candidates_sub=60, tier2_frac=2, tier2_mult=8,
+         max_candidates_hit=256),
+], ids=["TTF", "FTF", "TTF-tier2", "FTF-tier2"])
+def test_16_wide_substeps_on_gpu_match_cpu(tables, cuda, over):
+    p = tables["params"]
+    st = _clumped_state(p, 16)
+    dt = torch.tensor(p.max_dt, dtype=torch.float32)
+    cfg = step.StepConfig(**over)
+    c1, _, cf, _ = step.substep(st, dt, p, None, cfg)
+    g1, _, gf, _ = step.substep(st.map(lambda a: a.to(cuda)), dt.to(cuda), p, None, cfg)
+    assert int(cf) == int(gf) == 0
+    torch.testing.assert_close(g1.grid_index.cpu(), c1.grid_index)
+    np.testing.assert_allclose(g1.density.cpu().numpy(), c1.density.numpy(), rtol=1e-5)
+    a = c1.acceleration.numpy()
+    np.testing.assert_allclose(g1.acceleration.cpu().numpy(), a, atol=1e-5 * np.abs(a).max())
+
+
+@pytest.mark.cuda
+def test_gated_frame_on_gpu_equals_ungated(tables, cuda):
+    """Eight substeps of the frame loop on the card, rebuilding every other
+    substep, with and without the gate: the same state bit for bit."""
+    p = tables["params"]
+    rng = np.random.default_rng(17)
+    side = p.initial_volume ** (1 / 3) * 1.3
+    pos = torch.as_tensor(((rng.random((N, 3)) - 0.5) * side).astype(np.float32))
+    st = ParticleState.zeros(N, cuda).replace(position=pos.to(cuda))
+    dt = torch.tensor(p.max_dt, dtype=torch.float32, device=cuda)
+    out = []
+    for gate in (False, True):
+        cfg = step.StepConfig(**SUB16, density_gate=gate, cand_interval=2,
+                              substeps_per_dispatch=8)
+        before = density.density_gated16.launches
+        s, _, left, flags = step.frame(st, dt, torch.tensor(1.0, device=cuda), p, None, cfg)
+        torch.cuda.synchronize()
+        assert int(flags) == 0
+        assert (density.density_gated16.launches > before) == gate
+        out.append(s)
+    for k in ("position", "velocity", "density", "acceleration"):
+        assert torch.equal(getattr(out[0], k), getattr(out[1], k)), k

@@ -118,7 +118,7 @@ def _force_args(r, device="cpu"):
 
 
 def test_density_plain_matches_pallas(ref):
-    d, hits = density.density_c16_hit8_torch(*_density_args(ref))
+    d, hits = density.density_c16_torch(*_density_args(ref))
     np.testing.assert_allclose(np_(d), ref["dens"], rtol=1e-5)
     assert hits.dtype == torch.int32 and hits.shape == ref["hits"].shape
     np.testing.assert_array_equal(np_(hits), ref["hits"].astype(np.int64))
@@ -143,7 +143,7 @@ def test_plain_versions_match_all_pairs_physics(ref):
     n = pos.shape[0]
     valid = torch.ones((n, n), dtype=torch.bool)
     d_all = tinter.density_sum(pos, pos[None].expand(n, n, 3), valid, p, terms)
-    d, _ = density.density_c16_hit8_torch(*_density_args(ref))
+    d, _ = density.density_c16_torch(*_density_args(ref))
     np.testing.assert_allclose(np_(d)[real], np_(d_all), rtol=1e-5)
     pr = tinter.tait_pressure(d_all, p)
     f = tinter.force_sums(pos, vel, d_all, pr, pos[None].expand(n, n, 3),
@@ -161,22 +161,22 @@ def test_plain_versions_match_all_pairs_physics(ref):
 
 
 def test_wrappers_take_the_plain_version_on_cpu(ref):
-    before = (density.density_c16_hit8.launches, forces.forces_q32_c8.launches)
-    d, hits = density.density_c16_hit8(*_density_args(ref))
-    d0, hits0 = density.density_c16_hit8_torch(*_density_args(ref))
+    before = (density.density_c16.launches, forces.forces_q32_c8.launches)
+    d, hits = density.density_c16(*_density_args(ref))
+    d0, hits0 = density.density_c16_torch(*_density_args(ref))
     assert torch.equal(d, d0) and torch.equal(hits, hits0)
     a = forces.forces_q32_c8(*_force_args(ref))
     assert torch.equal(a, forces.forces_q32_c8_torch(*_force_args(ref)))
     # counters count kernel launches only
-    assert (density.density_c16_hit8.launches, forces.forces_q32_c8.launches) == before
+    assert (density.density_c16.launches, forces.forces_q32_c8.launches) == before
 
 
 def test_wrappers_refuse_other_devices_and_bad_inputs(ref):
     args = _density_args(ref)
     with pytest.raises(ValueError, match="unsupported device"):
-        density.density_c16_hit8(*(a.to("meta") for a in args[:3]), args[3])
+        density.density_c16(*(a.to("meta") for a in args[:3]), args[3])
     with pytest.raises(ValueError, match="int32"):
-        density.density_c16_hit8(args[0], args[1].long(), args[2], args[3])
+        density.density_c16(args[0], args[1].long(), args[2], args[3])
     fargs = _force_args(ref)
     with pytest.raises(ValueError, match="unsupported device"):
         forces.forces_q32_c8(*(a.to("meta") for a in fargs[:5]), fargs[5])
@@ -188,5 +188,6 @@ def test_build_is_keyed_by_source_hash():
     path = build.library_path()
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("libclsph_kernels_") and path.suffix == ".so"
-    assert {p.name for p in build.sources()} >= {"density_c16_hit8.cu", "forces_q32_c8.cu"}
+    names = {p.name for p in build.sources()}
+    assert names >= {"density_c16.cu", "density_gated16.cu", "forces_q32.cu"}
     assert build.library_path() == path

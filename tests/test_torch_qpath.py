@@ -197,7 +197,7 @@ def test_density_qblock_maps_rows(ref):
     rows = lambda a, g: a.reshape(nb, g, -1)[li].reshape(len(li) * g, -1)  # noqa: E731
     d16, hits16 = _main_tables(ref)
     cases = [
-        (density.density_c16_hit8_torch, (pos4, d16[0], d16[1], p), {}, 4),
+        (density.density_c16_torch, (pos4, d16[0], d16[1], p), {}, 4),
         (density.density_c32_torch, (pos4, cand, count, p), dict(groups=4), 4),
         (density.density_c32_torch, (pos4, cand, count, p), dict(groups=1), 1),
     ]
@@ -220,7 +220,7 @@ def _main_tables(ref):
         pos_b, p.h, 8, 192, self_lo=self_lo, self_width=8,
     )
     pos4 = density.pos_pack(T(ref["pos"]), T(ref["real"]))
-    _, hits = density.density_c16_hit8_torch(pos4, cand16, count16, p)
+    _, hits = density.density_c16_torch(pos4, cand16, count16, p)
     return (cand16, count16), hits
 
 

@@ -40,19 +40,18 @@ def jax_config(**overrides):
     return jstep.StepConfig(**dict(JAX_MAIN_PATH, **overrides))
 
 
-def run_pair(params, state_np, dt, jax_scene=None, torch_scene=None):
+def run_pair(params, state_np, dt, jax_scene=None, torch_scene=None, **overrides):
     """A rebuild substep from ``state_np`` and a reuse substep after it,
-    on both sides. Returns the states ((jax_s1, jax_s2), (port_s1,
-    port_s2)) as NumPy dicts, the substeps' dt and flags, and the
-    rebuild's tables."""
+    on both sides, at the main path with ``overrides``. Returns the
+    states ((jax_s1, jax_s2), (port_s1, port_s2)) as NumPy dicts, the
+    substeps' dt and flags, and the rebuild's integer tables."""
+    jcfg = jax_config(**overrides)
     js = JState(**{k: jnp.asarray(v) for k, v in state_np.items()})
-    j1, jd1, jf1, jtab = jstep.substep_jit(js, jnp.float32(dt), params, jax_scene,
-                                           jax_config())
-    j2, jd2, jf2, _ = jstep.substep_reuse_jit(j1, jd1, params, jax_scene, jax_config(),
-                                              jtab)
+    j1, jd1, jf1, jtab = jstep.substep_jit(js, jnp.float32(dt), params, jax_scene, jcfg)
+    j2, jd2, jf2, _ = jstep.substep_reuse_jit(j1, jd1, params, jax_scene, jcfg, jtab)
     tp = interop.params_from(params)
     ts = interop.state_from_arrays(state_np, "cpu")
-    cfg = tstep.StepConfig()
+    cfg = interop.step_config_from_jax(jcfg)
     t1, td1, tf1, ttab = tstep.substep(ts, torch.tensor(dt, dtype=torch.float32), tp,
                                        torch_scene, cfg)
     # the reuse substep starts from the JAX rebuild's state and tables,
@@ -69,7 +68,9 @@ def run_pair(params, state_np, dt, jax_scene=None, torch_scene=None):
         port=(interop.state_to_numpy(t1), interop.state_to_numpy(t2)),
         dt=((float(jd1), float(jd2)), (float(td1), float(td2))),
         flags=((int(jf1), int(jf2)), (int(tf1), int(tf2))),
-        tables=([np.asarray(a) for a in jtab[:2]], [interop.to_numpy(a) for a in ttab[:2]]),
+        # the integer leaves: table, counts and, with the gate, its mask
+        tables=([np.asarray(a) for i, a in enumerate(jtab) if i != 2],
+                [interop.to_numpy(a) for i, a in enumerate(ttab) if i != 2]),
     )
 
 
@@ -165,20 +166,30 @@ def test_stale_reuse_is_flagged():
     assert int(f2) & tstep.FLAG_CAND_STALE
 
 
-@pytest.mark.parametrize("field,value,others", [
-    pytest.param(field, value, others, id=f"{field}-{value}")
-    for field, value, others in [
-        ("neighbor_impl", "tiles", {}), ("neighbor_impl", "exact", {}),
-        ("pallas_variant", "asm", {}), ("force_sub8", False, {}),
-        ("density_sub16", False, {}),
-        # two-tier routing is ported; over the 16-wide force pass it is not
-        ("tier2_frac", 8, {"force_sub8": False}),
-        ("density_gate", True, {}), ("force_query_rows", 128, {}),
-        ("nl_query_rows", 32, {}), ("block_size", 256, {}),
+# each case: the field set off the main path, the fields set with it, and
+# the message of the refusal (None: the port runs it, as the JAX package
+# does; the JAX package's own refusals keep its reason, step.py:392-410)
+@pytest.mark.parametrize("field,value,others,refusal", [
+    pytest.param(field, value, others, refusal, id=f"{field}-{value}")
+    for field, value, others, refusal in [
+        ("neighbor_impl", "tiles", {}, "ROADMAP.md"),
+        ("neighbor_impl", "exact", {}, "ROADMAP.md"),
+        ("pallas_variant", "asm", {}, "ROADMAP.md"),
+        ("force_sub8", False, {}, None),  # the 16-wide force path
+        ("density_sub16", False, {}, "force_sub8 requires density_sub16"),
+        ("tier2_frac", 8, {"force_sub8": False}, None),
+        ("density_gate", True, {}, "force_sub8 is incompatible with density_gate"),
+        ("force_query_rows", 128, {}, "density_sub16 requires .* force_query_rows=32"),
+        ("nl_query_rows", 32, {}, "ROADMAP.md"),
+        ("block_size", 256, {}, "ROADMAP.md"),
     ]
 ])
-def test_step_config_refuses_unported_variants(field, value, others):
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+def test_step_config_refuses_unported_variants(field, value, others, refusal):
+    if refusal is None:
+        cfg = tstep.StepConfig(**{field: value, **others})
+        assert getattr(cfg, field) == value
+        return
+    with pytest.raises(ValueError, match=refusal):
         tstep.StepConfig(**{field: value, **others})
 
 

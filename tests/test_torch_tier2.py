@@ -1,7 +1,8 @@
 """Two-tier capacity routing in the port against the JAX package
 (``tiles.route_overflow``, ``engine/step.nl_two_tier_passes``), the
-agreement of every configuration the port runs, and the refusals of
-the ones it does not.
+agreement of every configuration the port runs, the 16-wide force
+shapes run end to end (engine and CLI), and the CLI's refusal of a
+shape the JAX package refuses too.
 
 The two-tier substeps start from one clustered cloud on both sides:
 the base subblock capacity lies below the heavy blocks and above the
@@ -9,6 +10,8 @@ light median (test_tier2.py's recipe), so the heavy blocks run in the
 tier-2 pool through the kernels' query-block map. Tolerances: density
 rtol 1e-5, acceleration atol 1e-5 * max|a|; tables and flags equal.
 """
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +29,7 @@ from test_torch_qpath import Q_PATH, assert_passes_match, clustered_state, port_
 from test_torch_step import JAX_MAIN_PATH
 
 N = 4096
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize("count,c1,nb2", [
@@ -90,6 +94,9 @@ def two_tier_config(params, state_np, base):
 
 CONFIGS = {
     "main": dict(max_candidates_hit8=160),
+    "c16-sub16": dict(force_sub8=False, max_candidates_hit16=192),
+    "c32-sub16": dict(Q_PATH, force_sub16=True, max_candidates_hit16=192,
+                      max_candidates_hit=192),
     "q32": dict(Q_PATH, max_candidates_hit=192),
     "q128": dict(Q_PATH, max_candidates_hit=192, force_query_rows=128),
 }
@@ -148,11 +155,38 @@ def test_pool_overflow_raises_the_t2_flag(cloud):
     assert flags & tstep.FLAG_CAPACITY_T2
 
 
+def _tiny_root(tmp_path):
+    """A --root with water, cube.obj and tiny.json (2048 particles, 3
+    frames)."""
+    import shutil
+
+    root = tmp_path / "root"
+    for d in ("fluid_properties", "simulation_properties", "scenes"):
+        (root / d).mkdir(parents=True)
+    for d, name in (("fluid_properties", "water.json"), ("scenes", "cube.obj"),
+                    ("simulation_properties", "tiny.json")):
+        shutil.copy(os.path.join(ROOT, d, name), root / d)
+    return root
+
+
 @pytest.mark.parametrize("tables", [(True, True, False), (False, True, False)])
-def test_step_config_refuses_16_wide_force_pass(tables):
+def test_step_config_refuses_16_wide_force_pass(tables, tmp_path):
+    """Both 16-wide force shapes are ported: the engine runs the tiny cube
+    on the CPU on them and writes its frames."""
     keys = ("density_sub16", "force_sub16", "force_sub8")
-    with pytest.raises(ValueError, match="queue 2 item 3"):
-        tstep.StepConfig(**dict(zip(keys, tables)))
+    cfg = tstep.StepConfig(**dict(zip(keys, tables)))
+    root = _tiny_root(tmp_path)
+    sim = tsim.SPHSimulation(cfg, device="cpu", pretune=False)
+    sim.checkpoint_path = str(tmp_path / "none.npz")
+    sim.load_settings(str(root / "fluid_properties" / "water.json"),
+                      str(root / "simulation_properties" / "tiny.json"))
+    sim.load_scene("cube.obj", scenes_dir=str(root / "scenes"))
+    frames = []
+    sim.save_frame = lambda arrays, params: frames.append(arrays["position"])
+    sim.simulate()
+    assert sim.step_config == cfg  # no downgrade: the 16-wide tables ran
+    assert len(frames) == 4 and np.isfinite(frames[-1]).all()
+    assert frames[-1][:, 1].min() > -1.6
 
 
 def test_step_config_accepts_the_ported_shapes():
@@ -169,16 +203,20 @@ def test_engine_refuses_other_pretune_values(pretune):
         tsim.SPHSimulation(device="cpu", pretune=pretune)
 
 
-def test_cli_refuses_unported_tables_with_the_message(capsys):
-    rc = cli.main(["water", "tiny", "cube", "out_", "--device", "cpu", "--no-force-sub8"])
-    assert rc == -1
-    assert "queue 2 item 3" in capsys.readouterr().err
-    # --no-density-sub16 drops force_sub8 as the JAX CLI does, which
-    # leaves the 16-wide force pass: refused too
-    rc = cli.main(["water", "tiny", "cube", "out_", "--device", "cpu",
-                   "--no-density-sub16"])
-    assert rc == -1
-    assert "queue 2 item 3" in capsys.readouterr().err
+def test_cli_refuses_unported_tables_with_the_message(capsys, tmp_path, monkeypatch):
+    """--no-force-sub8 and --no-density-sub16 (which drops force_sub8, as
+    the JAX CLI does) run the 16-wide force path and write frames; the
+    16-granular tables at 128 query rows are refused with the JAX
+    package's reason."""
+    root = _tiny_root(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    for flag in ("--no-force-sub8", "--no-density-sub16"):
+        out = f"out{flag}_"
+        rc = cli.main(["water", "tiny", "cube", out, "--device", "cpu", "--root", str(root),
+                       flag])
+        assert rc == 0, capsys.readouterr().err
+        frames = sorted(os.listdir(tmp_path / f"{out}frames"))
+        assert len(frames) == 4 and frames[0] == "frame0000001.geo"
     rc = cli.main(["water", "tiny", "cube", "out_", "--device", "cpu",
                    "--force-query-rows", "128"])
     assert rc == -1
