@@ -53,14 +53,41 @@ non-zero):
    frames with ``.geo`` export; prints the probe statistics, the config
    the pretune chose and s/frame; the q-granular config must be taken
    and ``density_c32`` / ``forces_q32_c32`` must launch during the
-   frames.
+   frames;
+7. the block-granular 1M cube dam-break (the ``row``, ``fine`` and
+   ``asym`` variants: whole candidate blocks through the 32-wide kernels,
+   rebuilt every substep, sort every 4th): ``row`` warm-up with capacity
+   growth then 20 timed substeps, ``fine`` and ``asym`` 8 timed
+   substeps each from the same warm state, ``asm`` one substep (it must
+   launch ``density_c32`` at 1 group and ``forces_q128_c32``), and one
+   ``row`` substep against one ``neighbor_impl="tiles"`` substep from the
+   same state (density rtol 1e-5, acceleration atol 1e-4 * max|a|, the
+   JAX package's tolerance for this pair);
+8. the ``exact`` impl: ``sph-torch water default cube --neighbor-impl
+   exact --sort-interval 1`` at 64,000 particles for 3 frames, sorting
+   with the radix sort (``LIBCLSPH_TPU_SORT=radix-fused``, set by this
+   script before the package is imported), checked as phase 3;
+   ``rank_hist`` must launch; then one exact substep from the run's last
+   state with its peak device memory, against a main-path substep from
+   the same state at phase 7's tolerances.
 
-Each of the three paths (main: phases 3-4; 16-wide: 3b-4b; deep
-columns: 5-6) runs with the launch counts set to 0 just before it and
-read just after. The line before last holds the per-kernel JSON record,
-the last line ``{"ok": true, "device": {...}}``. Needs one CUDA device;
-refuses to run without one. ``--profile DIR`` adds a torch.profiler table
-of four 1M substeps to DIR.
+Phase 2 also holds, at the 1M lattice, ``density_blocks`` and
+``forces_blocks`` of the three block variants on the block search's
+table expanded to 32-wide subblocks, ``density_c32`` at 1 group and
+``forces_q128_c32`` on the ``asm`` variant's tables, and ``rank_hist``
+on every pass of a 30-bit radix sort of the lattice's Morton codes (bit
+for bit), with the whole sort timed beside ``torch.sort(stable=True)``.
+The block variants' plain versions are timed
+over 2 repetitions after a warm-up (about a second each at 1M), the rest
+over 7.
+
+Each path (main: phases 3-4; 16-wide: 3b-4b; deep columns: 5-6; row,
+fine, asym and asm: 7; exact: 8) runs with the launch counts set to 0
+just before it and read just after; each record counts the launches of
+the paths it belongs to. The line before last holds the per-kernel JSON
+record, the last line ``{"ok": true, "device": {...}}``. Needs one CUDA
+device; refuses to run without one. ``--profile DIR`` adds a
+torch.profiler table of four 1M substeps to DIR.
 """
 
 from __future__ import annotations
@@ -91,25 +118,56 @@ Q_PATH = dict(density_sub16=False, force_sub16=False, force_sub8=False)
 SUB16 = dict(force_sub8=False, max_candidates_hit16=128)
 FTF = dict(SUB16, density_sub16=False)
 NL = "libclsph_tpu/ops/pallas/neighbor_nl.py"
+ROW = "libclsph_tpu/ops/pallas/neighbor.py"
+ASYM = "libclsph_tpu/ops/pallas/neighbor_asym.py"
 CSRC = "libclsph_tpu_torch/csrc/"
-# record name: (wrapper, launch variant or None, source, TPU kernel it replaces)
+NL_PATHS = ("main", "16-wide", "deep")
+BLOCK_VARIANTS = ("row", "fine", "asym")
+# record name: (wrapper, launch variant or None, source, TPU kernel it
+# replaces, the paths whose launches it counts)
 KERNELS = {
-    "density_c16": ("density_c16", "hit_sub 8", CSRC + "density_c16.cu", NL + ":394"),
+    "density_c16": ("density_c16", "hit_sub 8", CSRC + "density_c16.cu", NL + ":394",
+                    NL_PATHS),
     "density_c16 hit_sub 16": ("density_c16", "hit_sub 16", CSRC + "density_c16.cu",
-                               NL + ":394"),
+                               NL + ":394", NL_PATHS),
     "density_c16 hit_sub 16, hit2_h": ("density_c16", "hit_sub 16, hit2_h",
-                                       CSRC + "density_c16.cu", NL + ":394"),
-    "density_gated16": ("density_gated16", None, CSRC + "density_gated16.cu", NL + ":612"),
+                                       CSRC + "density_c16.cu", NL + ":394", NL_PATHS),
+    "density_gated16": ("density_gated16", None, CSRC + "density_gated16.cu", NL + ":612",
+                        NL_PATHS),
     "density_c32": ("density_c32", "groups 4, hit_sub 32", CSRC + "density_c32.cu",
-                    NL + ":394"),
+                    NL + ":394", NL_PATHS),
     "density_c32 groups 1": ("density_c32", "groups 1, hit_sub 32", CSRC + "density_c32.cu",
-                             NL + ":394"),
+                             NL + ":394", NL_PATHS),
     "density_c32 hit_sub 16": ("density_c32", "groups 4, hit_sub 16",
-                               CSRC + "density_c32.cu", NL + ":394"),
-    "forces_q32_c8": ("forces_q32_c8", None, CSRC + "forces_q32.cu", NL + ":1768"),
-    "forces_q32_c16": ("forces_q32_c16", None, CSRC + "forces_q32.cu", NL + ":1471"),
-    "forces_q32_c32": ("forces_q32_c32", None, CSRC + "forces_q32.cu", NL + ":1083"),
-    "forces_q128_c32": ("forces_q128_c32", None, CSRC + "forces_c32.cu", NL + ":730"),
+                               CSRC + "density_c32.cu", NL + ":394", NL_PATHS),
+    "forces_q32_c8": ("forces_q32_c8", None, CSRC + "forces_q32.cu", NL + ":1768", NL_PATHS),
+    "forces_q32_c16": ("forces_q32_c16", None, CSRC + "forces_q32.cu", NL + ":1471",
+                       NL_PATHS),
+    "forces_q32_c32": ("forces_q32_c32", None, CSRC + "forces_q32.cu", NL + ":1083",
+                       NL_PATHS),
+    "forces_q128_c32": ("forces_q128_c32", None, CSRC + "forces_c32.cu", NL + ":730",
+                        NL_PATHS),
+    # the asm variant: the 32-wide kernels at whole-block query rows
+    "density_c32 groups 1 (asm)": ("density_c32", "groups 1, hit_sub 32",
+                                   CSRC + "density_c32.cu", NL + ":2048", ("asm",)),
+    "forces_q128_c32 (asm)": ("forces_q128_c32", None, CSRC + "forces_c32.cu",
+                              NL + ":2079", ("asm",)),
+    # whole candidate blocks, expanded to 32-wide subblocks
+    # (ops/kernels/blocks.py): the 32-wide kernels on the variant's path
+    "density_blocks row": ("density_c32", "groups 1, hit_sub 32", CSRC + "density_c32.cu",
+                           ROW + ":319", ("row",)),
+    "density_blocks fine": ("density_c32", "groups 1, hit_sub 32", CSRC + "density_c32.cu",
+                            ROW + ":319", ("fine",)),
+    "density_blocks asym": ("density_c32", "groups 1, hit_sub 32", CSRC + "density_c32.cu",
+                            ASYM + ":156", ("asym",)),
+    "forces_blocks row": ("forces_q128_c32", None, CSRC + "forces_c32.cu", ROW + ":821",
+                          ("row",)),
+    "forces_blocks fine": ("forces_q32_c32", None, CSRC + "forces_q32.cu", ROW + ":821",
+                           ("fine",)),
+    "forces_blocks asym": ("forces_q128_c32", None, CSRC + "forces_c32.cu", ASYM + ":294",
+                           ("asym",)),
+    "rank_hist": ("rank_hist", None, CSRC + "radix_rank.cu",
+                  "libclsph_tpu/ops/radix_sort.py:87", ("exact",)),
 }
 BENCH_TAG = "1M lattice"  # the phase-2 tables whose times and bounds are recorded
 # one NVIDIA H100 SXM (data sheet): fp32 outside the tensor cores, HBM3
@@ -125,6 +183,15 @@ DENSITY_OPS = 16
 # (8 products and a sum), the P, N sums (6 fmas), V (3 subs, 3 fmas) and
 # L (4)
 FORCE_OPS_ALL, FORCE_OPS_IN = 9, 42
+# rank kernel, per key: the digit (shift, and), the match and the peer
+# masks (match, and, popc, ffs, compare), the prefix over the warps (3
+# adds) and the histogram column; integer operations, counted at the
+# fp32 rate
+RANK_OPS = 12
+# the plain block-granular passes take about a second each at 1M
+BLOCK_PLAIN_REPS = 2
+FEW_STEPS = 8  # timed substeps of the fine and asym variants (phase 7)
+N_EXACT = 64_000
 
 
 def log(msg: str) -> None:
@@ -200,10 +267,10 @@ def bound(nbytes_, ops):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def time_kernel(stats, rec, tag, fn, plain, work) -> str:
+def time_kernel(stats, rec, tag, fn, plain, work, plain_reps=REPS) -> str:
     """Kernel and plain times of one call; at BENCH_TAG also its work for
     the bound. Returns the log fragment."""
-    ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
+    ms, plain_ms = cuda_ms(fn), cuda_ms(plain, plain_reps)
     if tag == BENCH_TAG:
         stats[rec]["bench"] = (ms, plain_ms) + tuple(work)
     b_ms, b_by = bound(*work)
@@ -289,13 +356,16 @@ def compare_kernels(tag, t, stats, time_it):
 
 
 def kernel_fn(name):
-    from libclsph_tpu_torch.ops.kernels import density, forces
+    from libclsph_tpu_torch.ops.kernels import density, forces, radix
 
-    return getattr(density if name.startswith("density") else forces, name)
+    for mod in (density, forces, radix):
+        if callable(getattr(mod, name, None)):
+            return getattr(mod, name)
+    raise KeyError(name)
 
 
 def reset_launches() -> None:
-    for fn_name, _, _, _ in KERNELS.values():
+    for fn_name, *_ in KERNELS.values():
         fn = kernel_fn(fn_name)
         fn.launches = 0
         if hasattr(fn, "variants"):
@@ -304,7 +374,7 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     out = {}
-    for rec, (fn_name, variant, _, _) in KERNELS.items():
+    for rec, (fn_name, variant, *_) in KERNELS.items():
         fn = kernel_fn(fn_name)
         out[rec] = fn.launches if variant is None else fn.variants.get(variant, 0)
     return out
@@ -322,7 +392,7 @@ def save_launches() -> dict:
     """The raw counters, for runs made only to compare (they do not
     count)."""
     saved = {}
-    for fn_name, _, _, _ in KERNELS.values():
+    for fn_name, *_ in KERNELS.values():
         fn = kernel_fn(fn_name)
         saved[fn_name] = (fn.launches, dict(fn.variants) if hasattr(fn, "variants") else None)
     return saved
@@ -612,6 +682,205 @@ def compare_qblock(tag, t_main, t_q, t16, t32, stats):
         f"of {nb} blocks matches its plain version")
 
 
+def block_tables(state, params, engine):
+    """The block-granular variants' inputs for ``state``: padded and
+    sorted, the block search at h (max_candidates grown by the engine's
+    rules until nothing is truncated), the table expanded to 32-wide
+    subblocks, the plain density, the pairs inside the support (the
+    kernel's hit counts at 4 groups over the expanded table; a launch made
+    to count, which does not count) and the force pack."""
+    import torch
+
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.ops import tiles
+    from libclsph_tpu_torch.ops.kernels import blocks, density
+
+    st, real, _ = step.pad_and_sort(state, params, True)
+    nb = st.n // 128
+    bmin, bmax = tiles.split_block_bounds(st.position.reshape(nb, 128, 3),
+                                          real.reshape(nb, 128))
+    for _ in range(6):
+        cand, count, ovf = tiles.candidate_blocks_auto(bmin, bmax, params.h,
+                                                       engine.step_config.max_candidates)
+        if not engine._needs_rerun(ovf.to(torch.int32) * step.FLAG_CAPACITY):
+            break
+    else:
+        raise RuntimeError("block capacity growth did not converge")
+    pos4 = density.pos_pack(st.position, real)
+    ids, counts = blocks.expand_block_table(cand, count)
+    dens = blocks.density_blocks_torch(pos4, cand, count, params)
+    saved = save_launches()
+    pairs_in = int(density.density_c32(pos4, ids, counts, params, groups=4)[1].sum())
+    restore_launches(saved)
+    return dict(pos4=pos4, cand=cand, count=count, ids=ids, counts=counts, dens=dens,
+                real=real, f8=force_pack_of(st, real, dens, params), pairs_in=pairs_in,
+                params=params)
+
+
+def compare_blocks(tag, t, stats):
+    """``density_blocks`` and ``forces_blocks`` of the row, fine and asym
+    variants against their plain versions on one block table; times and
+    bounds over the expanded table's live slots."""
+    import torch
+
+    from libclsph_tpu_torch.ops.kernels import blocks
+
+    p = t["params"]
+    dargs = (t["pos4"], t["cand"], t["count"], p)
+    fargs = (t["f8"], t["dens"], t["real"], t["cand"], t["count"], p)
+    none = torch.zeros(0, dtype=torch.int32, device=t["pos4"].device)
+    nb = t["cand"].shape[0]
+    line = (f"phase 2 {tag} (block tables: {nb} blocks, {int(t['count'].sum())} live "
+            f"candidate blocks, max {int(t['count'].max())}):")
+    q_div = {"row": 1, "fine": 4, "asym": 1}  # the engine's choice per variant
+    plain_a = {}
+    for variant in BLOCK_VARIANTS:
+        d = blocks.density_blocks(*dargs)
+        drel = check_density(tag, f"density_blocks {variant}", d, none, t["dens"], none, stats)
+        q = q_div[variant]
+        if q not in plain_a:
+            plain_a[q] = blocks.forces_blocks_torch(*fargs, q)
+        a = blocks.forces_blocks(*fargs, q)
+        aerr = check_accel(tag, f"forces_blocks {variant}", a, plain_a[q], stats)
+        line += f" {variant} density rel err {drel:.3g}, accel err {aerr:.3g};"
+    del plain_a
+    ids, counts = t["ids"], t["counts"]
+    lists = {"row": (ids, counts), "asym": (ids, counts),
+             "fine": (ids.repeat_interleave(4, dim=0), counts.repeat_interleave(4))}
+    for variant in BLOCK_VARIANTS:
+        line += time_kernel(
+            stats, f"density_blocks {variant}", tag,
+            lambda: blocks.density_blocks(*dargs),
+            lambda: blocks.density_blocks_torch(*dargs),
+            density_work((t["pos4"], ids, counts), (t["dens"],), 32),
+            plain_reps=BLOCK_PLAIN_REPS)
+        qrows = 32 if variant == "fine" else 128
+        line += time_kernel(
+            stats, f"forces_blocks {variant}", tag,
+            lambda q=q_div[variant]: blocks.forces_blocks(*fargs, q),
+            lambda q=q_div[variant]: blocks.forces_blocks_torch(*fargs, q),
+            force_work(fargs[:3] + lists[variant], 32, qrows, t["pairs_in"]),
+            plain_reps=BLOCK_PLAIN_REPS)
+    log(line)
+
+
+def asm_tables(state, params, engine):
+    """The asm variant's inputs for ``state``: the 32-wide refined table
+    at h, hits per block from the plain density at 1 group, the block
+    hit lists at max_candidates_hit (capacities grown by the engine's
+    rules) and the force pack."""
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.ops.kernels import density
+
+    def plain(*args):
+        return density.density_c32_torch(*args, groups=1)
+
+    st, real, args, (dens, hits1), lists = grown_tables(
+        state, params, engine, plain,
+        lambda cand, out, cfg: step.hit_lists(cand, out[1], cfg, 1),
+        fixed=lambda cfg: cfg.pallas_variant == "asm")
+    saved = save_launches()
+    pairs_in = int(density.density_c32(*args, groups=4)[1].sum())
+    restore_launches(saved)
+    return dict(density_args=args, dens=dens, hits1=hits1, pairs_in=pairs_in,
+                force_args=(force_pack_of(st, real, dens, params), dens, real) + tuple(lists)
+                + (params,))
+
+
+def compare_asm(tag, t, stats):
+    """The asm route's two kernels against their plain versions."""
+    from libclsph_tpu_torch.ops.kernels import density, forces
+
+    args, fargs = t["density_args"], t["force_args"]
+    d, hits = density.density_c32(*args, groups=1)
+    drel = check_density(tag, "density_c32 groups 1 (asm)", d, hits, t["dens"], t["hits1"],
+                         stats)
+    a = forces.forces_q128_c32(*fargs)
+    aerr = check_accel(tag, "forces_q128_c32 (asm)", a, forces.forces_q128_c32_torch(*fargs),
+                       stats)
+    line = (f"phase 2 {tag} (asm tables): density_c32 groups 1 rel err {drel:.3g}, hits "
+            f"equal; forces_q128_c32 accel err {aerr:.3g};")
+    line += time_kernel(stats, "density_c32 groups 1 (asm)", tag,
+                        lambda: density.density_c32(*args, groups=1),
+                        lambda: density.density_c32_torch(*args, groups=1),
+                        density_work(args, (d, hits), 32))
+    line += time_kernel(stats, "forces_q128_c32 (asm)", tag,
+                        lambda: forces.forces_q128_c32(*fargs),
+                        lambda: forces.forces_q128_c32_torch(*fargs),
+                        force_work(fargs, 32, 128, t["pairs_in"]))
+    log(line)
+
+
+def rank_device_us(keys, launches=20) -> float:
+    """Device time of one ``rank_hist`` launch (microseconds): the rank
+    kernel's summed device time under torch.profiler over ``launches``
+    back-to-back calls. The CUDA-event time of a call also holds the
+    wrapper's host work, which the 2-3 us kernel does not hide."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from libclsph_tpu_torch.ops.kernels import radix
+
+    radix.rank_hist(keys, 0, 5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            radix.rank_hist(keys, 0, 5)
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages() if "radix_rank" in e.key)
+    return total / launches if total > 0 else float("nan")  # nan: the trace missed it
+
+
+def compare_radix(tag, state, params, stats):
+    """``rank_hist`` against its plain version on every pass of a 30-bit
+    radix sort (5 bits a pass) of ``state``'s Morton codes, bit for bit;
+    the sort against ``torch.sort(stable=True)``, bit for bit. Times: the
+    kernel and its plain version on the first pass, and the whole sort
+    beside ``torch.sort``."""
+    import torch
+
+    from libclsph_tpu_torch.ops import grid, radix_sort
+    from libclsph_tpu_torch.ops.kernels import radix
+
+    codes = grid.locate_in_grid(state.position, grid.compute_bounds(state.position, params))
+    n = codes.shape[0]
+    iota = torch.arange(n, dtype=torch.int32, device=codes.device)
+    pad = (-n) % radix_sort.LANES
+    keys = torch.cat([codes, torch.full((pad,), (1 << 30) - 1, dtype=torch.int32,
+                                        device=codes.device)])
+    vals = torch.cat([iota, torch.zeros(pad, dtype=torch.int32, device=codes.device)])
+    first = keys
+    for shift in range(0, 30, 5):
+        local, hist = radix.rank_hist(keys, shift, 5)
+        l0, h0 = radix.rank_hist_torch(keys, shift, 5)
+        torch.cuda.synchronize()
+        if not (torch.equal(local, l0) and torch.equal(hist, h0)):
+            raise RuntimeError(f"{tag} rank_hist shift {shift}: "
+                               f"{int((local != l0).sum())} ranks, "
+                               f"{int((hist != h0).sum())} histogram counts differ")
+        keys, vals = radix_sort._radix_pass(keys, vals, shift, bits=5, apply="scatter")
+    record_err(stats, "rank_hist", 0.0)
+    k, v = radix_sort.radix_sort_key_val(codes, iota)
+    sk, order = torch.sort(codes, stable=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(k, sk) and torch.equal(v, order.to(torch.int32))):
+        raise RuntimeError(f"{tag}: the radix sort differs from torch.sort")
+    nb = first.shape[0] // 128
+    line = (f"phase 2 {tag} (radix sort of {n} Morton codes): rank_hist bit-equal to its "
+            f"plain version on all 6 passes; the sort bit-identical to "
+            f"torch.sort(stable=True);")
+    line += time_kernel(stats, "rank_hist", tag, lambda: radix.rank_hist(first, 0, 5),
+                        lambda: radix.rank_hist_torch(first, 0, 5),
+                        (nbytes(first) * 2 + 4 * 32 * nb, first.shape[0] * RANK_OPS))
+    line += f" device time {rank_device_us(first):.2f} us a launch (torch.profiler);"
+    whole = cuda_ms(lambda: radix_sort.radix_sort_key_val(codes, iota))
+    library = cuda_ms(lambda: torch.sort(codes, stable=True))
+    stats["rank_hist"]["library_ms"] = library
+    line += (f" whole sort: radix {whole:.4f} ms, torch.sort(stable=True) "
+             f"{library:.4f} ms;")
+    log(line)
+
+
 def run_substeps(state, dt, params, scene, cfg, steps):
     """bench.py's schedule: sort and rebuild every sort_interval /
     cand_interval substeps, reuse the carried tables in between.
@@ -650,8 +919,8 @@ def run_with_growth(state, params, scene, engine, steps):
     raise RuntimeError("capacity growth did not converge")
 
 
-def timed_window(phase, st, dt, params, scene, engine):
-    """TIMED_STEPS substeps from (st, dt) on ``engine.step_config``; a
+def timed_window(phase, st, dt, params, scene, engine, steps=TIMED_STEPS):
+    """``steps`` substeps from (st, dt) on ``engine.step_config``; a
     flagged window grows the flagged table and is re-run from the same
     state, as the engine re-runs a frame (the number stands only for a
     window that raised no flag). Returns (state, dt, ms/substep, the
@@ -661,8 +930,7 @@ def timed_window(phase, st, dt, params, scene, engine):
     for _ in range(6):
         before = read_launches()
         t0 = time.perf_counter()
-        st_t, dt_t, flags = run_substeps(st, dt, params, scene, engine.step_config,
-                                         TIMED_STEPS)
+        st_t, dt_t, flags = run_substeps(st, dt, params, scene, engine.step_config, steps)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         if not engine._needs_rerun(flags):
@@ -674,8 +942,7 @@ def timed_window(phase, st, dt, params, scene, engine):
     if not (torch.isfinite(st_t.position).all() and torch.isfinite(st_t.density).all()):
         raise RuntimeError(f"phase {phase}: non-finite state in the 1M run")
     after = read_launches()
-    return st_t, dt_t, 1000.0 * elapsed / TIMED_STEPS, {
-        k: after[k] - before[k] for k in after}
+    return st_t, dt_t, 1000.0 * elapsed / steps, {k: after[k] - before[k] for k in after}
 
 
 def substep_ms(st, dt, params, scene, cfg, reps=5):
@@ -1095,6 +1362,152 @@ def phase3_cli(tmp, phase="3", flags=()):
         f"(scene bake, 3 frames and export included); min y {ymin:.4f}, "
         f"max |x|,|z| {xzmax:.4f} (bound {half + 0.05:.4f}); "
         f"density median {med:.2f} max {float(dens.max()):.2f}")
+    return seconds, {k: ck[k] for k in ck.files}
+
+
+def one_substep(state, params, scene, engine):
+    """One rebuild substep from ``state`` on ``engine.step_config``,
+    re-run with the engine's capacity growth until no flag is raised.
+    Returns (state, host ms of the last, synchronised run)."""
+    import torch
+
+    from libclsph_tpu_torch.engine import step
+
+    dt = torch.tensor(params.max_dt, dtype=torch.float32, device=state.device)
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _, flags, _ = step.substep(state, dt, params, scene, engine.step_config)
+        torch.cuda.synchronize()
+        ms = 1000.0 * (time.perf_counter() - t0)
+        if not engine._needs_rerun(flags):
+            return out, ms
+        log(f"  flags {int(flags)} -> grown to {engine.step_config}")
+    raise RuntimeError("capacity growth did not converge")
+
+
+def compare_states(tag, a, b, atol_rel=1e-4):
+    """Substep outputs of two impls from one state: the same order,
+    density rtol 1e-5, acceleration atol ``atol_rel`` * max|a|."""
+    import torch
+
+    if not torch.equal(a.grid_index, b.grid_index):
+        raise RuntimeError(f"{tag}: the two substeps sorted differently")
+    drel = float(((a.density - b.density).abs() / b.density.abs()).max())
+    aerr = float((a.acceleration - b.acceleration).abs().max())
+    amax = float(b.acceleration.abs().max())
+    if drel > 1e-5 or not aerr <= atol_rel * amax:
+        raise RuntimeError(f"{tag}: density rel err {drel:.3g}, accel err {aerr:.3g} "
+                           f"(max|a| {amax:.6g})")
+    return f"density rel err {drel:.3g}, accel err {aerr:.3g} (max|a| {amax:.6g})"
+
+
+def phase7_blocks(state, params, scene, dev, card, ms_main, paths):
+    """The block-granular 1M cube dam-break: row (warm-up with growth,
+    TIMED_STEPS timed), fine and asym (FEW_STEPS timed each from the warm
+    state), asm (one substep), each path's launches in ``paths``, then
+    one row substep against one tiles substep from the warm state."""
+    import dataclasses
+
+    import torch
+
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.engine.simulation import SPHSimulation
+
+    base = dict(cand_interval=1, sort_interval=4)
+    reset_launches()
+    row = SPHSimulation(step.StepConfig(pallas_variant="row", **base), device=dev,
+                        pretune=False)
+    t0 = time.perf_counter()
+    st, dt = run_with_growth(state, params, scene, row, WARMUP_STEPS)
+    torch.cuda.synchronize()
+    log(f"phase 7 row warm-up: {time.perf_counter() - t0:.2f} s, config {row.step_config}")
+    _, _, ms, got = timed_window("7 row", st, dt, params, scene, row)
+    if min(got["density_blocks row"], got["forces_blocks row"]) < TIMED_STEPS:
+        raise RuntimeError(f"phase 7 row: the block kernels launched {got}")
+    paths["row"] = read_launches()
+    log(f"phase 7 bench (row): {N_BENCH} particles, {TIMED_STEPS} substeps, {ms:.3f} "
+        f"ms/substep ({ms / ms_main:.3f}x the main path's {ms_main:.3f}), "
+        f"{N_BENCH * 1e3 / ms:.6g} particle-steps/s, timed_flags 0, density_blocks and "
+        f"forces_blocks on every substep; card {card}")
+    for variant in ("fine", "asym"):
+        reset_launches()
+        eng = engine_with(row, dataclasses.replace(row.step_config, pallas_variant=variant))
+        _, _, ms_v, got = timed_window(f"7 {variant}", st, dt, params, scene, eng, FEW_STEPS)
+        recs = (f"density_blocks {variant}", f"forces_blocks {variant}")
+        if min(got[r] for r in recs) < FEW_STEPS:
+            raise RuntimeError(f"phase 7 {variant}: the block kernels launched {got}")
+        paths[variant] = read_launches()
+        log(f"phase 7 {variant}: {FEW_STEPS} substeps, {ms_v:.3f} ms/substep "
+            f"({ms_v / ms_main:.3f}x the main path's), timed_flags 0, config "
+            f"{eng.step_config}; card {card}")
+    reset_launches()
+    asm = SPHSimulation(step.StepConfig(
+        pallas_variant="asm", density_sub16=False, force_sub16=False, force_sub8=False,
+        **base), device=dev, pretune=False)
+    _, ms_asm = one_substep(st, params, scene, asm)
+    paths["asm"] = got = read_launches()
+    if min(got["density_c32 groups 1 (asm)"], got["forces_q128_c32 (asm)"]) < 1:
+        raise RuntimeError(f"phase 7 asm: density_c32 at 1 group and forces_q128_c32 "
+                           f"launched {got}")
+    log(f"phase 7 asm: one substep {ms_asm:.3f} ms (host clock), launches "
+        f"density_c32 groups 1 {got['density_c32 groups 1 (asm)']}, forces_q128_c32 "
+        f"{got['forces_q128_c32 (asm)']}, config {asm.step_config}; card {card}")
+    saved = save_launches()
+    s_row, ms_row = one_substep(st, params, scene, row)
+    tiles = SPHSimulation(step.StepConfig(neighbor_impl="tiles", **base,
+                                          max_candidates=row.step_config.max_candidates),
+                          device=dev, pretune=False)
+    s_tiles, ms_tiles = one_substep(st, params, scene, tiles)
+    restore_launches(saved)
+    log(f"phase 7 row vs tiles: one substep each from the warm state, "
+        f"{compare_states('phase 7 row vs tiles', s_row, s_tiles)}; row {ms_row:.3f} ms, "
+        f"tiles {ms_tiles:.3f} ms (host clock, plain PyTorch pair tiles); card {card}")
+
+
+def phase8_exact(tmp, dev, card, paths):
+    """The exact impl through the CLI at 64,000 particles with the fused
+    radix sort, then one exact substep from the run's last state (peak
+    device memory) against a main-path substep from it."""
+    import torch
+
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.engine.simulation import SPHSimulation
+    from libclsph_tpu_torch.io.checkpoint import arrays_to_state
+    from libclsph_tpu_torch.ops import collisions, grid
+    from libclsph_tpu_torch.scene.scene import Scene
+
+    if grid._SORT_IMPL != "radix-fused":
+        raise RuntimeError(f"phase 8: the sort backend is {grid._SORT_IMPL!r}")
+    reset_launches()
+    seconds, arrays = phase3_cli(tmp, "8", ("--neighbor-impl", "exact", "--sort-interval",
+                                            "1"))
+    paths["exact"] = got = read_launches()
+    if got["rank_hist"] <= 0:
+        raise RuntimeError(f"phase 8: rank_hist did not launch: {got}")
+    saved = save_launches()
+    params = water_params(N_EXACT)
+    scene = collisions.build_device_scene(
+        Scene.load("cube.obj", params.h * 2.0, scenes_dir=os.path.join(ROOT, "scenes")), dev)
+    state = arrays_to_state(arrays, dev)
+    exact = SPHSimulation(step.StepConfig(neighbor_impl="exact", sort_interval=1,
+                                          cand_interval=1), device=dev, pretune=False)
+    one_substep(state, params, scene, exact)  # grows cell_capacity if it must
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    s_exact, ms_exact = one_substep(state, params, scene, exact)
+    peak = torch.cuda.max_memory_allocated()
+    main = SPHSimulation(step.StepConfig(), device=dev, pretune=False)
+    s_main, ms_main = one_substep(state, params, scene, main)
+    restore_launches(saved)
+    log(f"phase 8 exact: CLI {seconds:.2f} s for 3 frames at {N_EXACT} particles "
+        f"(LIBCLSPH_TPU_SORT=radix-fused), rank_hist launched {got['rank_hist']} times; "
+        f"one exact substep {ms_exact:.3f} ms (host clock), peak device memory "
+        f"{peak / 2**30:.3f} GiB ({(peak - before) / 2**30:.3f} GiB above the "
+        f"{before / 2**30:.3f} GiB held before it), cell_capacity "
+        f"{exact.step_config.cell_capacity}; main-path substep {ms_main:.3f} ms; exact vs "
+        f"main path {compare_states('phase 8 exact vs main', s_exact, s_main)}; card {card}")
 
 
 def main(argv=None) -> int:
@@ -1112,6 +1525,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    # the exact impl's sort (phase 8) runs the fused radix sort; the
+    # package reads its sort backend when it is imported
+    os.environ["LIBCLSPH_TPU_SORT"] = "radix-fused"
     from libclsph_tpu_torch.core.state import init_state
     from libclsph_tpu_torch.engine import step
     from libclsph_tpu_torch.engine.simulation import SPHSimulation, configure_device
@@ -1174,6 +1590,12 @@ def main(argv=None) -> int:
     scene1m = scene_for(p1m)
     s1m = init_state(p1m, dev)
     compare_all(BENCH_TAG, s1m, p1m, scene1m, True, qblock=True)
+    compare_blocks(BENCH_TAG, block_tables(s1m, p1m, engine_for(
+        "1M", dict(pallas_variant="row", cand_interval=1))), stats)
+    compare_asm(BENCH_TAG, asm_tables(s1m, p1m, engine_for("1M", dict(
+        pallas_variant="asm", cand_interval=1, density_sub16=False, force_sub16=False,
+        force_sub8=False))), stats)
+    compare_radix(BENCH_TAG, s1m, p1m, stats)
     del s64
     torch.cuda.empty_cache()
 
@@ -1191,11 +1613,11 @@ def main(argv=None) -> int:
     st, dt = run_with_growth(s1m, p1m, scene1m, engine, WARMUP_STEPS)
     torch.cuda.synchronize()
     log(f"phase 4 warm-up: {time.perf_counter() - t0:.2f} s")
-    st, dt, ms, got = timed_window("4", st, dt, p1m, scene1m, engine)
+    st, dt, ms_main, got = timed_window("4", st, dt, p1m, scene1m, engine)
     if min(got["density_c16"], got["forces_q32_c8"]) < TIMED_STEPS:
         raise RuntimeError(f"timed run launched the kernels {got}")
     log(f"phase 4 bench: {N_BENCH} particles, {TIMED_STEPS} substeps, "
-        f"{ms:.3f} ms/substep, {N_BENCH * 1e3 / ms:.6g} particle-steps/s, "
+        f"{ms_main:.3f} ms/substep, {N_BENCH * 1e3 / ms_main:.6g} particle-steps/s, "
         f"timed_flags 0, final dt {float(dt):.6g}, config {engine.step_config}; "
         f"card {card}")
     if args.profile:
@@ -1231,12 +1653,27 @@ def main(argv=None) -> int:
         phase6_river(tmp, dev, args.river_frames)
     paths["deep"] = read_launches()
 
-    launches = {rec: sum(counts[rec] for counts in paths.values()) for rec in KERNELS}
+    # phase 7 drives the row, fine, asym and asm paths, phase 8 the exact
+    # impl; each path's counts are reset before it and read after it
+    s1m = init_state(p1m, dev)
+    phase7_blocks(s1m, p1m, scene1m, dev, card, ms_main, paths)
+    del s1m
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase8_exact(tmp, dev, card, paths)
+
+    launches = {rec: sum(paths[path][rec] for path in spec[4])
+                for rec, spec in KERNELS.items()}
     required = {"main": ("density_c16", "forces_q32_c8"),
                 "16-wide": ("density_c16 hit_sub 16", "density_c16 hit_sub 16, hit2_h",
                             "density_gated16", "forces_q32_c16"),
                 "deep": ("density_c32", "density_c32 groups 1", "density_c32 hit_sub 16",
-                         "forces_q32_c16", "forces_q32_c32", "forces_q128_c32")}
+                         "forces_q32_c16", "forces_q32_c32", "forces_q128_c32"),
+                "row": ("density_blocks row", "forces_blocks row"),
+                "fine": ("density_blocks fine", "forces_blocks fine"),
+                "asym": ("density_blocks asym", "forces_blocks asym"),
+                "asm": ("density_c32 groups 1 (asm)", "forces_q128_c32 (asm)"),
+                "exact": ("rank_hist",)}
     for path, recs in required.items():
         missing = [rec for rec in recs if paths[path][rec] <= 0]
         if missing:
@@ -1244,13 +1681,13 @@ def main(argv=None) -> int:
     log(f"launches by path: {json.dumps(paths)}")
 
     record = []
-    for rec, (_, _, src, replaces) in KERNELS.items():
+    for rec, (_, _, src, replaces, _) in KERNELS.items():
         ms_k, ms_p, nbytes_, ops = stats[rec]["bench"]
         bound_ms, bound_by = bound(nbytes_, ops)
         record.append(dict(name=rec, route="cuda", source=src, replaces=replaces,
                            launches=launches[rec], max_abs_err=stats[rec]["max_abs_err"],
                            ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=None))
+                           library_ms=stats[rec].get("library_ms")))
     print(card)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -21,11 +21,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import sys
 
 from .engine.simulation import SPHSimulation
-from .engine.step import StepConfig
+from .engine.step import IMPLS, VARIANTS, StepConfig
 from .io.houdini import HoudiniFileSaver
 
 _DEFAULTS = StepConfig()
@@ -45,6 +46,19 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--partio", action="store_true", help="write .bgeo instead of .geo")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; fails without a GPU) or 'cpu'")
+    ap.add_argument("--neighbor-impl", choices=list(IMPLS), default=_DEFAULTS.neighbor_impl,
+                    help="'pallas' (default: the hand kernels), 'tiles' (dense pair "
+                    "tiles in plain PyTorch) or 'exact' (the 27-cell gather; needs "
+                    "--sort-interval 1)")
+    ap.add_argument("--pallas-variant", choices=list(VARIANTS),
+                    default=_DEFAULTS.pallas_variant,
+                    help="kernel family of the pallas impl: nl (default), asm "
+                    "(needs --no-density-sub16), or row/fine/asym (whole "
+                    "candidate blocks)")
+    ap.add_argument("--hit-compact", action=argparse.BooleanOptionalAction,
+                    default=_DEFAULTS.hit_compact,
+                    help="force pass over the true-hit lists (--no-hit-compact: "
+                    "over the full refined lists; needs --no-density-sub16)")
     ap.add_argument("--max-candidates", type=int, default=_DEFAULTS.max_candidates)
     ap.add_argument("--max-candidates-sub", type=int,
                     default=_DEFAULTS.max_candidates_sub)
@@ -97,10 +111,22 @@ def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
     fields = {f.name for f in dataclasses.fields(StepConfig)}
     values = {k: v for k, v in vars(args).items() if k in fields}
-    # the JAX CLI's fallback rule (cli.py:209-211): the 8-wide force
-    # pass rides the 16-granular tables, so --no-density-sub16 drops it
+    # the JAX CLI's quiet clamps and refusals (cli.py:178-211); the rest
+    # of its refusals are StepConfig's
+    ci, si = values["cand_interval"], values["sort_interval"]
+    if ci > 1 and si % ci and args.cand_interval == _DEFAULTS.cand_interval:
+        # a pinned --sort-interval with the default --cand-interval: the
+        # default comes down to a divisor
+        ci = values["cand_interval"] = math.gcd(ci, si)
+    if ci > 1 and si % ci:
+        print("--cand-interval must divide --sort-interval", file=sys.stderr)
+        return -1
+    if values["neighbor_impl"] != "pallas" or values["pallas_variant"] != "nl":
+        values["cand_interval"] = 1  # reuse is a feature of the nl variant
+    if values["neighbor_impl"] != "pallas":
+        values["density_sub16"] = False
     if not values["density_sub16"]:
-        values["force_sub8"] = False
+        values["force_sub8"] = False  # the 8-wide pass rides the 16-granular tables
     try:
         cfg = StepConfig(**values)
         simulation = SPHSimulation(

@@ -44,3 +44,19 @@ def decode(code: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor
     """Morton code -> (x, y, z) cell coordinates (util.h:21-38)."""
     code = code.to(torch.int32)
     return _compact1by2(code), _compact1by2(code >> 1), _compact1by2(code >> 2)
+
+
+def neighbor_codes(code: torch.Tensor) -> torch.Tensor:
+    """Codes of the 3x3x3 cells around each input cell, shape
+    ``code.shape + (27,)``, dz outermost and dx innermost as the triple
+    loop of compute_density_with_grid (forces.cl:24-27). A coordinate
+    stepped past an edge wraps in its 10 bits as the JAX package's uint32
+    arithmetic does; the 2-cell bound padding keeps real cells off the
+    edges."""
+    x, y, z = decode(code)
+    out = []
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                out.append(encode(x + dx, y + dy, z + dz))
+    return torch.stack(out, dim=-1)

@@ -142,9 +142,10 @@ def _roundup(x, m: int = 8) -> int:
 
 def pretune_config(state, params, config, probe_cap_sub: int | None = None):
     """Probe ``state`` and return (config with the updates applied, the
-    probe statistics as host ints), or (config, None) when the config is
-    already on the q-granular tables, which the probe does not size
-    (pretune.py:190-282).
+    probe statistics as host ints), or (config, None) off the shape the
+    probe sizes, the nl variant with hit compaction on the 16-granular
+    force tables (pretune.py:190-282): the q-granular tables, ``asm``,
+    the block-granular variants, ``tiles`` and ``exact`` pass through.
 
     * hit16 pressure: if the max per-subgroup 16-granular hit count
       exceeds HEADROOM x max_candidates_hit16, downgrade to the
@@ -157,7 +158,8 @@ def pretune_config(state, params, config, probe_cap_sub: int | None = None):
       heavy rows.
     """
     cfg = config
-    if not (cfg.force_query_rows == 32 and cfg.force_sub16):
+    if not (cfg.neighbor_impl == "pallas" and cfg.pallas_variant == "nl"
+            and cfg.hit_compact and cfg.force_query_rows == 32 and cfg.force_sub16):
         return cfg, None
 
     cap_probe = probe_cap_sub or max(384, cfg.max_candidates_sub * max(2, cfg.tier2_mult))

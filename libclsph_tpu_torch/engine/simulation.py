@@ -156,9 +156,11 @@ class SPHSimulation:
         substep reported as truncated, then the caller re-runs the frame
         from its saved state.
 
+        * the exact impl: cell_capacity x2, and nothing else;
         * block cap: max_candidates x2;
-        * subblock cap: the first overflow turns two-tier routing on
-          (tier2_frac 8), later ones double tier2_mult;
+        * subblock cap: on the nl variant the first overflow turns
+          two-tier routing on (tier2_frac 8) and later ones double
+          tier2_mult; on asm max_candidates_sub doubles;
         * tier-2 pool: tier2_frac halves;
         * hit cap: max_candidates_hit8 +32 while below 160 (force_sub8);
           past that, or on the 16-wide force path's tables at once, the
@@ -172,14 +174,21 @@ class SPHSimulation:
                 "neighbour capacity keeps overflowing; the particle "
                 "distribution is degenerate (all particles in one cell?)"
             )
+        if cfg.neighbor_impl == "exact":
+            self.step_config = dataclasses.replace(cfg, cell_capacity=cfg.cell_capacity * 2)
+            log.warning("neighbour capacity overflow - growing cell_capacity to %d and "
+                        "re-running frame", self.step_config.cell_capacity)
+            return
         updates = {}
         if flags & FLAG_CAPACITY:
             updates["max_candidates"] = cfg.max_candidates * 2
         if flags & FLAG_CAPACITY_SUB:
-            if cfg.tier2_frac == 0:
+            if cfg.tier2_frac > 0:
+                updates["tier2_mult"] = cfg.tier2_mult * 2
+            elif cfg.pallas_variant == "nl":
                 updates["tier2_frac"] = 8
             else:
-                updates["tier2_mult"] = cfg.tier2_mult * 2
+                updates["max_candidates_sub"] = cfg.max_candidates_sub * 2
         if flags & FLAG_CAPACITY_T2:
             updates["tier2_frac"] = max(1, cfg.tier2_frac // 2)
         if flags & FLAG_CAPACITY_HIT:

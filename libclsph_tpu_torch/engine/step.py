@@ -1,29 +1,51 @@
 """The SPH substep and the frame loop on one device.
 
-PyTorch counterpart of ``libclsph_tpu/engine/step.py`` at the shapes
-the engine runs: Morton blocks of 128 particles, the exact refine to
-candidate subblocks, the density kernel's hit counts, hit compaction
-and the force kernel, a re-sort and candidate rebuild every 4th substep
-with a 0.25 h slack, and the adaptive time step with its retry. Four
-table shapes (density_sub16, force_sub16, force_sub8) are ported:
+PyTorch counterpart of ``libclsph_tpu/engine/step.py`` at 128-particle
+Morton blocks and 128 query rows. Three neighbour impls, as in the JAX
+package (``StepConfig.neighbor_impl``):
 
-* the main path, (True, True, True), the defaults: 16-particle
-  subblocks, hits per (32-row query subgroup, 8-particle half-slot),
-  the 8-wide force pass;
-* the 16-wide force path, (True, True, False) (``--no-force-sub8``):
-  16-particle subblocks, hits per (subgroup, slot), the 16-wide force
-  pass; on its reuse substeps the density may be gated per (subgroup,
-  tile) by the build substep's dilated hit counts (``density_gate``);
-* (False, True, False) (``--no-density-sub16``): 32-particle subblocks
-  with hits per (subgroup, half-slot) and the 16-wide force pass;
-* the q-granular path, (False, False, False), which the capacity
-  autotune and the pretune switch to on deep columns: 32-particle
-  subblocks and either the 32-row force pass (``force_query_rows=32``)
-  or the whole-block one (``force_query_rows=128``);
+* ``pallas``, the default: the hand kernels behind the block candidate
+  machinery, in the variant of ``pallas_variant``:
 
-each with or without two-tier routing (``tier2_frac > 0``). Other
-variants of the JAX package's ``StepConfig`` are refused, with the JAX
-package's reason where it refuses them too and with the ROADMAP item
+  - ``nl`` (the default): blocks refined to candidate subblocks by the
+    exact refine, the density kernel's hit counts, hit compaction and the
+    force kernel, a re-sort and candidate rebuild every 4th substep with
+    a 0.25 h slack, and the adaptive time step with its retry. Four table
+    shapes (density_sub16, force_sub16, force_sub8) run:
+
+    * the main path, (True, True, True), the defaults: 16-particle
+      subblocks, hits per (32-row query subgroup, 8-particle half-slot),
+      the 8-wide force pass;
+    * the 16-wide force path, (True, True, False) (``--no-force-sub8``):
+      16-particle subblocks, hits per (subgroup, slot), the 16-wide force
+      pass; on its reuse substeps the density may be gated per (subgroup,
+      tile) by the build substep's dilated hit counts (``density_gate``);
+    * (False, True, False) (``--no-density-sub16``): 32-particle
+      subblocks with hits per (subgroup, half-slot) and the 16-wide force
+      pass;
+    * the q-granular path, (False, False, False), which the capacity
+      autotune and the pretune switch to on deep columns: 32-particle
+      subblocks and either the 32-row force pass (``force_query_rows=32``)
+      or the whole-block one (``force_query_rows=128``), or, with
+      ``hit_compact=False``, the whole-block pass over the full refined
+      lists;
+
+    each with or without two-tier routing (``tier2_frac > 0``);
+  - ``asm``: the nl variant with in-kernel assembly of the candidate
+    subblocks on the TPU; on the card every candidate load is a gather
+    already, so it runs the q-granular whole-block route (32-wide tables,
+    one hit row a block, ``forces_q128_c32``), single tier, no reuse;
+  - ``row``, ``fine``, ``asym``: the density and force sums over whole
+    candidate blocks, no refine and no compaction
+    (:mod:`ops.kernels.blocks`), rebuilt every substep;
+
+* ``tiles``: the same block sums as dense pair tiles in plain PyTorch
+  (:func:`ops.tiles.density_pass`, :func:`ops.tiles.force_pass`);
+* ``exact``: the reference's 27-cell gather over the whole state, sorted
+  by :func:`ops.grid.sort_by_cell` every substep (no block padding).
+
+Other values of the JAX package's ``StepConfig`` are refused, with the
+JAX package's reason where it refuses them too and with the ROADMAP item
 that will port them where it does not.
 
 PyTorch runs eagerly, so the loops are Python loops: the dt retry
@@ -45,11 +67,12 @@ from ..ops import collisions as collisions_ops
 from ..ops import grid as grid_ops
 from ..ops import integrate as integrate_ops
 from ..ops import interactions as interactions_ops
+from ..ops import neighbors as neighbors_ops
 from ..ops import tiles as tiles_ops
 from ..ops import kernels
 
 # Bits of the substep's status flag (int32), as in the JAX package:
-FLAG_CAPACITY = 1  # block-level candidate capacity (max_candidates)
+FLAG_CAPACITY = 1  # block-level candidate capacity / the exact impl's cell capacity
 FLAG_GRID_DIM = 2  # a grid axis reached the 10-bit Morton limit (1024)
 FLAG_EXCHANGE = 4  # multi-device exchange reach (not used on one device)
 FLAG_CAPACITY_SUB = 8  # refined subblock capacity (max_candidates_sub)
@@ -62,12 +85,19 @@ FLAGS_ALL_CAPACITY = (
 
 BLOCK = 128  # particles per Morton block (= density/force query rows)
 GROUPS = 4  # 32-row query subgroups per block
+IMPLS = ("pallas", "tiles", "exact")
+VARIANTS = ("nl", "asm", "row", "fine", "asym")
+BLOCK_VARIANTS = ("row", "fine", "asym")  # sums over whole candidate blocks
+# candidate slots a chunk of the exact impl's gathers (rows x 27 x cap)
+EXACT_CHUNK_SLOTS = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
     """Knobs of the substep; the defaults ARE the main path
-    (``bench.py:184-226``). The first ten fields select the variant."""
+    (``bench.py:184-226``). The first ten fields select the variant;
+    off the nl variant the nl-only fields are ignored, as the JAX
+    package ignores them."""
 
     neighbor_impl: str = "pallas"
     pallas_variant: str = "nl"
@@ -79,8 +109,13 @@ class StepConfig:
     force_sub8: bool = True
     tier2_frac: int = 0  # 0: off; k: heavy rows go to ceil(nb/k) tier-2 slots
     density_gate: bool = False
+    # the nl and asm force passes over the true-hit lists (False: over
+    # the full refined lists, 32-wide tables and the whole-block pass)
+    hit_compact: bool = True
     # block-level candidate cap (the engine doubles it on overflow)
     max_candidates: int = 96
+    # the exact impl's particles per grid cell (doubled on overflow)
+    cell_capacity: int = 96
     # refined subblock cap per query block (16- or 32-particle subblocks)
     max_candidates_sub: int = 192
     # 8-particle hit runs per query subgroup (+32 on overflow, to 160)
@@ -103,15 +138,13 @@ class StepConfig:
     substeps_per_dispatch: int = 64  # substeps per frame-loop call
 
     def __post_init__(self):
+        if self.neighbor_impl not in IMPLS:
+            raise ValueError(f"StepConfig.neighbor_impl={self.neighbor_impl!r}: "
+                             f"use one of {IMPLS}")
+        if self.pallas_variant not in VARIANTS:
+            raise ValueError(f"StepConfig.pallas_variant={self.pallas_variant!r}: "
+                             f"use one of {VARIANTS}")
         not_yet = {
-            "neighbor_impl": (
-                "pallas",
-                "ROADMAP.md queue 1 items 5 ('exact') and 12 ('tiles')",
-            ),
-            "pallas_variant": (
-                "nl",
-                "ROADMAP.md queue 2 items 7 ('asm'), 8 ('row', 'fine') and 9 ('asym')",
-            ),
             "block_size": (128, "ROADMAP.md queue 1 item 12 (other block shapes)"),
             "nl_query_rows": (128, "ROADMAP.md queue 1 item 12 (finer query blocks)"),
         }
@@ -127,19 +160,6 @@ class StepConfig:
                 f"32 and 128, as the JAX package does; other query granularities are "
                 f"ROADMAP.md queue 1 item 12"
             )
-        # the JAX package's own refusals, with its reasons (step.py:392-410)
-        if self.density_sub16 and (self.force_query_rows != 32 or not self.force_sub16):
-            raise ValueError(
-                "density_sub16 requires the nl variant at whole-128 query rows "
-                "(block_size >= 128) with force_query_rows=32 + force_sub16 + "
-                "hit_compact"
-            )
-        if self.force_sub8 and not self.density_sub16:
-            raise ValueError("force_sub8 requires density_sub16 (16-granular tables)")
-        if self.force_sub8 and self.density_gate:
-            raise ValueError("force_sub8 is incompatible with density_gate")
-        if self.tier2_frac < 0 or self.tier2_mult < 1:
-            raise ValueError("tier2_frac must be >= 0 and tier2_mult >= 1")
         if self.sort_interval < 1 or self.cand_interval < 1:
             raise ValueError("sort_interval and cand_interval must be >= 1")
         if self.cand_interval > 1 and self.sort_interval % self.cand_interval:
@@ -147,6 +167,57 @@ class StepConfig:
                 "sort_interval must be a multiple of cand_interval "
                 "(re-sorts must coincide with candidate rebuilds)"
             )
+        # the JAX package's own refusals, with its reasons (step.py:
+        # 302-303, 391-416, 1154-1158, 1178-1179)
+        if self.neighbor_impl == "exact" and self.sort_interval > 1:
+            raise ValueError(
+                "sort skipping needs geometric candidates; the 'exact' impl "
+                "requires sorted codes every substep"
+            )
+        if self.nl_kernels:
+            asm = self.pallas_variant == "asm"
+            if self.density_sub16 and (asm or self.force_query_rows != 32
+                                       or not self.force_sub16 or not self.hit_compact):
+                raise ValueError(
+                    "density_sub16 requires the nl variant at whole-128 query rows "
+                    "(block_size >= 128) with force_query_rows=32 + force_sub16 + "
+                    "hit_compact"
+                )
+            if self.force_sub8 and not self.density_sub16:
+                raise ValueError("force_sub8 requires density_sub16 (16-granular tables)")
+            if self.force_sub8 and self.density_gate:
+                raise ValueError("force_sub8 is incompatible with density_gate")
+            if asm and self.tier2_frac:
+                raise ValueError(
+                    "two-tier routing (tier2_frac) requires the nl variant: the asm "
+                    "variant runs single tier"
+                )
+        if self.cand_interval > 1:
+            if self.neighbor_impl != "pallas":
+                raise ValueError("cand_interval reuse requires the pallas impl")
+            if self.pallas_variant == "asm":
+                raise ValueError("cand_interval reuse requires the nl variant at "
+                                 "whole-block query rows")
+            if self.pallas_variant != "nl":
+                raise ValueError("cand_interval reuse requires the nl variant")
+        if self.tier2_frac < 0 or self.tier2_mult < 1:
+            raise ValueError("tier2_frac must be >= 0 and tier2_mult >= 1")
+        if self.cell_capacity < 1:
+            raise ValueError("cell_capacity must be >= 1")
+
+    @property
+    def nl_kernels(self) -> bool:
+        """Whether the substep runs the refined-subblock machinery (the
+        pallas impl's nl and asm variants)."""
+        return self.neighbor_impl == "pallas" and self.pallas_variant in ("nl", "asm")
+
+    @property
+    def force_q32(self) -> bool:
+        """Whether the force pass runs per 32-row query subgroup
+        (step.py:582-587): the nl variant with hit compaction at
+        force_query_rows=32."""
+        return (self.force_query_rows == 32 and self.hit_compact
+                and self.pallas_variant == "nl")
 
     @property
     def subblock(self) -> int:
@@ -253,9 +324,9 @@ def _hit_cap(config: StepConfig, width: int, groups: int) -> int:
 def _groups(config: StepConfig, tier: int) -> int:
     """Hit rows per block of a tier's passes (step.py:614-622, :827-841):
     4 query subgroups on the 16-granular tables (both tiers) and on
-    tier 1 of the 32-row force pass; one row per block at q128 and on
-    tier 2 of the 32-wide tables."""
-    if config.density_sub16 or (tier == 1 and config.force_query_rows == 32):
+    tier 1 of the 32-row force pass; one row per block at q128, for asm,
+    without hit compaction and on tier 2 of the 32-wide tables."""
+    if config.density_sub16 or (tier == 1 and config.force_q32):
         return GROUPS
     return 1
 
@@ -288,11 +359,12 @@ def _pressure_and_pack(state, real, density, params):
     return pressure, f8
 
 
-def _density_forces(state: ParticleState, real: torch.Tensor,
-                    params: SimulationParameters, config: StepConfig, cand_in=None):
-    """Candidate tables (built, or carried in ``cand_in``), the density
-    kernel, hit compaction, Tait pressure and the force kernel
-    (step.py:360-735), or their two-tier form (:func:`two_tier_passes`).
+def _density_forces_nl(state: ParticleState, real: torch.Tensor,
+                       params: SimulationParameters, config: StepConfig, cand_in=None):
+    """The nl and asm variants: candidate tables (built, or carried in
+    ``cand_in``), the density kernel, hit compaction (skipped without
+    ``hit_compact``), Tait pressure and the force kernel (step.py:360-735),
+    or their two-tier form (:func:`two_tier_passes`).
     With ``config.gate_on`` the build substep also emits the dilated
     per-tile hit counts at (1 + cand_slack) h, packed into the mask that
     the carried tables hold as a fourth leaf, and a reuse substep runs
@@ -337,10 +409,14 @@ def _density_forces(state: ParticleState, real: torch.Tensor,
     cand_out = None
     if config.cand_interval > 1:
         cand_out = (cand_sub, count_sub, pos_anchor) + ((mask,) if gate else ())
-    cand_f, count_f, hit_flags = hit_lists(cand_sub, hits, config, groups)
+    if config.hit_compact:
+        cand_f, count_f, hit_flags = hit_lists(cand_sub, hits, config, groups)
+        flags = flags + hit_flags
+    else:  # the whole-block pass over the full refined lists (step.py:684-689)
+        cand_f, count_f = cand_sub.contiguous(), count_sub.contiguous()
     pressure, f8 = _pressure_and_pack(state, real, density, params)
     accel = _force_pass(f8, density, real, cand_f, count_f, params, config, groups)
-    return density, pressure, accel, flags + hit_flags, cand_out
+    return density, pressure, accel, flags, cand_out
 
 
 def two_tier_passes(state, real, pos4, params, config, cand_full, count_sub, flags):
@@ -377,14 +453,116 @@ def two_tier_passes(state, real, pos4, params, config, cand_full, count_sub, fla
     density = merge(density1, density2)
     pressure, f8 = _pressure_and_pack(state, real, density, params)
 
-    cand_f1, count_f1, ovf3 = hit_lists(cand1, hits1, config, g1)
-    cap2 = _hit_cap(config, config.hit_width(g2), g2) * config.tier2_mult
-    cand_f2, count_f2, ovf4 = hit_lists(cand2, hits2, config, g2, cap=cap2, qblock=idx)
+    if config.hit_compact:
+        cand_f1, count_f1, ovf3 = hit_lists(cand1, hits1, config, g1)
+        cap2 = _hit_cap(config, config.hit_width(g2), g2) * config.tier2_mult
+        cand_f2, count_f2, ovf4 = hit_lists(cand2, hits2, config, g2, cap=cap2, qblock=idx)
+    else:  # both tiers over their full lists (step.py:842-850)
+        cand_f1, count_f1 = cand1.contiguous(), count1
+        cand_f2, count_f2 = cand2.contiguous(), count2
+        ovf3 = ovf4 = torch.zeros((), dtype=torch.int32, device=cand1.device)
     accel1 = _force_pass(f8, density, real, cand_f1, count_f1, params, config, g1)
     accel2 = _force_pass(f8, density, real, cand_f2, count_f2, params, config, g2,
                          qblock=idx)
     accel = merge(accel1, accel2)
     return density, pressure, accel, flags + (ovf3 | ovf4)
+
+
+def _density_forces_blocks(state: ParticleState, real: torch.Tensor,
+                           params: SimulationParameters, config: StepConfig):
+    """The row, fine and asym variants (step.py:285-357): the block
+    search at h, then the density and force sums of each query against
+    every particle of its block's live candidate blocks, through the
+    32-wide kernels over the block table split to 32-particle subblocks
+    (:mod:`ops.kernels.blocks`). Rebuilt every substep: no refine, no
+    compaction, no reuse. Returns (density, pressure, accel, flags)."""
+    nb = state.n // BLOCK
+    pos_b = state.position.reshape(nb, BLOCK, 3)
+    bmin, bmax = tiles_ops.split_block_bounds(pos_b, real.reshape(nb, BLOCK))
+    cand, count, overflow = tiles_ops.candidate_blocks_auto(
+        bmin, bmax, params.h, config.max_candidates)
+    pos4 = kernels.pos_pack(state.position, real)
+    density = kernels.density_blocks(pos4, cand, count, params)
+    pressure, f8 = _pressure_and_pack(state, real, density, params)
+    q_div = GROUPS if config.pallas_variant == "fine" else 1
+    accel = kernels.forces_blocks(f8, density, real, cand, count, params, q_div)
+    return density, pressure, accel, overflow.to(torch.int32) * FLAG_CAPACITY
+
+
+def _density_forces_tiles(state: ParticleState, real: torch.Tensor,
+                          params: SimulationParameters, config: StepConfig):
+    """The tiles impl (step.py:251-282): the block search at h, then
+    dense (128, 128) pair tiles over whole candidate blocks in plain
+    PyTorch on every device. The JAX package's tiles impl is plain XLA
+    with no Pallas kernel, so this is its port, not a fallback of a
+    kernel. Returns (density, pressure, accel, flags)."""
+    blocked = tiles_ops.make_blocked(state.position, state.velocity, state.density,
+                                     state.pressure, real, BLOCK)
+    bmin, bmax = tiles_ops.split_block_bounds(blocked.position, blocked.real)
+    cand, count, overflow = tiles_ops.candidate_blocks_auto(
+        bmin, bmax, params.h, config.max_candidates)
+    density = tiles_ops.density_pass(blocked, cand, count, params)
+    pressure = torch.where(real, interactions_ops.tait_pressure(density, params), 0.0)
+    blocked = blocked._replace(density=density.reshape(blocked.real.shape),
+                               pressure=pressure.reshape(blocked.real.shape))
+    accel = tiles_ops.force_pass(blocked, cand, count, params)
+    return density, pressure, accel, overflow.to(torch.int32) * FLAG_CAPACITY
+
+
+def _density_forces_exact(state: ParticleState, params: SimulationParameters,
+                          config: StepConfig):
+    """The exact impl (step.py:217-248) over the state sorted by code:
+    each particle against the first ``cell_capacity`` particles of each
+    of its 27 cells (:mod:`ops.neighbors`), with the reference's pair
+    sums (:mod:`ops.interactions`). The gathers are taken in chunks of
+    EXACT_CHUNK_SLOTS candidate slots; each row's sums are the same as
+    unchunked. FLAG_CAPACITY when a cell holds more than
+    ``cell_capacity``. Returns (density, pressure, accel, flags)."""
+    terms = params.precomputed()
+    codes = state.grid_index
+    n = state.n
+    cap = config.cell_capacity
+    rows = max(1, EXACT_CHUNK_SLOTS // (27 * cap))
+
+    def chunks():
+        for r0 in range(0, n, rows):
+            r1 = min(n, r0 + rows)
+            idx, valid = neighbors_ops.neighbor_indices(codes, cap, codes[r0:r1])
+            yield r0, r1, idx, valid
+
+    density = torch.empty(n, dtype=torch.float32, device=state.device)
+    for r0, r1, idx, valid in chunks():
+        c_pos = neighbors_ops.gather_candidates(state.position, idx)
+        density[r0:r1] = interactions_ops.density_sum(state.position[r0:r1], c_pos, valid,
+                                                      params, terms)
+    pressure = interactions_ops.tait_pressure(density, params)
+    accel = torch.empty((n, 3), dtype=torch.float32, device=state.device)
+    for r0, r1, idx, valid in chunks():
+        rows_id = torch.arange(r0, r1, dtype=torch.int32, device=state.device)
+        f = interactions_ops.force_sums(
+            state.position[r0:r1], state.velocity[r0:r1], density[r0:r1],
+            pressure[r0:r1], neighbors_ops.gather_candidates(state.position, idx),
+            neighbors_ops.gather_candidates(state.velocity, idx),
+            neighbors_ops.gather_candidates(density, idx),
+            neighbors_ops.gather_candidates(pressure, idx),
+            valid, idx == rows_id[:, None], params, terms,
+        )
+        accel[r0:r1] = interactions_ops.combine_forces(f, density[r0:r1], params)
+    overflow = neighbors_ops.max_cell_occupancy(codes) > cap
+    return density, pressure, accel, overflow.to(torch.int32) * FLAG_CAPACITY
+
+
+def _density_forces(state: ParticleState, real: torch.Tensor,
+                    params: SimulationParameters, config: StepConfig, cand_in=None):
+    """The substep's density and force passes for ``config``'s impl and
+    variant. Returns (density, pressure, accel, flags, cand_out)."""
+    if config.neighbor_impl == "exact":
+        return _density_forces_exact(state, params, config) + (None,)
+    if config.neighbor_impl == "tiles":
+        return _density_forces_tiles(state, real, params, config) + (None,)
+    if config.pallas_variant in BLOCK_VARIANTS:
+        return _density_forces_blocks(state, real, params, config) + (None,)
+    return _density_forces_nl(state, real, params, config, cand_in=cand_in)
 
 
 def _advect_collide(state: ParticleState, scene, dt, params: SimulationParameters):
@@ -405,15 +583,24 @@ def _advect_collide(state: ParticleState, scene, dt, params: SimulationParameter
     )
 
 
-def pad_and_sort(state: ParticleState, params: SimulationParameters, do_sort: bool):
+def pad_and_sort(state: ParticleState, params: SimulationParameters, do_sort: bool,
+                 exact: bool = False):
     """Grid bounds and Morton codes, sentinel padding to whole blocks
     (and superblocks), and the stable sort by code when ``do_sort``
-    (step.py:1099-1168). Returns (padded state, real mask, grid_bad)."""
+    (step.py:1099-1168). With ``exact`` (the exact impl) there is no
+    padding and the whole state is sorted by :func:`grid.sort_by_cell`
+    (the exact impl's StepConfig sorts every substep). ``grid_bad`` also flags a grid
+    that outgrew a reduced radix key width (grid.grid_exceeds_sort_bits).
+    Returns (state, real mask, grid_bad)."""
     n = params.particles_count
     dev = state.device
     grid = grid_ops.compute_bounds(state.position, params)
     codes = grid_ops.locate_in_grid(state.position, grid)
-    grid_bad = torch.any(grid.grid_size >= morton.MAX_GRID_DIM)
+    grid_bad = torch.any(grid.grid_size >= morton.MAX_GRID_DIM) | (
+        grid_ops.grid_exceeds_sort_bits(grid.grid_size))
+    if exact:
+        state = grid_ops.sort_by_cell(state, codes)[0]
+        return state, torch.ones(n, dtype=torch.bool, device=dev), grid_bad
 
     # sentinels sit far away and sort last
     npad = tiles_ops.padded_count(n, BLOCK)
@@ -468,7 +655,8 @@ def substep(state: ParticleState, dt: torch.Tensor, params: SimulationParameters
             "candidate reuse substeps must skip the sort (do_sort=False): "
             "the carried ids index the sorted order"
         )
-    state, real, grid_bad = pad_and_sort(state, params, do_sort)
+    state, real, grid_bad = pad_and_sort(state, params, do_sort,
+                                         exact=config.neighbor_impl == "exact")
     density, pressure, accel, cap_flags, cand_out = _density_forces(
         state, real, params, config, cand_in=cand_in
     )

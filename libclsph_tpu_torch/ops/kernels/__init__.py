@@ -22,8 +22,23 @@ from .forces import (
     forces_q128_c32,
     forces_q128_c32_torch,
 )
+from .radix import rank_hist, rank_hist_torch
+from .blocks import (
+    density_blocks,
+    density_blocks_torch,
+    expand_block_table,
+    forces_blocks,
+    forces_blocks_torch,
+)
 
 __all__ = [
+    "rank_hist",
+    "rank_hist_torch",
+    "density_blocks",
+    "density_blocks_torch",
+    "expand_block_table",
+    "forces_blocks",
+    "forces_blocks_torch",
     "density_c16",
     "density_c16_torch",
     "density_c32",

@@ -40,6 +40,7 @@ SIGNATURES = {
     "density_gated16_launch": [_P] * 4 + [_I] * 3 + [_F] * 4 + [_P] * 3,
     "forces_q32_launch": [_P] * 6 + [_I] * 3 + [_F] * 14 + [_P, _P],
     "forces_c32_launch": [_P] * 6 + [_I] * 2 + [_F] * 14 + [_P, _P],
+    "radix_rank_launch": [_P] + [_I] * 3 + [_P] * 3,
 }
 
 _lock = threading.Lock()

@@ -1,13 +1,15 @@
-"""Block candidate machinery of the main path.
+"""Block candidate machinery and the ``tiles`` impl's passes.
 
-PyTorch counterpart of the main-path subset of
-``libclsph_tpu/ops/tiles.py``. After the Morton sort, consecutive
+PyTorch counterpart of ``libclsph_tpu/ops/tiles.py`` (its ``direct``
+tile mode). After the Morton sort, consecutive
 particles are spatially coherent; the sorted array is cut into blocks
 of ``B`` particles, each block gets up to 4 AABBs split at its largest
 internal position jumps, and blocks whose dilated boxes overlap become
 candidates. The candidate lists are then refined to 16-particle
 subblocks against the exact point-to-box distance, and after the
 density pass compacted to the subblock halves that hold a true pair.
+The ``tiles`` impl instead sums over whole candidate blocks with dense
+(B, B) pair tiles (:func:`density_pass`, :func:`force_pass`).
 
 Every integer table here equals the JAX package's, slot for slot:
 lists are compacted by the same ascending sort with the query's own
@@ -19,7 +21,12 @@ the card.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+from ..core import smoothing
+from ..core.params import SimulationParameters
 
 SENTINEL_CODE = (1 << 30) - 1  # Morton code of the padding particles
 # above this many blocks the superblock prefilter replaces the dense
@@ -363,3 +370,154 @@ def compact_hits(cand_sub: torch.Tensor, hits: torch.Tensor, max_hit: int,
     count_hit = live.sum(dim=1, dtype=torch.int32)
     overflow = torch.any(count_hit > max_hit)
     return cand_hit.to(torch.int32), torch.clamp(count_hit, max=max_hit), overflow
+
+
+# ----------------------------------------------------------------------
+# the ``tiles`` impl: dense (B, B) pair tiles over whole candidate blocks
+# ----------------------------------------------------------------------
+
+# pair elements (block rows x candidate slots x B x B) per chunk of the
+# tile passes: the 1M-particle temporaries stay near a few hundred MB each,
+# and a small cloud takes all its slots in one chunk
+TILE_CHUNK_ELEMS = 1 << 25
+
+
+class BlockedFields(NamedTuple):
+    """Morton-sorted per-particle fields reshaped to (nb, B, ...)."""
+
+    position: torch.Tensor  # (nb, B, 3)
+    velocity: torch.Tensor  # (nb, B, 3)
+    density: torch.Tensor  # (nb, B)
+    pressure: torch.Tensor  # (nb, B)
+    real: torch.Tensor  # (nb, B) bool
+    gid: torch.Tensor  # (nb, B) int32 sorted index
+
+
+def make_blocked(position, velocity, density, pressure, real,
+                 block_size: int) -> BlockedFields:
+    """The fields cut into blocks of ``block_size`` sorted particles;
+    ``gid`` is the sorted index (tiles.py:718-735)."""
+    n = position.shape[0]
+    nb = n // block_size
+    gid = torch.arange(n, dtype=torch.int32, device=position.device)
+
+    def rs(a):
+        return a.reshape((nb, block_size) + tuple(a.shape[1:]))
+
+    return BlockedFields(position=rs(position), velocity=rs(velocity), density=rs(density),
+                         pressure=rs(pressure), real=rs(real), gid=rs(gid))
+
+
+def _tile_chunks(cand: torch.Tensor, count: torch.Tensor, b: int):
+    """(block rows, candidate slots) of each chunk of the tile passes, up
+    to the deepest live slot (the slots past every count add nothing; the
+    JAX scan masks them): whole slots over 2^25 / B^2 block rows, or, for
+    fewer blocks, every row over as many slots as fit."""
+    nb = cand.shape[0]
+    live = min(cand.shape[1], int(count.max())) if count.numel() else 0
+    per_chunk = max(1, TILE_CHUNK_ELEMS // (b * b))  # (block, slot) tiles
+    rows = min(nb, per_chunk)
+    slots = max(1, per_chunk // rows)
+    for m0 in range(0, live, slots):
+        for r0 in range(0, nb, rows):
+            yield slice(r0, r0 + rows), slice(m0, min(live, m0 + slots))
+
+
+def _chunk_ids(blocked: BlockedFields, cand, count, sl, ms):
+    """The chunk's candidate block ids (r, S), clamped so that a dead
+    slot's REFINE_SENTINEL gathers a real block (a NaN row would poison the
+    sums even masked), and its live mask (r, S)."""
+    last = blocked.position.shape[0] - 1
+    c = torch.clamp(cand[sl, ms], max=last).to(torch.int64)
+    slot = torch.arange(ms.start, ms.stop, device=cand.device)
+    return c, slot[None, :] < count[sl, None]
+
+
+def density_pass(blocked: BlockedFields, cand: torch.Tensor, count: torch.Tensor,
+                 params: SimulationParameters) -> torch.Tensor:
+    """Poly6 density of every query against all particles of its live
+    candidate blocks (tiles.py:760-803; forces.cl:14-42), one (B, B) tile
+    per candidate slot. Returns (n,) over the sorted order, rest density
+    on padding rows."""
+    terms = params.precomputed()
+    h = float(params.h)
+    nb, b = blocked.real.shape
+    acc = torch.zeros((nb, b), dtype=torch.float32, device=cand.device)
+    for sl, ms in _tile_chunks(cand, count, b):
+        c, live = _chunk_ids(blocked, cand, count, sl, ms)
+        rvec = blocked.position[sl][:, None, :, None, :] - blocked.position[c][:, :, None]
+        r = torch.sqrt(torch.sum(rvec * rvec, dim=-1))  # (r, S, B, B)
+        w = smoothing.poly_6(r, h, terms)
+        ok = live[:, :, None, None] & blocked.real[c][:, :, None, :]
+        acc[sl] += torch.sum(torch.where(ok, w, 0.0), dim=(1, 3))
+    density = torch.where(blocked.real, params.particle_mass * acc, params.fluid_density)
+    return density.reshape(-1)
+
+
+def force_pass(blocked: BlockedFields, cand: torch.Tensor, count: torch.Tensor,
+               params: SimulationParameters) -> torch.Tensor:
+    """Internal forces and gravity over whole candidate blocks
+    (tiles.py:806-922; forces.cl:44-126): the symmetrised spiky pressure
+    with its r -> 0 branch, viscosity, and the colour field, self
+    excluded from the first two by id. The direction sums are taken
+    directly as sum_j a_ij (x_i - x_j), as the port's kernels take them,
+    so no block centring is needed. Returns (n, 3) over the sorted order
+    (padding rows included; the caller drops them)."""
+    terms = params.precomputed()
+    h = float(params.h)
+    mass = float(params.particle_mass)
+    nb, b = blocked.real.shape
+    dev = cand.device
+    press = torch.zeros((nb, b, 3), dtype=torch.float32, device=dev)
+    visc = torch.zeros_like(press)
+    norm = torch.zeros_like(press)
+    lap = torch.zeros((nb, b), dtype=torch.float32, device=dev)
+    self_coeff = blocked.pressure / blocked.density ** 2  # p_i / rho_i^2
+    pair_sum = (1, 3)  # over (slot, candidate particle) of (r, S, B, B, ...)
+    for sl, ms in _tile_chunks(cand, count, b):
+        c, live = _chunk_ids(blocked, cand, count, sl, ms)
+
+        def q(a):  # query side, (r, 1, B, 1, ...)
+            return a[sl][:, None, :, None]
+
+        def k(a):  # candidate side, (r, S, 1, B, ...)
+            return a[c][:, :, None, :]
+
+        rvec = q(blocked.position) - k(blocked.position)  # (r, S, B, B, 3)
+        r2 = torch.sum(rvec * rvec, dim=-1)
+        r = torch.sqrt(r2)
+        ok = live[:, :, None, None] & k(blocked.real)
+        not_self = ok & (q(blocked.gid) != k(blocked.gid))
+        cut = smoothing.support_mask(r, h)
+        near0 = r < smoothing.EPSILON
+        safe_r = torch.where(near0, 1.0, r)
+        crho = k(blocked.density)
+        mr = mass / crho
+        # pressure (Kelager 4.11, forces.cl:69-76) and its coincident
+        # pair branch (smoothing.cl:23-25) on every component
+        p_coeff = mass * (k(blocked.pressure) / crho ** 2 + q(self_coeff))
+        a = torch.where(not_self & ~near0,
+                        p_coeff * (cut * terms.spiky * (h - r) ** 2 / safe_r), 0.0)
+        sing = torch.where(not_self & near0, p_coeff * terms.spiky, 0.0)
+        press[sl] += (torch.sum(a[..., None] * rvec, dim=pair_sum)
+                      + torch.sum(sing, dim=pair_sum)[..., None])
+        # viscosity (forces.cl:78-84)
+        bm = torch.where(not_self, mr * cut * terms.viscosity * (h - r), 0.0)
+        visc[sl] += torch.sum(bm[..., None] * (k(blocked.velocity) - q(blocked.velocity)),
+                              dim=pair_sum)
+        # colour field normal and Laplacian, self included (forces.cl:87-96)
+        t = h * h - r2
+        g = torch.where(ok, mr * cut * terms.poly_6_gradient * t ** 2, 0.0)
+        norm[sl] += torch.sum(g[..., None] * rvec, dim=pair_sum)
+        lp = torch.where(ok, mr * cut * terms.poly_6_laplacian * t * (3.0 * h * h - 7.0 * r2),
+                         0.0)
+        lap[sl] += torch.sum(lp, dim=pair_sum)
+
+    qrho = blocked.density[:, :, None]
+    total = -qrho * press + visc * params.dynamic_viscosity
+    nlen = torch.linalg.vector_norm(norm, dim=-1, keepdim=True)
+    apply_st = nlen > params.surface_tension_threshold
+    st = -params.surface_tension * lap[:, :, None] * norm / torch.where(apply_st, nlen, 1.0)
+    total = total + torch.where(apply_st, st, 0.0)
+    accel = total / qrho + params.gravity(dev)
+    return accel.reshape(-1, 3)

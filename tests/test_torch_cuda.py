@@ -6,7 +6,11 @@ path's (``density_c16`` at hit_sub 16 with and without the dilated tile
 counts, ``density_c32`` at hit_sub 16, ``forces_q32_c16``,
 ``density_gated16`` against the ungated kernel bit for bit), the
 query-block map of all of them, and whole substeps of the main, q32 +
-tier-2, q128 and 16-wide configurations.
+tier-2, q128 and 16-wide configurations; the block-granular passes of
+the row, fine and asym variants (``ops.kernels.blocks``) with their
+launch counts, the rank kernel of the radix sort bit for bit
+(``radix_rank``), the fused radix sort against ``torch.sort``, and whole
+substeps of the row, fine, asym, asm and exact configurations.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -29,7 +33,9 @@ from libclsph_tpu_torch.core.params import derive_parameters
 from libclsph_tpu_torch.core.state import ParticleState
 from libclsph_tpu_torch.engine import step
 from libclsph_tpu_torch.ops.interactions import tait_pressure
-from libclsph_tpu_torch.ops.kernels import density, forces
+from libclsph_tpu_torch.ops import radix_sort
+from libclsph_tpu_torch.ops import tiles as tiles_ops
+from libclsph_tpu_torch.ops.kernels import blocks, density, forces, radix
 
 WATER = dict(fluid_density=998.29, dynamic_viscosity=3.5, restitution=0, k=100,
              surface_tension_threshold=7.065, surface_tension=0.0728,
@@ -220,7 +226,9 @@ def test_density_c16_qblock_matches_plain(tables, cuda):
     dict(max_candidates_sub=100, tier2_frac=2, tier2_mult=2, max_candidates_hit8=160),
     dict(Q_PATH, max_candidates_sub=60, tier2_frac=2, tier2_mult=2),
     dict(Q_PATH, force_query_rows=128),
-], ids=["main-tier2", "q32-tier2", "q128"])
+    # both tiers' forces_q128_c32 over their full refined lists
+    dict(Q_PATH, hit_compact=False, max_candidates_sub=60, tier2_frac=2, tier2_mult=2),
+], ids=["main-tier2", "q32-tier2", "q128", "no-hit-compact-tier2"])
 def test_q_and_tier2_substeps_on_gpu_match_cpu(tables, cuda, over):
     """Whole substeps of the other configurations on the card (kernels)
     against the CPU (plain versions), on the clumped cloud."""
@@ -386,3 +394,103 @@ def test_gated_frame_on_gpu_equals_ungated(tables, cuda):
         out.append(s)
     for k in ("position", "velocity", "density", "acceleration"):
         assert torch.equal(getattr(out[0], k), getattr(out[1], k)), k
+
+
+@pytest.fixture(scope="module")
+def block_tables(tables):
+    """The block search's table of the main fixture's cloud (block ids
+    at h, the row/fine/asym variants' input)."""
+    p = tables["params"]
+    nb = tables["real"].shape[0] // 128
+    pos = tables["pos4"][:, :3].reshape(nb, 128, 3)
+    bmin, bmax = tiles_ops.split_block_bounds(pos, tables["real"].reshape(nb, 128))
+    cand, count, ovf = tiles_ops.candidate_blocks_auto(bmin, bmax, p.h, 96)
+    assert not bool(ovf)
+    return dict(tables, cand=cand, count=count)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["row", "fine", "asym"])
+def test_block_passes_match_plain(block_tables, cuda, variant):
+    """density_blocks / forces_blocks launch the 32-wide kernels (counted
+    on the kernel they run: density_c32 at 1 group, forces_q128_c32 for
+    row and asym, forces_q32_c32 for fine) and agree with the plain
+    versions."""
+    t = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v
+         for k, v in block_tables.items()}
+    p = t["params"]
+    q_div = 4 if variant == "fine" else 1
+    kernel = forces.forces_q32_c32 if variant == "fine" else forces.forces_q128_c32
+    one_group = "groups 1, hit_sub 32"
+    before = (density.density_c32.variants.get(one_group, 0), kernel.launches)
+    d = blocks.density_blocks(t["pos4"], t["cand"], t["count"], p)
+    a = blocks.forces_blocks(t["f8"], t["dens"], t["real"], t["cand"], t["count"], p, q_div)
+    torch.cuda.synchronize()
+    after = (density.density_c32.variants[one_group], kernel.launches)
+    assert after == tuple(b + 1 for b in before)
+    d0 = blocks.density_blocks_torch(t["pos4"], t["cand"], t["count"], p)
+    np.testing.assert_allclose(d.cpu().numpy(), d0.cpu().numpy(), rtol=1e-5)
+    a0 = blocks.forces_blocks_torch(t["f8"], t["dens"], t["real"], t["cand"], t["count"],
+                                    p, q_div).cpu().numpy()
+    np.testing.assert_allclose(a.cpu().numpy(), a0, atol=1e-5 * np.abs(a0).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift,bits", [(0, 5), (25, 5), (12, 7), (3, 1)])
+def test_rank_hist_matches_plain_bitwise(cuda, shift, bits):
+    rng = np.random.default_rng(shift * 8 + bits)
+    keys = rng.integers(0, 1 << 30, size=128 * 300)
+    keys[::3] = rng.integers(0, 1 << 30, size=8)[rng.integers(0, 8, size=keys[::3].size)]
+    keys = torch.as_tensor(keys.astype(np.int32), device=cuda)
+    before = radix.rank_hist.launches
+    local, hist = radix.rank_hist(keys, shift, bits)
+    torch.cuda.synchronize()
+    assert radix.rank_hist.launches == before + 1
+    l0, h0 = radix.rank_hist_torch(keys, shift, bits)
+    assert torch.equal(local, l0) and torch.equal(hist, h0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("apply", ["scatter", "gather"])
+def test_fused_radix_sort_equals_torch_sort(cuda, apply):
+    rng = np.random.default_rng(21)
+    keys = torch.as_tensor(rng.integers(0, 1 << 30, size=100_003).astype(np.int32),
+                           device=cuda)
+    keys[::2] = keys[:8].repeat(6251)[: keys[::2].shape[0]]
+    vals = torch.arange(keys.shape[0], dtype=torch.int32, device=cuda)
+    before = radix.rank_hist.launches
+    k, v = radix_sort.radix_sort_key_val(keys, vals, apply=apply)
+    assert radix.rank_hist.launches == before + 6  # 30 bits at 5 a pass
+    sk, order = torch.sort(keys, stable=True)
+    assert torch.equal(k, sk) and torch.equal(v, order.to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [
+    dict(pallas_variant="row", cand_interval=1),
+    dict(pallas_variant="fine", cand_interval=1),
+    dict(pallas_variant="asym", cand_interval=1),
+    dict(pallas_variant="asm", cand_interval=1, density_sub16=False, force_sub8=False,
+         max_candidates_sub=512, max_candidates_hit=256),
+    dict(neighbor_impl="exact", sort_interval=1, cand_interval=1),
+    dict(hit_compact=False, density_sub16=False, force_sub8=False, max_candidates_sub=512),
+], ids=["row", "fine", "asym", "asm", "exact", "no_hit_compact"])
+def test_block_and_exact_substeps_on_gpu_match_cpu(tables, cuda, over):
+    """The clumped cloud for the block variants; the exact impl, whose
+    cells hold at most cell_capacity particles, on an unclumped one."""
+    p = tables["params"]
+    st = _clumped_state(p, 18)
+    if over.get("neighbor_impl") == "exact":
+        rng = np.random.default_rng(19)
+        side = p.initial_volume ** (1 / 3) * 1.3
+        pos = torch.as_tensor(((rng.random((N, 3)) - 0.5) * side).astype(np.float32))
+        st = st.replace(position=pos)
+    dt = torch.tensor(p.max_dt, dtype=torch.float32)
+    cfg = step.StepConfig(**over)
+    c1, _, cf, _ = step.substep(st, dt, p, None, cfg)
+    g1, _, gf, _ = step.substep(st.map(lambda a: a.to(cuda)), dt.to(cuda), p, None, cfg)
+    assert int(cf) == int(gf) == 0
+    torch.testing.assert_close(g1.grid_index.cpu(), c1.grid_index)
+    np.testing.assert_allclose(g1.density.cpu().numpy(), c1.density.numpy(), rtol=1e-5)
+    a = c1.acceleration.numpy()
+    np.testing.assert_allclose(g1.acceleration.cpu().numpy(), a, atol=1e-5 * np.abs(a).max())

@@ -168,13 +168,23 @@ def test_stale_reuse_is_flagged():
 
 # each case: the field set off the main path, the fields set with it, and
 # the message of the refusal (None: the port runs it, as the JAX package
-# does; the JAX package's own refusals keep its reason, step.py:392-410)
+# does; the JAX package's own refusals keep its reason, step.py:302-303,
+# 392-416, 1154-1158)
 @pytest.mark.parametrize("field,value,others,refusal", [
     pytest.param(field, value, others, refusal, id=f"{field}-{value}")
     for field, value, others, refusal in [
-        ("neighbor_impl", "tiles", {}, "ROADMAP.md"),
-        ("neighbor_impl", "exact", {}, "ROADMAP.md"),
-        ("pallas_variant", "asm", {}, "ROADMAP.md"),
+        ("neighbor_impl", "tiles", {"cand_interval": 1}, None),
+        ("neighbor_impl", "exact", {"cand_interval": 1},
+         "the 'exact' impl requires sorted codes every substep"),
+        ("pallas_variant", "asm", {}, "density_sub16 requires the nl variant"),
+        ("pallas_variant", "row", {"cand_interval": 1}, None),
+        ("pallas_variant", "fine", {"cand_interval": 1}, None),
+        ("pallas_variant", "asym", {"cand_interval": 1}, None),
+        ("cand_interval", 2, {"pallas_variant": "row"},
+         "cand_interval reuse requires the nl variant"),
+        ("cand_interval", 4, {"neighbor_impl": "tiles"},
+         "cand_interval reuse requires the pallas impl"),
+        ("hit_compact", False, {}, "density_sub16 requires .* hit_compact"),
         ("force_sub8", False, {}, None),  # the 16-wide force path
         ("density_sub16", False, {}, "force_sub8 requires density_sub16"),
         ("tier2_frac", 8, {"force_sub8": False}, None),
