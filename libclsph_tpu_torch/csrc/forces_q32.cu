@@ -29,22 +29,42 @@
 // b*128 + t. The query-block map lets the two-tier path run gathered
 // heavy blocks against the full particle arrays.
 //
-// What bounds it on an H100: fp32 pair arithmetic (about 45 operations
-// and one reciprocal square root per pair inside the support) and the
-// gathered candidate loads, 32 bytes a particle (32 MB at 1M, in L2).
-// Wider runs admit more pairs outside the support; those cost the r^2
-// test only.
+// What bounds it on an H100: instruction issue, and how much of it a
+// warp spends on pairs outside the support. An entry is in a subgroup's
+// list when some pair of its (32 queries x kSub particles) panel hits,
+// so only a few percent of a list's pairs lie inside the support, yet
+// with one query a lane and the candidate broadcast nearly every
+// candidate has some lane inside: a warp that runs the pair terms
+// whenever any lane needs them runs them for nearly every candidate. In
+// SASS the test of a candidate costs each lane 11 instructions (a shared
+// load, r^2 8, r^2 - h^2, a funnel shift), staging about 2, and a pair
+// inside the support 73 (its terms 36 with a MUFU rsqrt, the reloads,
+// the bit walk), which the warp pays at its largest per-lane count of
+// the round; a wider round brings that count closer to the mean (PERF.md
+// gives both). The table's bound counts 9 operations for every pair and
+// 42 more for each pair inside the support. Registers (ptxas -v,
+// sm_90a): 61 at kSub 8 and 16, 64 at 32, no spills; 24,576 bytes of
+// shared memory a block.
 //
 // Design: one thread block per list row block, warp g = query subgroup g
-// walking its own hit list. Lists differ in length, so the loop has no
-// __syncthreads: each warp stages the next 32 candidates (32/kSub runs,
-// one particle a lane, two 16-byte loads) in its own slice of shared
-// memory behind __syncwarp, then every lane reads them as broadcasts
-// (three shared loads a candidate; broadcasting the nine fields with
-// __shfl_sync instead measured 0.75 ms against 0.59 ms on the 1M
-// lattice's 8-wide tables, H100 SXM at 700 W). Self-exclusion compares
-// int32 particle ids (cand * kSub + lane), so there is no float-id range
-// limit, and a table of exchanged ids needs no second kernel.
+// walking its own list with no block barrier (the lists differ in
+// length). Each round the warp stages kRound = 128 candidates in its
+// own slice of shared memory (two 16-byte loads a candidate, one
+// candidate a lane per pass) as 48 bytes: position and id, velocity and
+// pm, and mr with visc * mr (formed once a candidate). Then (a) each
+// lane tests its query against every staged candidate and shifts the
+// sign bit of r^2 - h^2 into a bitmask, a bit a candidate; (b) each lane
+// walks its own set bits in ascending candidate order (__clz, clear the
+// bit) and adds the terms of those pairs only. The warp pays the largest
+// popcount over its lanes, not the round's width. Each query adds its
+// in-support candidates in ascending order with the arithmetic of
+// sph::ForceSums::add (add_inside, whose fused multiply-adds are spelt
+// out), so a candidate-at-a-time kernel gets the same bits.
+// Self-exclusion compares int32 particle ids (cand * kSub + lane), so
+// there is no float-id range limit, and a table of exchanged ids needs
+// no second kernel.
+
+#include <math_constants.h>
 
 #include "sph_pair.cuh"
 
@@ -52,6 +72,8 @@ namespace {
 
 using sph::kBlock;
 constexpr int kWarps = kBlock / 32;
+constexpr int kRound = 128;           // candidates a warp stages per round
+constexpr int kWords = kRound / 32;   // hit-mask words a lane
 
 template <int kSub>
 __global__ void __launch_bounds__(kBlock)
@@ -61,8 +83,9 @@ forces_q32_kernel(const float4* __restrict__ f8,
                   const int* __restrict__ cand, const int* __restrict__ count,
                   const int* __restrict__ qblock, int cap, sph::ForceConsts k,
                   float* __restrict__ accel) {
-  __shared__ float4 stage[kWarps][32][2];
-  __shared__ int stage_id[kWarps][32];
+  static_assert(kRound % kSub == 0, "a round holds whole runs");
+  // per candidate: x y z and the id (int bits); vx vy vz pm; mr, visc * mr
+  __shared__ float4 stage[kWarps][kRound][3];
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int g = t >> 5;
@@ -73,26 +96,72 @@ forces_q32_kernel(const float4* __restrict__ f8,
   const long long row = (long long)blockIdx.x * kWarps + g;
   const int n = count[row];
   const int* list = cand + row * cap;
+  float4 (*const st)[3] = stage[g];
 
   sph::ForceSums s;
-  for (int k0 = 0; k0 < n; k0 += 32 / kSub) {
-    const int slot = k0 + lane / kSub;
-    long long jid = -1;
-    float4 ca = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 cb = ca;
-    if (slot < n) {
-      jid = (long long)list[slot] * kSub + (lane % kSub);
-      ca = f8[2 * jid];
-      cb = f8[2 * jid + 1];
+  for (int k0 = 0; k0 < n; k0 += kRound / kSub) {
+    __syncwarp();  // the previous round's reads are done
+#pragma unroll
+    for (int m = 0; m < kWords; ++m) {
+      const int c = m * 32 + lane;
+      const int slot = k0 + c / kSub;
+      // a dead candidate sits at infinity: r^2 = inf fails the test
+      float4 p = make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, __int_as_float(-1));
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 ms = v;
+      if (slot < n) {
+        const long long jid = (long long)list[slot] * kSub + (c % kSub);
+        const float4 a = f8[2 * jid];
+        const float4 b = f8[2 * jid + 1];
+        p = make_float4(a.x, a.y, a.z, __int_as_float((int)jid));
+        v = make_float4(a.w, b.x, b.y, b.z);
+        ms = make_float4(b.w, k.visc * b.w, 0.f, 0.f);
+      }
+      st[c][0] = p;
+      st[c][1] = v;
+      st[c][2] = ms;
     }
     __syncwarp();
-    stage[g][lane][0] = ca;
-    stage[g][lane][1] = cb;
-    stage_id[g][lane] = (int)jid;
-    __syncwarp();
-    const int m = min(32, (n - k0) * kSub);
-    for (int c = 0; c < m; ++c) {
-      s.add(k, qa, qv, (int)i, stage[g][c][0], stage[g][c][1], stage_id[g][c]);
+
+    // (a) this lane's pairs inside the support: bit 31 - c % 32 of word
+    // c / 32 (the sign bit of r^2 - h^2, shifted in candidate by candidate)
+    unsigned hit[kWords];
+    int left = 0;
+#pragma unroll
+    for (int m = 0; m < kWords; ++m) {
+      unsigned bits = 0u;
+#pragma unroll
+      for (int c = 0; c < 32; ++c) {
+        const float4 p = st[m * 32 + c][0];
+        const float r2 = sph::pair_r2(qa.x, qa.y, qa.z, p.x, p.y, p.z);
+        bits = __funnelshift_l(__float_as_uint(r2 - k.h2), bits, 1);
+      }
+      hit[m] = bits;
+      left += __popc(bits);
+    }
+
+    // (b) the terms of this lane's own hits, in ascending candidate order
+    int base = 0;
+    for (; left > 0; --left) {
+      while (hit[0] == 0u) {  // the lowest word is spent: shift the next down
+#pragma unroll
+        for (int m = 0; m + 1 < kWords; ++m) hit[m] = hit[m + 1];
+        hit[kWords - 1] = 0u;
+        base += 32;
+      }
+      const int z = __clz(hit[0]);
+      hit[0] ^= 0x80000000u >> z;
+      const float4* cj = st[base + z];
+      const float4 p = cj[0];
+      const float4 v = cj[1];
+      const float4 ms = cj[2];
+      const float dx = qa.x - p.x;
+      const float dy = qa.y - p.y;
+      const float dz = qa.z - p.z;
+      const float r2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                 __fmul_rn(dz, dz));
+      s.add_inside(k, qa, qv, (int)i, dx, dy, dz, r2, v.x, v.y, v.z, v.w, ms.x, ms.y,
+                   __float_as_int(p.w));
     }
   }
 

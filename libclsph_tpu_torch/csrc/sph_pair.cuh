@@ -8,6 +8,10 @@
 // _forces_core_rowout and neighbor_nl.py _combine_forces, with the
 // pressure sum taken directly as a_ij (x_i - x_j) (the x_i * sum(a) -
 // sum(a x_j) form of the TPU kernels exists only for its matrix unit).
+// They spell out each fused multiply-add, so every kernel that includes
+// them rounds alike, whatever the compiler would contract where it
+// inlines them (left to it, |N|^2 came out as fma(nx, nx, ny*ny) in one
+// kernel and fma(ny, ny, nx*nx) in another).
 
 #pragma once
 
@@ -29,6 +33,15 @@ __device__ __forceinline__ float pair_r2(float ax, float ay, float az,
   const float dz = az - bz;
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                    __fmul_rn(dz, dz));
+}
+
+// The MUFU reciprocal square root of a normal float, the value rsqrtf
+// returns there, without rsqrtf's scaling of subnormal inputs (the force
+// sums take it only for r^2 >= eps^2, a normal float).
+__device__ __forceinline__ float rsqrt_normal(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // sum + poly6 * real_j * max(h^2 - r^2, 0)^3 as one explicit fma, so two
@@ -60,29 +73,41 @@ struct ForceSums {
     const float r2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                                __fmul_rn(dz, dz));
     if (r2 < k.h2) {
-      const bool near0 = r2 < k.eps2;
-      const float inv_r = near0 ? 0.f : rsqrtf(r2);
-      const float r = r2 * inv_r;
-      const float hr = fmaxf(k.h - r, 0.f);
-      const float tt = fmaxf(k.h2 - r2, 0.f);
-      const float mr = b.w;
-      const float bv = (k.visc * mr) * hr;
-      const float u = mr * tt;
-      const float pc = b.z + qb.z;
-      const float as = pc * ((k.spiky * (hr * hr)) * inv_r);
-      const float gg = (k.pgrad * u) * tt;
-      px += as * dx;
-      py += as * dy;
-      pz += as * dz;
-      vx += bv * (a.w - qa.w);
-      vy += bv * (b.x - qb.x);
-      vz += bv * (b.y - qb.y);
-      nx += gg * dx;
-      ny += gg * dy;
-      nz += gg * dz;
-      lap += k.lap7 * gg - k.lap4 * u;
-      if (near0 && cj != qi) sing += pc * k.spiky;
+      add_inside(k, qa, qb, qi, dx, dy, dz, r2, a.w, b.x, b.y, b.z, b.w,
+                 k.visc * b.w, cj);
     }
+  }
+
+  // The terms of one pair inside the support (r2 < h^2): d = x_i - x_j,
+  // the candidate's velocity (cvx, cvy, cvz), pm, mr and vmr = visc * mr
+  // (the same product wherever it is formed, so forces_q32's staged
+  // factor and add()'s give the same bits).
+  __device__ __forceinline__ void add_inside(const ForceConsts& k, float4 qa,
+                                             float4 qb, int qi, float dx,
+                                             float dy, float dz, float r2,
+                                             float cvx, float cvy, float cvz,
+                                             float pm, float mr, float vmr,
+                                             int cj) {
+    const bool near0 = r2 < k.eps2;
+    const float inv_r = near0 ? 0.f : rsqrt_normal(r2);
+    const float hr = fmaxf(__fmaf_rn(-r2, inv_r, k.h), 0.f);  // h - r
+    const float tt = fmaxf(k.h2 - r2, 0.f);
+    const float bv = vmr * hr;
+    const float u = mr * tt;
+    const float pc = pm + qb.z;
+    const float as = pc * ((k.spiky * (hr * hr)) * inv_r);
+    const float gg = (k.pgrad * u) * tt;
+    px = __fmaf_rn(as, dx, px);
+    py = __fmaf_rn(as, dy, py);
+    pz = __fmaf_rn(as, dz, pz);
+    vx = __fmaf_rn(bv, cvx - qa.w, vx);
+    vy = __fmaf_rn(bv, cvy - qb.x, vy);
+    vz = __fmaf_rn(bv, cvz - qb.y, vz);
+    nx = __fmaf_rn(gg, dx, nx);
+    ny = __fmaf_rn(gg, dy, ny);
+    nz = __fmaf_rn(gg, dz, nz);
+    lap += __fmaf_rn(k.lap7, gg, -(k.lap4 * u));
+    if (near0 && cj != qi) sing = __fmaf_rn(pc, k.spiky, sing);
   }
 
   // a = (-rho P + mu V + ST) / rho + g, rho guarded to 1 where it is 0;
@@ -90,10 +115,10 @@ struct ForceSums {
   __device__ __forceinline__ void combine(const ForceConsts& k, float rho,
                                           float* out) const {
     rho = rho > 0.f ? rho : 1.f;
-    float tx = -rho * (px + sing) + vx * k.mu;
-    float ty = -rho * (py + sing) + vy * k.mu;
-    float tz = -rho * (pz + sing) + vz * k.mu;
-    const float nlen = sqrtf(nx * nx + ny * ny + nz * nz);
+    float tx = __fmaf_rn(vx, k.mu, -rho * (px + sing));
+    float ty = __fmaf_rn(vy, k.mu, -rho * (py + sing));
+    float tz = __fmaf_rn(vz, k.mu, -rho * (pz + sing));
+    const float nlen = sqrtf(__fmaf_rn(nz, nz, __fmaf_rn(ny, ny, nx * nx)));
     if (nlen > k.st_threshold) {
       const float s = -k.sigma * lap;
       tx += (s * nx) / nlen;

@@ -47,8 +47,8 @@ _lock = threading.Lock()
 _library = None
 
 
-def sources() -> list[Path]:
-    return sorted(p for p in CSRC_DIR.iterdir() if p.suffix in (".cu", ".cuh"))
+def sources(src_dir: Path = CSRC_DIR) -> list[Path]:
+    return sorted(p for p in Path(src_dir).iterdir() if p.suffix in (".cu", ".cuh"))
 
 
 def _nvcc() -> str:
@@ -65,29 +65,31 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
+def library_path(src_dir: Path = CSRC_DIR, out_dir: Path = BUILD_DIR) -> Path:
     digest = hashlib.sha256()
-    for src in sources():
+    for src in sources(src_dir):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libclsph_kernels_{digest.hexdigest()[:16]}.so"
+    return Path(out_dir) / f"libclsph_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources if the hashed library is missing; returns its
-    path. Each ``.cu`` file is compiled to an object by its own ``nvcc``
-    process, all running at once, then the objects are linked. The
-    compilers' output (ptxas register and shared-memory report) is kept
-    beside the library as ``<name>.log``."""
-    out = library_path()
+def build(src_dir: Path = CSRC_DIR, out_dir: Path = BUILD_DIR) -> Path:
+    """Compile the sources of ``src_dir`` (the package's by default; a
+    measuring script may build another tree of the same C interface) into
+    ``out_dir`` if the hashed library is missing; returns its path. Each
+    ``.cu`` file is compiled to an object by its own ``nvcc`` process, all
+    running at once, then the objects are linked. The compilers' output
+    (ptxas register and shared-memory report) is kept beside the library
+    as ``<name>.log``."""
+    out = library_path(src_dir, out_dir)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    work = Path(tempfile.mkdtemp(dir=out.parent))
     try:
-        cus = [s for s in sources() if s.suffix == ".cu"]
+        cus = [s for s in sources(src_dir) if s.suffix == ".cu"]
         objs = [work / (s.stem + ".o") for s in cus]
         cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(cus, objs)]
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -111,17 +113,22 @@ def build() -> Path:
     return out
 
 
+def open_library(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare its entry points' signatures."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library once per process."""
     global _library
     with _lock:
         if _library is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _library = lib
+            _library = open_library(build())
         return _library
 
 

@@ -10,7 +10,13 @@ tier-2, q128 and 16-wide configurations; the block-granular passes of
 the row, fine and asym variants (``ops.kernels.blocks``) with their
 launch counts, the rank kernel of the radix sort bit for bit
 (``radix_rank``), the fused radix sort against ``torch.sort``, and whole
-substeps of the row, fine, asym, asm and exact configurations.
+substeps of the row, fine, asym, asm and exact configurations. The
+edge cases of the warp-per-list designs of ``density_c16`` and
+``forces_q32`` (lists of unequal length in one thread block, one of them
+empty; counts that are no multiple of a staging round; a candidate
+inside the support of exactly one query of its subgroup and a coincident
+pair; the query-block map), and ``density_c16`` at hit_sub 16 bit for
+bit against ``density_gated16`` with every panel flagged.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -494,3 +500,138 @@ def test_block_and_exact_substeps_on_gpu_match_cpu(tables, cuda, over):
     np.testing.assert_allclose(g1.density.cpu().numpy(), c1.density.numpy(), rtol=1e-5)
     a = c1.acceleration.numpy()
     np.testing.assert_allclose(g1.acceleration.cpu().numpy(), a, atol=1e-5 * np.abs(a).max())
+
+
+# Edge cases of the density_c16 and forces_q32 designs (one warp walks
+# one list: four of a thread block; the density stages 8 slots a round,
+# the force kernel 64 candidates; the force kernel's lanes walk only
+# their own in-support candidates).
+EDGE_CASES = ["unequal", "ragged", "one_query", "qblock"]
+
+
+def _cut(count, case):
+    """Counts of an edge case, never above the table's own: "unequal"
+    (and "qblock") give the four lists of each thread block (consecutive
+    rows, from 0) 0, a third, all and all but one of their slots;
+    "ragged" 9-13, 17-21 or 25-29 slots, no multiple of a density round
+    and a mix for the force rounds (8, 4 or 2 slots)."""
+    c = count.long()
+    row = torch.arange(c.shape[0])
+    if case in ("unequal", "qblock"):
+        c = torch.stack([torch.zeros_like(c), c // 3, c, (c - 1).clamp(min=0)])[row % 4, row]
+    elif case == "ragged":
+        c = torch.minimum(c, 9 + 8 * (row % 3) + row % 5)
+    return c.to(torch.int32).contiguous()
+
+
+def _one_query_tables(params):
+    """256 particles in two blocks: the 128 queries of block 0 on a line
+    2h apart, and candidate 128 + j 0.3h from query (5 j) % 128 only (so
+    inside the support of exactly one query of its subgroup), candidate
+    131 on its query exactly (a coincident pair of two particles). Every
+    list holds every subblock or run of the cloud, rotated per row."""
+    h = params.h
+    rng = np.random.default_rng(22)
+    pos = np.zeros((256, 3), np.float32)
+    pos[:128, 0] = 2.0 * h * np.arange(128)
+    owner = (5 * np.arange(128)) % 128
+    pos[128:] = pos[owner]
+    pos[128:, 1] += np.float32(0.3 * h)
+    pos[131] = pos[owner[3]]
+    real = torch.ones(256, dtype=torch.bool)
+    position = torch.as_tensor(pos)
+    pos4 = density.pos_pack(position, real)
+
+    def lists(width, rows):
+        runs = 256 // width
+        ids = np.stack([np.roll(np.arange(runs), 5 * r) for r in range(rows)])
+        return (torch.as_tensor(ids.astype(np.int32)),
+                torch.full((rows,), runs, dtype=torch.int32))
+
+    cand_sub, count_sub = lists(16, 2)
+    dens, _ = density.density_c16_torch(pos4, cand_sub, count_sub, params)
+    pres = tait_pressure(dens, params)
+    vel = torch.as_tensor(rng.normal(size=(256, 3)).astype(np.float32))
+    f8 = forces.force_pack(position, vel, dens, pres, real, params.particle_mass)
+    out = dict(params=params, pos4=pos4, cand_sub=cand_sub, count_sub=count_sub, dens=dens,
+               real=real, f8=f8)
+    for w in (8, 16, 32):
+        out[f"cand{w}"], out[f"count{w}"] = lists(w, 8)
+    return out
+
+
+def _density_inputs(t, case):
+    cand, count, qblock = t["cand_sub"], t["count_sub"], None
+    if case == "qblock":
+        qblock = _pool(cand.shape[0], "cpu")
+        cand, count = cand[qblock.long()].contiguous(), count[qblock.long()].contiguous()
+    return t["pos4"], cand, _cut(count, case), qblock
+
+
+def _force_inputs(t, width, case):
+    cand, count, qblock = t[f"cand{width}"], t[f"count{width}"], None
+    if case == "qblock":
+        qblock = _pool(t["f8"].shape[0] // 128, "cpu")
+        rows = (qblock.long()[:, None] * 4 + torch.arange(4)).reshape(-1)
+        cand, count = cand[rows].contiguous(), count[rows].contiguous()
+    return (t["f8"], t["dens"], t["real"], cand, _cut(count, case)), qblock
+
+
+def _on(cuda, *tensors):
+    return tuple(None if x is None else x.to(cuda) for x in tensors)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EDGE_CASES)
+@pytest.mark.parametrize("mode", ["hit8", "hit16", "hit16+tiles"])
+def test_density_c16_edge_cases_match_plain(tables, cuda, mode, case):
+    p = tables["params"]
+    t = _one_query_tables(p) if case == "one_query" else tables
+    pos4, cand, count, qblock = _on(cuda, *_density_inputs(t, case))
+    kw = dict(hit_sub=8 if mode == "hit8" else 16,
+              hit2_h=1.25 * p.h if mode == "hit16+tiles" else None, qblock=qblock)
+    before = density.density_c16.launches
+    out = density.density_c16(pos4, cand, count, p, **kw)
+    torch.cuda.synchronize()
+    assert density.density_c16.launches == before + 1
+    ref = density.density_c16_torch(pos4, cand, count, p, **kw)
+    np.testing.assert_allclose(out[0].cpu().numpy(), ref[0].cpu().numpy(), rtol=1e-5)
+    assert len(out) == len(ref)
+    for a, b in zip(out[1:], ref[1:]):
+        assert torch.equal(a, b) and int(b.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EDGE_CASES)
+@pytest.mark.parametrize("width", [8, 16, 32])
+def test_forces_q32_edge_cases_match_plain(tables, q_tables, sub16_tables, cuda, width,
+                                           case):
+    src = {8: tables, 16: sub16_tables, 32: q_tables}[width]
+    t = _one_query_tables(src["params"]) if case == "one_query" else src
+    fargs, qblock = _force_inputs(t, width, case)
+    fargs, (qblock,) = _on(cuda, *fargs), _on(cuda, qblock)
+    fn = getattr(forces, f"forces_q32_c{width}")
+    before = fn.launches
+    a = fn(*fargs, t["params"], qblock=qblock)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    a0 = getattr(forces, f"forces_q32_c{width}_torch")(*fargs, t["params"],
+                                                       qblock=qblock).cpu().numpy()
+    assert np.abs(a0).max() > 0
+    np.testing.assert_allclose(a.cpu().numpy(), a0, atol=1e-5 * np.abs(a0).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["unequal", "ragged", "one_query"])
+def test_density_c16_hit16_equals_gated16_bitwise(tables, cuda, case):
+    """With every panel flagged, density_gated16 sums the same pairs in
+    the same order as density_c16 at hit_sub 16: the same bits."""
+    p = tables["params"]
+    t = _one_query_tables(p) if case == "one_query" else tables
+    pos4, cand, count, _ = _on(cuda, *_density_inputs(t, case))
+    mask = torch.full((cand.shape[0], -(-cand.shape[1] // 64)), -1, dtype=torch.int32,
+                      device=cuda)
+    d, hits = density.density_c16(pos4, cand, count, p, hit_sub=16)
+    dg, hg = density.density_gated16(pos4, cand, count, mask, p)
+    torch.cuda.synchronize()
+    assert torch.equal(d, dg) and torch.equal(hits, hg)
