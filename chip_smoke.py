@@ -66,17 +66,19 @@ non-zero):
 8. the ``exact`` impl: ``sph-torch water default cube --neighbor-impl
    exact --sort-interval 1`` at 64,000 particles for 3 frames, sorting
    with the radix sort (``LIBCLSPH_TPU_SORT=radix-fused``, set by this
-   script before the package is imported), checked as phase 3;
-   ``rank_hist`` must launch; then one exact substep from the run's last
+   script before the package is imported), checked as phase 3; the
+   sort's kernels must launch; then one exact substep from the run's last
    state with its peak device memory, against a main-path substep from
    the same state at phase 7's tolerances.
 
 Phase 2 also holds, at the 1M lattice, ``density_blocks`` and
 ``forces_blocks`` of the three block variants on the block search's
 table expanded to 32-wide subblocks, ``density_c32`` at 1 group and
-``forces_q128_c32`` on the ``asm`` variant's tables, and ``rank_hist``
-on every pass of a 30-bit radix sort of the lattice's Morton codes (bit
-for bit), with the whole sort timed beside ``torch.sort(stable=True)``.
+``forces_q128_c32`` on the ``asm`` variant's tables, and the radix sort
+(``csrc/radix_sort.cu``, 30-bit keys at 5 bits a pass) bit for bit
+against ``torch.sort(stable=True)`` and its plain version on the Morton
+codes of the 1M and 4M cube lattices and on as many uniform random keys,
+timed in turns beside ``torch.sort`` with each kernel's device time.
 The block variants' plain versions are timed
 over 2 repetitions after a warm-up (about a second each at 1M), the rest
 over 7.
@@ -154,11 +156,11 @@ KERNELS = {
                               NL + ":2079", ("asm",)),
     # whole candidate blocks, expanded to 32-wide subblocks
     # (ops/kernels/blocks.py): the 32-wide kernels on the variant's path
-    "density_blocks row": ("density_c32", "groups 1, hit_sub 32", CSRC + "density_c32.cu",
+    "density_blocks row": ("density_c32", "densities only", CSRC + "density_c32.cu",
                            ROW + ":319", ("row",)),
-    "density_blocks fine": ("density_c32", "groups 1, hit_sub 32", CSRC + "density_c32.cu",
+    "density_blocks fine": ("density_c32", "densities only", CSRC + "density_c32.cu",
                             ROW + ":319", ("fine",)),
-    "density_blocks asym": ("density_c32", "groups 1, hit_sub 32", CSRC + "density_c32.cu",
+    "density_blocks asym": ("density_c32", "densities only", CSRC + "density_c32.cu",
                             ASYM + ":156", ("asym",)),
     "forces_blocks row": ("forces_q128_c32", None, CSRC + "forces_c32.cu", ROW + ":821",
                           ("row",)),
@@ -166,8 +168,9 @@ KERNELS = {
                            ("fine",)),
     "forces_blocks asym": ("forces_q128_c32", None, CSRC + "forces_c32.cu", ASYM + ":294",
                            ("asym",)),
-    "rank_hist": ("rank_hist", None, CSRC + "radix_rank.cu",
-                  "libclsph_tpu/ops/radix_sort.py:87", ("exact",)),
+    # the whole sort; its count is of passes
+    "radix_sort": ("radix_sort", None, CSRC + "radix_sort.cu",
+                   "libclsph_tpu/ops/radix_sort.py:87", ("exact",)),
 }
 BENCH_TAG = "1M lattice"  # the phase-2 tables whose times and bounds are recorded
 # one NVIDIA H100 SXM (data sheet): fp32 outside the tensor cores, HBM3
@@ -175,19 +178,20 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 # operations a pair, counted from the kernels' bodies (csrc/sph_pair.cuh):
 # density: r^2 (3 sub, 3 mul, 2 add), h^2 - r^2 and its clamp (2), t^3
-# (2), poly6 * real (1), the fma (2), the hit test (1); the dilated tile
-# count adds a test
+# (2), poly6 * real (1), the fma (2), the hit test (1), for the pairs
+# inside the support only (a pair outside adds exactly +0 and no count,
+# and the density kernels skip most of them); the dilated tile count
+# adds a test for each pair within its radius
 DENSITY_OPS = 16
 # force: r^2 and the support test for every pair; inside the support the
 # rsqrt, r, h - r and h^2 - r^2 with their clamps, the kernel weights
 # (8 products and a sum), the P, N sums (6 fmas), V (3 subs, 3 fmas) and
 # L (4)
 FORCE_OPS_ALL, FORCE_OPS_IN = 9, 42
-# rank kernel, per key: the digit (shift, and), the match and the peer
-# masks (match, and, popc, ffs, compare), the prefix over the warps (3
-# adds) and the histogram column; integer operations, counted at the
-# fp32 rate
-RANK_OPS = 12
+# the radix sort's least traffic: every pass reads and writes each key
+# and value once
+SORT_BYTES_PER_KEY_PASS = 16
+SORT_KEYS = (N_BENCH, 4_000_000)  # keys of the timed sorts (phase 2)
 # the plain block-granular passes take about a second each at 1M
 BLOCK_PLAIN_REPS = 2
 FEW_STEPS = 8  # timed substeps of the fine and asym variants (phase 7)
@@ -238,14 +242,13 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def density_work(args, outs, sub, pairs=None, extra_ops=0):
+def density_work(args, outs, pairs, dilated=0):
     """(bytes, operations) of a density call: each input read once and
-    each output written once; DENSITY_OPS (+ ``extra_ops``) for every
-    pair of a live slot (``pairs``: count x sub x 128 by default)."""
+    each output written once; DENSITY_OPS for each of the ``pairs`` inside
+    the support, one more for each of the ``dilated`` pairs within the
+    tile counts' radius."""
     pos4, cand, count = args[:3]
-    if pairs is None:
-        pairs = int(count.sum()) * sub * 128
-    return nbytes(pos4, cand, count, *outs), pairs * (DENSITY_OPS + extra_ops)
+    return nbytes(pos4, cand, count, *outs), pairs * DENSITY_OPS + dilated
 
 
 def force_work(args, width, qrows, pairs_in):
@@ -347,7 +350,8 @@ def compare_kernels(tag, t, stats, time_it):
         line += time_kernel(stats, "density_c16", tag,
                             lambda: density.density_c16(*t["density_args"]),
                             lambda: density.density_c16_torch(*t["density_args"]),
-                            density_work(t["density_args"], (d, hits), 16))
+                            density_work(t["density_args"], (d, hits),
+                                         int(t["hits_plain"].sum())))
         line += time_kernel(stats, "forces_q32_c8", tag,
                             lambda: forces.forces_q32_c8(*t["force_args"]),
                             lambda: forces.forces_q32_c8_torch(*t["force_args"]),
@@ -479,7 +483,7 @@ def compare_q_kernels(tag, t, stats, time_it):
                 stats, rec, tag,
                 lambda g=groups: density.density_c32(*t["density_args"], groups=g),
                 lambda g=groups: density.density_c32_torch(*t["density_args"], groups=g),
-                density_work(t["density_args"], outs[rec], 32))
+                density_work(t["density_args"], outs[rec], int(t["hits4"].sum())))
         for name, lists, qrows in (("forces_q32_c32", "q32", 32),
                                    ("forces_q128_c32", "q128", 128)):
             args = fargs + t[lists] + (t["params"],)
@@ -555,16 +559,16 @@ def compare_sub16_kernels(tag, t16, t32, stats, time_it):
         line += time_kernel(stats, "density_c16 hit_sub 16", tag,
                             lambda: density.density_c16(*args16, hit_sub=16),
                             lambda: density.density_c16_torch(*args16, hit_sub=16),
-                            density_work(args16, out16, 16))
+                            density_work(args16, out16, int(t16["hits_plain"].sum())))
         line += time_kernel(
             stats, "density_c16 hit_sub 16, hit2_h", tag,
             lambda: density.density_c16(*args16, hit_sub=16, hit2_h=hit2_h),
             lambda: density.density_c16_torch(*args16, hit_sub=16, hit2_h=hit2_h),
-            density_work(args16, out_t, 16, extra_ops=1))
+            density_work(args16, out_t, int(t16["hits_plain"].sum()), int(tiles0.sum())))
         line += time_kernel(stats, "density_c32 hit_sub 16", tag,
                             lambda: density.density_c32(*args32, hit_sub=16),
                             lambda: density.density_c32_torch(*args32, hit_sub=16),
-                            density_work(args32, out32, 32))
+                            density_work(args32, out32, int(t32["hits_plain"].sum())))
         fa = t16["force_args"]
         line += time_kernel(stats, "forces_q32_c16", tag,
                             lambda: forces.forces_q32_c16(*fa),
@@ -620,8 +624,7 @@ def compare_gated(tag, state, params, scene, engine, stats, time_it):
     if time_it:
         line += time_kernel(stats, "density_gated16", tag, lambda: density.density_gated16(*args),
                             lambda: density.density_gated16_torch(*args),
-                            density_work(args, (args[3], d, hits), 16,
-                                         pairs=int(panels.sum()) * 32 * 16))
+                            density_work(args, (args[3], d, hits), int(hits.sum())))
         ungated = cuda_ms(lambda: density.density_c16(*args[:3], params, hit_sub=16))
         line += f" ungated density_c16 hit_sub 16 on the same inputs {ungated:.4f} ms;"
     log(line)
@@ -752,7 +755,7 @@ def compare_blocks(tag, t, stats):
             stats, f"density_blocks {variant}", tag,
             lambda: blocks.density_blocks(*dargs),
             lambda: blocks.density_blocks_torch(*dargs),
-            density_work((t["pos4"], ids, counts), (t["dens"],), 32),
+            density_work((t["pos4"], ids, counts), (t["dens"],), t["pairs_in"]),
             plain_reps=BLOCK_PLAIN_REPS)
         qrows = 32 if variant == "fine" else 128
         line += time_kernel(
@@ -803,7 +806,7 @@ def compare_asm(tag, t, stats):
     line += time_kernel(stats, "density_c32 groups 1 (asm)", tag,
                         lambda: density.density_c32(*args, groups=1),
                         lambda: density.density_c32_torch(*args, groups=1),
-                        density_work(args, (d, hits), 32))
+                        density_work(args, (d, hits), t["pairs_in"]))
     line += time_kernel(stats, "forces_q128_c32 (asm)", tag,
                         lambda: forces.forces_q128_c32(*fargs),
                         lambda: forces.forces_q128_c32_torch(*fargs),
@@ -811,73 +814,97 @@ def compare_asm(tag, t, stats):
     log(line)
 
 
-def rank_device_us(keys, launches=20) -> float:
-    """Device time of one ``rank_hist`` launch (microseconds): the rank
-    kernel's summed device time under torch.profiler over ``launches``
-    back-to-back calls. The CUDA-event time of a call also holds the
-    wrapper's host work, which the 2-3 us kernel does not hide."""
+def sort_device_us(keys, vals, sorts=5) -> dict:
+    """Device time of each kernel of the radix sort (microseconds a
+    launch, by kernel) under torch.profiler over ``sorts`` sorts. The
+    CUDA-event time of a sort also holds the wrapper's host work and the
+    gaps between the launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from libclsph_tpu_torch.ops.kernels import radix
+    from libclsph_tpu_torch.ops import radix_sort
 
-    radix.rank_hist(keys, 0, 5)
+    radix_sort.radix_sort_key_val(keys, vals)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            radix.rank_hist(keys, 0, 5)
+        for _ in range(sorts):
+            radix_sort.radix_sort_key_val(keys, vals)
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages() if "radix_rank" in e.key)
-    return total / launches if total > 0 else float("nan")  # nan: the trace missed it
+    out = {}
+    for e in prof.key_averages():
+        for name in ("radix_histogram", "radix_pass", "radix_gather"):
+            if name in e.key and e.count:
+                out[name] = out.get(name, 0.0) + e.self_device_time_total / e.count
+    return out
 
 
-def compare_radix(tag, state, params, stats):
-    """``rank_hist`` against its plain version on every pass of a 30-bit
-    radix sort (5 bits a pass) of ``state``'s Morton codes, bit for bit;
-    the sort against ``torch.sort(stable=True)``, bit for bit. Times: the
-    kernel and its plain version on the first pass, and the whole sort
-    beside ``torch.sort``."""
+def sort_keys(kind, n, dev):
+    """The timed sorts' keys: the Morton codes of the n-particle cube
+    lattice (bench64k.json at n) or n uniform random 30-bit keys from a
+    fixed seed."""
     import torch
 
-    from libclsph_tpu_torch.ops import grid, radix_sort
+    from libclsph_tpu_torch.core.state import init_state
+    from libclsph_tpu_torch.ops import grid
+
+    if kind == "random":
+        gen = torch.Generator(device=dev).manual_seed(n)
+        return torch.randint(0, 1 << 30, (n,), generator=gen, device=dev, dtype=torch.int32)
+    p = water_params(n)
+    pos = init_state(p, dev).position
+    return grid.locate_in_grid(pos, grid.compute_bounds(pos, p))
+
+
+def compare_radix(tag, stats, dev):
+    """The radix sort (its kernels) against ``torch.sort(stable=True)``
+    and against its plain version, bit for bit, with either apply, on the
+    Morton codes of the cube lattice and on uniform random 30-bit keys,
+    at each count of SORT_KEYS; times of the sort and ``torch.sort`` in
+    turns (torch, radix, radix, torch), the plain version's at 1M, and
+    the kernels' device time a launch."""
+    import torch
+
+    from libclsph_tpu_torch.ops import radix_sort
     from libclsph_tpu_torch.ops.kernels import radix
 
-    codes = grid.locate_in_grid(state.position, grid.compute_bounds(state.position, params))
-    n = codes.shape[0]
-    iota = torch.arange(n, dtype=torch.int32, device=codes.device)
-    pad = (-n) % radix_sort.LANES
-    keys = torch.cat([codes, torch.full((pad,), (1 << 30) - 1, dtype=torch.int32,
-                                        device=codes.device)])
-    vals = torch.cat([iota, torch.zeros(pad, dtype=torch.int32, device=codes.device)])
-    first = keys
-    for shift in range(0, 30, 5):
-        local, hist = radix.rank_hist(keys, shift, 5)
-        l0, h0 = radix.rank_hist_torch(keys, shift, 5)
-        torch.cuda.synchronize()
-        if not (torch.equal(local, l0) and torch.equal(hist, h0)):
-            raise RuntimeError(f"{tag} rank_hist shift {shift}: "
-                               f"{int((local != l0).sum())} ranks, "
-                               f"{int((hist != h0).sum())} histogram counts differ")
-        keys, vals = radix_sort._radix_pass(keys, vals, shift, bits=5, apply="scatter")
-    record_err(stats, "rank_hist", 0.0)
-    k, v = radix_sort.radix_sort_key_val(codes, iota)
-    sk, order = torch.sort(codes, stable=True)
-    torch.cuda.synchronize()
-    if not (torch.equal(k, sk) and torch.equal(v, order.to(torch.int32))):
-        raise RuntimeError(f"{tag}: the radix sort differs from torch.sort")
-    nb = first.shape[0] // 128
-    line = (f"phase 2 {tag} (radix sort of {n} Morton codes): rank_hist bit-equal to its "
-            f"plain version on all 6 passes; the sort bit-identical to "
-            f"torch.sort(stable=True);")
-    line += time_kernel(stats, "rank_hist", tag, lambda: radix.rank_hist(first, 0, 5),
-                        lambda: radix.rank_hist_torch(first, 0, 5),
-                        (nbytes(first) * 2 + 4 * 32 * nb, first.shape[0] * RANK_OPS))
-    line += f" device time {rank_device_us(first):.2f} us a launch (torch.profiler);"
-    whole = cuda_ms(lambda: radix_sort.radix_sort_key_val(codes, iota))
-    library = cuda_ms(lambda: torch.sort(codes, stable=True))
-    stats["rank_hist"]["library_ms"] = library
-    line += (f" whole sort: radix {whole:.4f} ms, torch.sort(stable=True) "
-             f"{library:.4f} ms;")
+    passes = len(radix.passes(radix_sort.MORTON_BITS, 5))
+    line = f"phase 2 {tag} (radix sort, 30-bit keys, {passes} passes of 5 bits):"
+    for n in SORT_KEYS:
+        for kind in ("Morton", "random"):
+            keys = sort_keys(kind, n, dev)
+            iota = torch.arange(n, dtype=torch.int32, device=dev)
+            sk, order = torch.sort(keys, stable=True)
+            order = order.to(torch.int32)
+            plain = radix.radix_sort_torch(keys, iota, radix_sort.MORTON_BITS, 5, "scatter")
+            for apply in radix.APPLY:
+                k, v = radix_sort.radix_sort_key_val(keys, iota, apply=apply)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in ((k, sk), (v, order), (k, plain[0]),
+                                                          (v, plain[1]))):
+                    raise RuntimeError(f"{tag}: the radix sort ({apply}) of {n} {kind} keys "
+                                       f"differs from torch.sort or its plain version")
+            del plain
+            turns = [(name, cuda_ms(fn)) for name, fn in (
+                ("torch", lambda: torch.sort(keys, stable=True)),
+                ("radix", lambda: radix_sort.radix_sort_key_val(keys, iota)),
+                ("radix", lambda: radix_sort.radix_sort_key_val(keys, iota)),
+                ("torch", lambda: torch.sort(keys, stable=True)))]
+            ms = {name: statistics.mean(t for other, t in turns if other == name)
+                  for name in ("radix", "torch")}
+            device = sort_device_us(keys, iota)
+            line += (f" {n} {kind} keys: radix {ms['radix']:.4f} ms, torch.sort(stable=True) "
+                     f"{ms['torch']:.4f} ms (turns {', '.join(f'{t:.4f}' for _, t in turns)}), "
+                     f"bit-identical to both and to the plain version, either apply; device us "
+                     f"a launch {json.dumps({k: round(v, 3) for k, v in device.items()})};")
+            if n == N_BENCH and kind == "Morton":
+                plain_ms = cuda_ms(lambda: radix.radix_sort_torch(
+                    keys, iota, radix_sort.MORTON_BITS, 5, "scatter"))
+                work = (SORT_BYTES_PER_KEY_PASS * n * passes, 0)
+                stats["radix_sort"]["bench"] = (ms["radix"], plain_ms) + work
+                stats["radix_sort"]["library_ms"] = ms["torch"]
+                line += (f" plain {plain_ms:.4f} ms, bound {bound(*work)[0]:.4f} ms by "
+                         f"bytes;")
+    record_err(stats, "radix_sort", 0.0)
     log(line)
 
 
@@ -1483,8 +1510,8 @@ def phase8_exact(tmp, dev, card, paths):
     seconds, arrays = phase3_cli(tmp, "8", ("--neighbor-impl", "exact", "--sort-interval",
                                             "1"))
     paths["exact"] = got = read_launches()
-    if got["rank_hist"] <= 0:
-        raise RuntimeError(f"phase 8: rank_hist did not launch: {got}")
+    if got["radix_sort"] <= 0:
+        raise RuntimeError(f"phase 8: the radix sort's kernels did not launch: {got}")
     saved = save_launches()
     params = water_params(N_EXACT)
     scene = collisions.build_device_scene(
@@ -1502,7 +1529,8 @@ def phase8_exact(tmp, dev, card, paths):
     s_main, ms_main = one_substep(state, params, scene, main)
     restore_launches(saved)
     log(f"phase 8 exact: CLI {seconds:.2f} s for 3 frames at {N_EXACT} particles "
-        f"(LIBCLSPH_TPU_SORT=radix-fused), rank_hist launched {got['rank_hist']} times; "
+        f"(LIBCLSPH_TPU_SORT=radix-fused), the radix sort's kernels ran "
+        f"{got['radix_sort']} passes; "
         f"one exact substep {ms_exact:.3f} ms (host clock), peak device memory "
         f"{peak / 2**30:.3f} GiB ({(peak - before) / 2**30:.3f} GiB above the "
         f"{before / 2**30:.3f} GiB held before it), cell_capacity "
@@ -1595,7 +1623,7 @@ def main(argv=None) -> int:
     compare_asm(BENCH_TAG, asm_tables(s1m, p1m, engine_for("1M", dict(
         pallas_variant="asm", cand_interval=1, density_sub16=False, force_sub16=False,
         force_sub8=False))), stats)
-    compare_radix(BENCH_TAG, s1m, p1m, stats)
+    compare_radix(BENCH_TAG, stats, dev)
     del s64
     torch.cuda.empty_cache()
 
@@ -1673,7 +1701,7 @@ def main(argv=None) -> int:
                 "fine": ("density_blocks fine", "forces_blocks fine"),
                 "asym": ("density_blocks asym", "forces_blocks asym"),
                 "asm": ("density_c32 groups 1 (asm)", "forces_q128_c32 (asm)"),
-                "exact": ("rank_hist",)}
+                "exact": ("radix_sort",)}
     for path, recs in required.items():
         missing = [rec for rec in recs if paths[path][rec] <= 0]
         if missing:

@@ -3,6 +3,7 @@
 another build of the same C interface, on one NVIDIA GPU.
 
     python3 kernel_ab.py --base DIR [--variant NAME=DIR ...] [--out DIR] [--sass]
+                         [--sort-tree TREE]
 
 ``DIR`` holds another tree of ``libclsph_tpu_torch/csrc/`` sources (for
 example an earlier commit's, unpacked under ``build/``). Each tree is
@@ -10,8 +11,10 @@ compiled with the package's ``nvcc`` flags into ``build/kernel_ab/``
 and loaded in place of the package's library while its turn runs.
 
 On the tables of the 1M cube lattice (those of ``chip_smoke.py``'s phase
-2: the main path's, the 16-wide force path's, the q-granular ones and
-the fine variant's block lists) every case is first run once per library
+2: the main path's, the 16-wide force path's, the q-granular ones, the
+asm variant's and the row variant's block table expanded to 32-wide
+subblocks, with the fine variant's lists over it) every case is first
+run once per library
 and held against the base build (densities, hit and tile counts bit for
 bit; accelerations by their largest difference and the share of equal
 bits) and against its plain PyTorch version (chip_smoke's tolerances).
@@ -30,6 +33,13 @@ warp at rounds of 32, 64 and 128 candidates.
 The last line is one JSON object with every number; it is also written
 to ``OUT/kernel_ab.json`` (default ``build/kernel_ab/``). Needs a CUDA device
 and exits 2 without one.
+
+The radix sort's C interface is not the one of earlier trees, so
+``--sort-tree TREE`` (a whole checkout, for example the parent commit's
+``git archive`` unpacked under ``build/``) times that tree's sort in a
+process of its own, in turns with the package's and ``torch.sort``, on
+``chip_smoke.py``'s sort keys (1M and 4M, lattice Morton codes and
+uniform random 30-bit keys).
 """
 
 from __future__ import annotations
@@ -82,7 +92,7 @@ def build_all(trees: dict) -> dict:
     return libs, paths
 
 
-def cases_1m(dev):
+def cases_1m(dev, libs):
     """The tables' statistics (:func:`panel_stats`, :func:`lane_stats`)
     and the cases (name, profiler key, call, plain call, work, kind) on
     the 1M lattice's tables; kind is "density", or for a force case a
@@ -92,7 +102,7 @@ def cases_1m(dev):
     from libclsph_tpu_torch.core.state import init_state
     from libclsph_tpu_torch.engine import step
     from libclsph_tpu_torch.engine.simulation import SPHSimulation
-    from libclsph_tpu_torch.ops.kernels import density, forces
+    from libclsph_tpu_torch.ops.kernels import build, density, forces
 
     def engine(**over):
         return SPHSimulation(step.StepConfig(**over), device=dev, pretune=False)
@@ -103,6 +113,8 @@ def cases_1m(dev):
     t16 = cs.sub16_tables(state, params, engine(**cs.SUB16), 16)
     tq = cs.q_path_tables(state, params, engine(**cs.Q_PATH))
     tb = cs.block_tables(state, params, engine(pallas_variant="row", cand_interval=1))
+    ta = cs.asm_tables(state, params, engine(pallas_variant="asm", cand_interval=1,
+                                             **cs.Q_PATH))
     del state
     torch.cuda.empty_cache()
     hit2_h = params.h * 1.25
@@ -120,6 +132,20 @@ def cases_1m(dev):
     def dens(args, **kw):
         return (lambda: density.density_c16(*args, **kw),
                 lambda: density.density_c16_torch(*args, **kw))
+
+    def dens32(args, pairs, groups, hit_sub=32):
+        """density_c32 on 32-wide tables. The base build predates the
+        densities-only mode (groups 0): there it runs 1 group, as
+        density_blocks did, and the comparison drops its hit counts."""
+        keep = 2 if groups else 1
+
+        def call():
+            g = 1 if groups == 0 and build._library is libs["base"] else groups
+            return density.density_c32(*args, groups=g, hit_sub=hit_sub)[:keep]
+
+        def plain():
+            return density.density_c32_torch(*args, groups=groups, hit_sub=hit_sub)[:keep]
+        return call, plain, cs.density_work(args, plain(), pairs)
 
     def force(name, args):
         return (lambda: getattr(forces, name)(*args),
@@ -143,17 +169,32 @@ def cases_1m(dev):
 
     def dwork(args, **kw):
         outs = density.density_c16_torch(*args, **kw)
-        return cs.density_work(args, outs, 16, extra_ops=1 if "hit2_h" in kw else 0)
+        return cs.density_work(args, outs, int(outs[1].sum()),
+                               int(outs[2].sum()) if "hit2_h" in kw else 0)
 
-    stats = dict(density_panels=panel_stats(tm, params), lanes_c8=lane_stats(fm, 8),
-                 lanes_c16=lane_stats(f16, 16), lanes_c32=lane_stats(q32, 32))
+    dq, dasm = tq["density_args"], ta["density_args"]
+    dblk = (tb["pos4"], tb["ids"], tb["counts"], params)
+    stats = dict(density_panels=panel_stats(*da[:3], params, 16),
+                 density_panels_q32=panel_stats(*dq[:3], params, 32),
+                 density_panels_asm=panel_stats(*dasm[:3], params, 32),
+                 density_panels_blocks=panel_stats(*dblk[:3], params, 32),
+                 lanes_c8=lane_stats(fm, 8), lanes_c16=lane_stats(f16, 16),
+                 lanes_c32=lane_stats(q32, 32))
     return stats, [
-        ("density_c16 hit_sub 8 (row 1)", "density_c16_kernel", *dens(da), dwork(da), "density"),
-        ("density_c16 hit_sub 16 (row 1a)", "density_c16_kernel", *dens(d16, hit_sub=16),
+        ("density_c16 hit_sub 8 (row 1)", "density_", *dens(da), dwork(da), "density"),
+        ("density_c16 hit_sub 16 (row 1a)", "density_", *dens(d16, hit_sub=16),
          dwork(d16, hit_sub=16), "density"),
-        ("density_c16 hit_sub 16, hit2_h (row 1b)", "density_c16_kernel",
+        ("density_c16 hit_sub 16, hit2_h (row 1b)", "density_",
          *dens(d16, hit_sub=16, hit2_h=hit2_h), dwork(d16, hit_sub=16, hit2_h=hit2_h),
          "density"),
+        ("density_c32 groups 4 (row 1c)", "density_", *dens32(dq, pairs_q, 4), "density"),
+        ("density_c32 groups 1 (row 1d)", "density_", *dens32(dq, pairs_q, 1), "density"),
+        ("density_c32 hit_sub 16 (row 1e)", "density_", *dens32(dq, pairs_q, 4, 16),
+         "density"),
+        ("density_c32 groups 1, asm tables (row 7)", "density_",
+         *dens32(dasm, ta["pairs_in"], 1), "density"),
+        ("density_blocks: density_c32 densities only, block table (row 8)", "density_",
+         *dens32(dblk, tb["pairs_in"], 0), "density"),
         ("forces_q32_c8 (row 2)", "forces_q32_kernel", *force("forces_q32_c8", fm),
          cs.force_work(fm, 8, 32, pairs_m), rows_info(fm)),
         ("forces_q32_c16 (row 6)", "forces_q32_kernel", *force("forces_q32_c16", f16),
@@ -169,33 +210,38 @@ def cases_1m(dev):
     ]
 
 
-def panel_stats(t, params) -> dict:
-    """On main-path tables: the (subgroup, run of 8 candidates) panels of
-    the density's live slots, how many hold a pair within h (hit count >
-    0) and how many pass density_c16's box test (the subgroup's box and
-    the run's box less than h apart, with its 1e-4 margin)."""
+def panel_stats(pos4, cand, count, params, sub) -> dict:
+    """On density tables of ``sub``-particle slots (list row b = query
+    block b): the (subgroup, run of 8 candidates) panels of the live
+    slots, how many hold a pair within h and how many pass the density
+    kernels' box test (the subgroup's box and the run's box less than h
+    apart, with its 1e-4 margin)."""
     import torch
 
-    pos4, cand, count = t["density_args"][:3]
     nb, cap = cand.shape
-    h2 = float(params.h) ** 2 * 1.0001
+    runs = cap * sub // 8
+    h2 = float(params.h) ** 2
     q = pos4[:, :3].reshape(nb, 4, 32, 3)
     qlo, qhi = q.amin(dim=2), q.amax(dim=2)  # (nb, 4, 3)
-    live = torch.arange(2 * cap, device=cand.device)[None] < 2 * count[:, None]
-    passed = 0
-    for b0 in range(0, nb, 1024):
-        b1 = min(nb, b0 + 1024)
-        ids = torch.where(live[b0:b1].reshape(-1, cap, 2)[..., 0], cand[b0:b1], 0).long()
-        c = pos4[(ids[..., None] * 16 + torch.arange(16, device=ids.device)), :3]
-        c = c.reshape(b1 - b0, 2 * cap, 8, 3)
-        clo, chi = c.amin(dim=2), c.amax(dim=2)  # (r, 2cap, 3)
+    live = (torch.arange(runs, device=cand.device)[None] * 8 // sub) < count[:, None]
+    passed = hit = 0
+    rows = max(1, (1 << 24) // (128 * cap * sub))
+    for b0 in range(0, nb, rows):
+        b1 = min(nb, b0 + rows)
+        ids = torch.where(torch.arange(cap, device=cand.device)[None] < count[b0:b1, None],
+                          cand[b0:b1], 0).long()
+        c = pos4[(ids[..., None] * sub + torch.arange(sub, device=ids.device)), :3]
+        c = c.reshape(b1 - b0, runs, 8, 3)
+        clo, chi = c.amin(dim=2), c.amax(dim=2)  # (r, runs, 3)
         gap = torch.clamp(torch.maximum(clo[:, None] - qhi[b0:b1, :, None],
                                         qlo[b0:b1, :, None] - chi[:, None]), min=0.0)
-        near = (gap * gap).sum(dim=-1) < h2  # (r, 4, 2cap)
-        passed += int((near & live[b0:b1, None]).sum())
-    hits = t["hits_plain"].reshape(nb, 4, 2 * cap)
-    return dict(live_panels=int(live.sum()) * 4, box_pass=passed,
-                with_hit=int(((hits > 0) & live[:, None]).sum()))
+        near = (gap * gap).sum(dim=-1) < h2 * 1.0001  # (r, 4, runs)
+        on = live[b0:b1, None]
+        passed += int((near & on).sum())
+        d = q[b0:b1, :, :, None, None, :] - c[:, None, None]  # (r, 4, 32, runs, 8, 3)
+        r2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+        hit += int(((r2 < h2).any(dim=(2, 4)) & on).sum())
+    return dict(live_panels=int(live.sum()) * 4, box_pass=passed, with_hit=hit)
 
 
 def lane_stats(args, width, rounds=(32, 64, 128)) -> dict:
@@ -232,6 +278,77 @@ def lane_stats(args, width, rounds=(32, 64, 128)) -> dict:
     return out
 
 
+# run in another tree's root (``--sort-tree``): its radix sort of the
+# keys saved at each path in argv, checked against torch.sort and timed
+OTHER_SORT = r"""
+import json, sys
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from libclsph_tpu_torch.ops import radix_sort
+out = {}
+for path in sys.argv[1:]:
+    keys = torch.load(path).cuda()
+    iota = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
+    k, v = radix_sort.radix_sort_key_val(keys, iota)
+    sk, order = torch.sort(keys, stable=True)
+    if not (torch.equal(k, sk) and torch.equal(v, order.to(torch.int32))):
+        raise SystemExit(f"the sort differs from torch.sort on {path}")
+    out[path] = cs.cuda_ms(lambda: radix_sort.radix_sort_key_val(keys, iota))
+print(json.dumps(out))
+"""
+
+
+def sort_ab(tree: Path, dev) -> dict:
+    """The package's radix sort against the one of another tree (a whole
+    checkout, e.g. the parent commit's, whose sort has another C
+    interface), run in its own process in that tree, and torch.sort, on
+    chip_smoke's sort keys: in turns (other, package, package, other),
+    each turn the median of 7 calls (CUDA events)."""
+    import torch
+
+    from libclsph_tpu_torch.ops import radix_sort
+
+    paths = {}
+    AB_BUILD.mkdir(parents=True, exist_ok=True)
+    for n in cs.SORT_KEYS:
+        for kind in ("Morton", "random"):
+            path = (AB_BUILD / f"sort_keys_{kind}_{n}.pt").resolve()
+            torch.save(cs.sort_keys(kind, n, dev).cpu(), path)
+            paths[f"{n} {kind}"] = str(path)
+
+    def other():
+        proc = subprocess.run([sys.executable, "-c", OTHER_SORT, *paths.values()], cwd=tree,
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode:
+            raise RuntimeError(f"the other tree's sort failed:\n{proc.stderr[-4000:]}")
+        ms = json.loads(proc.stdout.strip().splitlines()[-1])
+        return {name: dict(other=ms[path]) for name, path in paths.items()}
+
+    def package():
+        out = {}
+        for name, path in paths.items():
+            keys = torch.load(path).to(dev)
+            iota = torch.arange(keys.shape[0], dtype=torch.int32, device=dev)
+            out[name] = dict(
+                package=cs.cuda_ms(lambda: radix_sort.radix_sort_key_val(keys, iota)),
+                torch=cs.cuda_ms(lambda: torch.sort(keys, stable=True)))
+        return out
+
+    turns = [other(), package(), package(), other()]
+    res = {}
+    for name in paths:
+        seq = {}
+        for turn in turns:
+            for k, v in turn[name].items():
+                seq.setdefault(k, []).append(v)
+        res[name] = dict(turns=seq, ms={k: statistics.mean(v) for k, v in seq.items()})
+        print(f"sort {name}: " + ", ".join(
+            f"{k} {statistics.mean(v):.4f} ms ({', '.join(f'{x:.4f}' for x in v)})"
+            for k, v in seq.items()), flush=True)
+    return res
+
+
 def compare(kind, out, ref, rows=0) -> dict:
     """The package's (or a variant's) output against another library's
     (or the plain version's) output; for accelerations, up to ``rows``
@@ -260,6 +377,8 @@ def main(argv=None) -> int:
                     help="another csrc tree, timed between the package and the base")
     ap.add_argument("--out", default=str(AB_BUILD))
     ap.add_argument("--sass", action="store_true", help="write each library's SASS")
+    ap.add_argument("--sort-tree", default=None, metavar="DIR",
+                    help="a whole checkout whose radix sort is timed against the package's")
     args = ap.parse_args(argv)
 
     import torch
@@ -296,7 +415,7 @@ def main(argv=None) -> int:
         finally:
             build._library = libs["package"]
 
-    stats, cases = cases_1m(dev)
+    stats, cases = cases_1m(dev, libs)
     result["table_stats"] = stats
     print(f"table statistics: {json.dumps(stats)}", flush=True)
     for name, key, call, plain, work, kind in cases:
@@ -333,6 +452,8 @@ def main(argv=None) -> int:
         print(line, flush=True)
         result["cases"].append(rec)
         torch.cuda.empty_cache()
+    if args.sort_tree:
+        result["sort"] = sort_ab(Path(args.sort_tree), dev)
     (out_dir / "kernel_ab.json").write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
     return 0

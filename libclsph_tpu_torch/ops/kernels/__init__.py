@@ -22,7 +22,7 @@ from .forces import (
     forces_q128_c32,
     forces_q128_c32_torch,
 )
-from .radix import rank_hist, rank_hist_torch
+from .radix import radix_sort, radix_sort_torch, rank_hist_torch
 from .blocks import (
     density_blocks,
     density_blocks_torch,
@@ -32,7 +32,8 @@ from .blocks import (
 )
 
 __all__ = [
-    "rank_hist",
+    "radix_sort",
+    "radix_sort_torch",
     "rank_hist_torch",
     "density_blocks",
     "density_blocks_torch",

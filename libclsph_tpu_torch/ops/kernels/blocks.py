@@ -16,8 +16,8 @@ A 128-particle block ``c`` is exactly the 32-particle subblocks ``4c ..
 writes a block table at 32-particle granularity and the port's 32-wide
 kernels run it:
 
-* density (every variant): :func:`density.density_c32` at 1 group,
-  hit counts dropped (``csrc/density_c32.cu``);
+* density (every variant): :func:`density.density_c32` with no hit
+  counts (``groups=0``, ``csrc/density_c32.cu``);
 * forces, ``row`` and ``asym``: :func:`forces.forces_q128_c32`, one list
   a block (``csrc/forces_c32.cu``);
 * forces, ``fine``: :func:`forces.forces_q32_c32` over the expanded list
@@ -73,7 +73,7 @@ def density_blocks_torch(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Te
                          params: SimulationParameters) -> torch.Tensor:
     """Plain PyTorch version of :func:`density_blocks`."""
     ids, counts = expand_block_table(cand, count)
-    return density.density_c32_torch(pos4, ids, counts, params, groups=1)[0]
+    return density.density_c32_torch(pos4, ids, counts, params, groups=0)[0]
 
 
 def density_blocks(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
@@ -83,7 +83,7 @@ def density_blocks(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
     padding queries. CPU tensors take the plain version; CUDA tensors
     launch ``density_c32`` or raise."""
     ids, counts = expand_block_table(cand, count)
-    return density.density_c32(pos4, ids, counts, params, groups=1)[0]
+    return density.density_c32(pos4, ids, counts, params, groups=0)[0]
 
 
 def forces_blocks_torch(f8, density_, real, cand, count, params: SimulationParameters,

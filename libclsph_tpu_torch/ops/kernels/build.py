@@ -40,7 +40,7 @@ SIGNATURES = {
     "density_gated16_launch": [_P] * 4 + [_I] * 3 + [_F] * 4 + [_P] * 3,
     "forces_q32_launch": [_P] * 6 + [_I] * 3 + [_F] * 14 + [_P, _P],
     "forces_c32_launch": [_P] * 6 + [_I] * 2 + [_F] * 14 + [_P, _P],
-    "radix_rank_launch": [_P] + [_I] * 3 + [_P] * 3,
+    "radix_sort_launch": [_P] * 2 + [_I] * 4 + [_P] * 7,
 }
 
 _lock = threading.Lock()
@@ -114,9 +114,12 @@ def build(src_dir: Path = CSRC_DIR, out_dir: Path = BUILD_DIR) -> Path:
 
 
 def open_library(path: Path) -> ctypes.CDLL:
-    """Load a built library and declare its entry points' signatures."""
+    """Load a built library and declare its entry points' signatures (a
+    library built from an older tree may lack some of them)."""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
+        if not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

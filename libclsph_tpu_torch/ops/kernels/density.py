@@ -8,8 +8,10 @@ Three kernels replace ``libclsph_tpu/ops/pallas/neighbor_nl.py``
   main path) or 16 (the 16-wide force path), the latter optionally with
   the dilated per-tile counts of ``hit2_h``; ``csrc/density_c16.cu``;
 * :func:`density_c32` at ``c16=False`` with ``hit_groups`` 4 or 1 (the
-  q-granular path and its tier 2), and at 4 groups with ``hit_sub`` 16
-  (the 16-wide force pass over 32-wide tables); ``csrc/density_c32.cu``;
+  q-granular path, its tier 2 and the asm variant), at 4 groups with
+  ``hit_sub`` 16 (the 16-wide force pass over 32-wide tables), and with
+  no hit counts (``groups=0``: the densities of the row, fine and asym
+  variants, ``ops/kernels/blocks.py``); ``csrc/density_c32.cu``;
 * :func:`density_gated16`, the reuse substep's c16 density at hit_sub 16
   over the (subgroup, tile) panels that a mask from
   :func:`pack_tile_nibbles` flags; ``csrc/density_gated16.cu``.
@@ -31,10 +33,11 @@ cap * sub / hit_sub), the pairs with r < h between query subgroup g
 (rows g*32 .. g*32+31, row b*4 + g) and run e of ``hit_sub`` particles
 of slot k (column k * sub / hit_sub + e). ``density_c32`` at
 ``groups=1``: (nq, cap), the particles of the slot within h of some
-query of the block. With ``hit2_h``, ``tiles`` (nq*4, ceil(cap / 8))
-counts the pairs within ``hit2_h`` between subgroup g and tile t (slots
-8t .. 8t+7). Only ``hits > 0`` and ``tiles > 0`` are read downstream;
-the counts are the JAX kernel's.
+query of the block; at ``groups=0`` no counts ((0, cap) int32). With
+``hit2_h``, ``tiles`` (nq*4, ceil(cap / 8)) counts the pairs within
+``hit2_h`` between subgroup g and tile t (slots 8t .. 8t+7). Only
+``hits > 0`` and ``tiles > 0`` are read downstream; the counts are the
+JAX kernel's.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ BLOCK = 128  # queries per block
 GROUPS = 4  # query subgroups of 32 rows
 TILE = 8  # candidate slots per tile of the dilated counts and the gate
 TILES_PER_WORD = 32 // GROUPS  # tiles packed into one int32 mask word
+DENSITY_ONLY = "densities only"  # density_c32's launch variant at groups=0
 # pair elements per chunk of the plain versions
 CHUNK_PAIRS = 1 << 24
 
@@ -77,10 +81,10 @@ def _density_torch(pos4, cand, count, params, qblock, sub: int, hit_sub: int,
     """Plain density over ``sub``-particle candidate subblocks with hit
     counts per (query subgroup of 128/groups rows, run of ``hit_sub``
     candidate particles); at groups=1 the count is of the run's particles
-    that some query hits. ``hit2_h`` adds the dilated per-(subgroup,
-    tile) pair counts; ``panels`` (nq, 4, cap) bool restricts the sums and
-    counts to the flagged (subgroup, slot) panels. Chunked over list
-    rows."""
+    that some query hits, at groups=0 there is none. ``hit2_h`` adds the
+    dilated per-(subgroup, tile) pair counts; ``panels`` (nq, 4, cap) bool
+    restricts the sums and counts to the flagged (subgroup, slot) panels.
+    Chunked over list rows."""
     c = _consts(params)
     nq, cap = cand.shape
     dev = pos4.device
@@ -123,10 +127,11 @@ def _density_torch(pos4, cand, count, params, qblock, sub: int, hit_sub: int,
         if groups == 1:
             cnt = incl.any(dim=1).reshape(r, 1, cap * runs, hit_sub).sum(
                 dim=-1, dtype=torch.int32)
-        else:
+            hits[b0:b1] = cnt.reshape(r, cap * runs)
+        elif groups:
             cnt = incl.reshape(r, groups, BLOCK // groups, cap, runs, hit_sub).sum(
                 dim=(2, 5), dtype=torch.int32)
-        hits[b0 * groups : b1 * groups] = cnt.reshape(r * groups, cap * runs)
+            hits[b0 * groups : b1 * groups] = cnt.reshape(r * groups, cap * runs)
         if tiles is not None:
             near = (r2 < _f32(hit2_h * hit2_h)) & live4
             per_slot = near.reshape(r, GROUPS, BLOCK // GROUPS, cap, sub).sum(
@@ -286,19 +291,20 @@ def density_c32(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
                 params: SimulationParameters, groups: int = GROUPS, hit_sub: int = 32,
                 qblock=None):
     """Density and hit counts over 32-wide lists, hits per query subgroup
-    (``groups=4``, at ``hit_sub`` 32 or 16) or per block (``groups=1``,
-    hit_sub 32). CPU tensors take the plain version; CUDA tensors launch
-    the kernel (building it at first use) or raise."""
+    (``groups=4``, at ``hit_sub`` 32 or 16), per block (``groups=1``,
+    hit_sub 32) or none (``groups=0``, hit_sub 32: the hits are (0, cap)).
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (building it at first use) or raise."""
     _check(pos4, cand, count, qblock)
-    if (groups, hit_sub) not in ((GROUPS, 32), (1, 32), (GROUPS, 16)):
-        raise ValueError(f"density_c32: groups must be 1 or {GROUPS} and hit_sub 32, "
+    if (groups, hit_sub) not in ((GROUPS, 32), (1, 32), (GROUPS, 16), (0, 32)):
+        raise ValueError(f"density_c32: groups must be 0, 1 or {GROUPS} and hit_sub 32, "
                          f"or groups {GROUPS} at hit_sub 16; not ({groups}, {hit_sub})")
     if _device("density_c32", pos4):
         return density_c32_torch(pos4, cand, count, params, groups, hit_sub, qblock)
     nq, cap = cand.shape
     out = _launch("density_c32", pos4, cand, count, qblock, (groups, hit_sub),
                   _kernel_consts(params), (nq * groups, cap * 32 // hit_sub))
-    _count(density_c32, f"groups {groups}, hit_sub {hit_sub}")
+    _count(density_c32, f"groups {groups}, hit_sub {hit_sub}" if groups else DENSITY_ONLY)
     return out
 
 

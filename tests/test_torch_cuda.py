@@ -419,20 +419,20 @@ def block_tables(tables):
 @pytest.mark.parametrize("variant", ["row", "fine", "asym"])
 def test_block_passes_match_plain(block_tables, cuda, variant):
     """density_blocks / forces_blocks launch the 32-wide kernels (counted
-    on the kernel they run: density_c32 at 1 group, forces_q128_c32 for
-    row and asym, forces_q32_c32 for fine) and agree with the plain
+    on the kernel they run: density_c32 densities only, forces_q128_c32
+    for row and asym, forces_q32_c32 for fine) and agree with the plain
     versions."""
     t = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v
          for k, v in block_tables.items()}
     p = t["params"]
     q_div = 4 if variant == "fine" else 1
     kernel = forces.forces_q32_c32 if variant == "fine" else forces.forces_q128_c32
-    one_group = "groups 1, hit_sub 32"
-    before = (density.density_c32.variants.get(one_group, 0), kernel.launches)
+    only = density.DENSITY_ONLY
+    before = (density.density_c32.variants.get(only, 0), kernel.launches)
     d = blocks.density_blocks(t["pos4"], t["cand"], t["count"], p)
     a = blocks.forces_blocks(t["f8"], t["dens"], t["real"], t["cand"], t["count"], p, q_div)
     torch.cuda.synchronize()
-    after = (density.density_c32.variants[one_group], kernel.launches)
+    after = (density.density_c32.variants[only], kernel.launches)
     assert after == tuple(b + 1 for b in before)
     d0 = blocks.density_blocks_torch(t["pos4"], t["cand"], t["count"], p)
     np.testing.assert_allclose(d.cpu().numpy(), d0.cpu().numpy(), rtol=1e-5)
@@ -441,19 +441,81 @@ def test_block_passes_match_plain(block_tables, cuda, variant):
     np.testing.assert_allclose(a.cpu().numpy(), a0, atol=1e-5 * np.abs(a0).max())
 
 
+def _sort_inputs(n, num_bits, seed, kind="random"):
+    """Keys below 2^num_bits (half of them drawn from 8 values: long runs
+    of ties), all equal, or all at the largest 30-bit key; values that
+    are no iota (random int32)."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 1 << num_bits, size=n)
+    keys[::2] = rng.integers(0, 1 << num_bits, size=8)[rng.integers(0, 8, size=keys[::2].size)]
+    if kind == "equal":
+        keys[:] = keys[0]
+    elif kind == "max":
+        keys[:] = (1 << 30) - 1
+    vals = rng.integers(-(1 << 31), 1 << 31, size=n)
+    return torch.as_tensor(keys.astype(np.int32)), torch.as_tensor(vals.astype(np.int32))
+
+
+def _assert_sorts_as_torch(keys, vals, k, v):
+    sk, order = torch.sort(keys, stable=True)
+    assert torch.equal(k, sk) and torch.equal(v, vals[order])
+
+
+# key counts around the 128-key blocks of the plain version and the
+# 8192-key tiles of the pass kernels (2048 of the histogram kernel)
+SORT_N = [1, 127, 128, 129, 2049, radix.TILE, radix.TILE + 1, 100_003, 1 << 20, 4 << 20]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shift,bits", [(0, 5), (25, 5), (12, 7), (3, 1)])
-def test_rank_hist_matches_plain_bitwise(cuda, shift, bits):
-    rng = np.random.default_rng(shift * 8 + bits)
-    keys = rng.integers(0, 1 << 30, size=128 * 300)
-    keys[::3] = rng.integers(0, 1 << 30, size=8)[rng.integers(0, 8, size=keys[::3].size)]
-    keys = torch.as_tensor(keys.astype(np.int32), device=cuda)
-    before = radix.rank_hist.launches
-    local, hist = radix.rank_hist(keys, shift, bits)
+@pytest.mark.parametrize("apply", radix.APPLY)
+@pytest.mark.parametrize("n", SORT_N)
+def test_radix_sort_kernels_equal_torch_sort(cuda, n, apply):
+    keys, vals = (x.to(cuda) for x in _sort_inputs(n, 30, n))
+    before = radix.radix_sort.launches
+    k, v = radix_sort.radix_sort_key_val(keys, vals, apply=apply)
     torch.cuda.synchronize()
-    assert radix.rank_hist.launches == before + 1
-    l0, h0 = radix.rank_hist_torch(keys, shift, bits)
-    assert torch.equal(local, l0) and torch.equal(hist, h0)
+    assert radix.radix_sort.launches == before + 6  # 30 bits at 5 a pass
+    _assert_sorts_as_torch(keys, vals, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("apply", radix.APPLY)
+@pytest.mark.parametrize("kind", ["equal", "max"])
+def test_radix_sort_kernels_on_equal_and_pad_keys(cuda, kind, apply):
+    """Every key equal, or every key at 2^30 - 1 (the plain version's pad
+    key): the order is the index order, over a ragged last tile."""
+    keys, vals = (x.to(cuda) for x in _sort_inputs(3 * radix.TILE + 5, 30, 7, kind))
+    k, v = radix_sort.radix_sort_key_val(keys, vals, apply=apply)
+    assert torch.equal(k, keys) and torch.equal(v, vals)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("apply", radix.APPLY)
+@pytest.mark.parametrize("bits_per_pass", range(1, radix.MAX_BITS + 1))
+@pytest.mark.parametrize("num_bits", [3, 12, 30])
+def test_radix_sort_kernels_bits(cuda, num_bits, bits_per_pass, apply):
+    """Every pass width at 3, 12 and 30 key bits: the kernels equal
+    torch.sort and the plain version, one count a pass."""
+    keys, vals = _sort_inputs(5000, num_bits, num_bits * 10 + bits_per_pass)
+    plain = radix.radix_sort_torch(keys, vals, num_bits, bits_per_pass, apply)
+    keys, vals = keys.to(cuda), vals.to(cuda)
+    before = radix.radix_sort.launches
+    k, v = radix_sort.radix_sort_key_val(keys, vals, num_bits=num_bits,
+                                         bits_per_pass=bits_per_pass, apply=apply)
+    torch.cuda.synchronize()
+    assert radix.radix_sort.launches == before + -(-num_bits // bits_per_pass)
+    _assert_sorts_as_torch(keys, vals, k, v)
+    assert torch.equal(k.cpu(), plain[0]) and torch.equal(v.cpu(), plain[1])
+
+
+@pytest.mark.cuda
+def test_radix_sort_kernels_take_views(cuda):
+    """A view that starts past a 16-byte boundary, and empty keys."""
+    keys, vals = (x.to(cuda) for x in _sort_inputs(radix.TILE * 2 + 3, 30, 8))
+    k, v = radix_sort.radix_sort_key_val(keys[1:], vals[1:])
+    _assert_sorts_as_torch(keys[1:], vals[1:], k, v)
+    k, v = radix_sort.radix_sort_key_val(keys[:0], vals[:0])
+    assert k.shape == v.shape == (0,)
 
 
 @pytest.mark.cuda
@@ -464,9 +526,9 @@ def test_fused_radix_sort_equals_torch_sort(cuda, apply):
                            device=cuda)
     keys[::2] = keys[:8].repeat(6251)[: keys[::2].shape[0]]
     vals = torch.arange(keys.shape[0], dtype=torch.int32, device=cuda)
-    before = radix.rank_hist.launches
+    before = radix.radix_sort.launches
     k, v = radix_sort.radix_sort_key_val(keys, vals, apply=apply)
-    assert radix.rank_hist.launches == before + 6  # 30 bits at 5 a pass
+    assert radix.radix_sort.launches == before + 6  # 30 bits at 5 a pass
     sk, order = torch.sort(keys, stable=True)
     assert torch.equal(k, sk) and torch.equal(v, order.to(torch.int32))
 
@@ -557,11 +619,42 @@ def _one_query_tables(params):
                real=real, f8=f8)
     for w in (8, 16, 32):
         out[f"cand{w}"], out[f"count{w}"] = lists(w, 8)
+    out["cand_sub32"], out["count_sub32"] = lists(32, 2)
     return out
 
 
-def _density_inputs(t, case):
-    cand, count, qblock = t["cand_sub"], t["count_sub"], None
+def _margin_tables(params):
+    """Two blocks. The 32 queries of subgroup g of block 0 sit on one
+    point (0, 10 g h, 0); run r of 8 candidates of block 1 (particles
+    128 + 8r ..) sits on one point beside subgroup r // 4's, at an x set
+    by r % 4: 1.01 h (a panel the box test culls), the largest float32 x
+    whose x^2 rounds below h^2 (a pair just inside the support, beside the
+    culled panel), h (1 + 2e-5) (a box gap within the test's 1e-4 margin:
+    tested, no pair inside) and 0.5 h. Both rows list every 32-wide
+    subblock: count = cap."""
+    h, h2 = params.h, np.float32(params.h * params.h)
+    under = np.float32(np.sqrt(h2))
+    while under * under >= h2:
+        under = np.nextafter(under, np.float32(0))
+    xs = [np.float32(1.01 * h), under, np.float32(h * (1 + 2e-5)), np.float32(0.5 * h)]
+    pos = np.zeros((256, 3), np.float32)
+    for g in range(4):
+        pos[32 * g:32 * g + 32, 1] = np.float32(10 * g * h)
+    for r in range(16):
+        g, k = divmod(r, 4)
+        pos[128 + 8 * r:136 + 8 * r] = (xs[k], np.float32(10 * g * h), 0.0)
+    pos4 = density.pos_pack(torch.as_tensor(pos), torch.ones(256, dtype=torch.bool))
+    cand = torch.arange(8, dtype=torch.int32).repeat(2, 1)
+    count = torch.full((2,), 8, dtype=torch.int32)
+    hits = density.density_c32_torch(pos4, cand, count, params, hit_sub=16)[1]
+    # subgroup 0 of row 0 against slot 4 (runs 0-3): the pair just inside
+    # in half 0, the 0.5 h run (and none of the margin run) in half 1
+    assert hits[0, 8] == hits[0, 9] == 32 * 8
+    return dict(params=params, pos4=pos4, cand_sub32=cand, count_sub32=count)
+
+
+def _density_inputs(t, case, key="cand_sub"):
+    cand, count, qblock = t[key], t[key.replace("cand", "count")], None
     if case == "qblock":
         qblock = _pool(cand.shape[0], "cpu")
         cand, count = cand[qblock.long()].contiguous(), count[qblock.long()].contiguous()
@@ -599,6 +692,73 @@ def test_density_c16_edge_cases_match_plain(tables, cuda, mode, case):
     assert len(out) == len(ref)
     for a, b in zip(out[1:], ref[1:]):
         assert torch.equal(a, b) and int(b.sum()) > 0
+
+
+C32_MODES = {"groups4": dict(groups=4), "groups1": dict(groups=1),
+             "hit16": dict(hit_sub=16), "densities": dict(groups=0)}
+
+
+def _c32_edge_inputs(q_tables, case):
+    """density_c32's inputs of an edge case: the q-granular tables (every
+    fifth particle made non-real with "unreal"), or the one-query and
+    margin clouds."""
+    p = q_tables["params"]
+    if case == "one_query":
+        return _density_inputs(_one_query_tables(p), case, "cand_sub32")
+    if case == "margin":
+        return _density_inputs(_margin_tables(p), case, "cand_sub32")
+    pos4, cand, count, qblock = _density_inputs(q_tables, case)
+    if case == "unreal":
+        pos4 = pos4.clone()
+        pos4[::5, 3] = 0.0
+    return pos4, cand, count, qblock
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EDGE_CASES + ["unreal", "margin"])
+@pytest.mark.parametrize("mode", list(C32_MODES))
+def test_density_c32_edge_cases_match_plain(q_tables, cuda, mode, case):
+    p = q_tables["params"]
+    pos4, cand, count, qblock = _on(cuda, *_c32_edge_inputs(q_tables, case))
+    kw = dict(C32_MODES[mode], qblock=qblock)
+    before = density.density_c32.launches
+    out = density.density_c32(pos4, cand, count, p, **kw)
+    torch.cuda.synchronize()
+    assert density.density_c32.launches == before + 1
+    ref = density.density_c32_torch(pos4, cand, count, p, **kw)
+    np.testing.assert_allclose(out[0].cpu().numpy(), ref[0].cpu().numpy(), rtol=1e-5)
+    assert torch.equal(out[1], ref[1])
+    assert int(ref[1].sum()) > 0 or mode == "densities"
+
+
+def _as_c16(cand, count):
+    """A 32-wide table as the 16-wide one of the same particles: slot k
+    of id c becomes slots 2k, 2k + 1 with ids 2c, 2c + 1."""
+    sent = tiles_ops.REFINE_SENTINEL
+    dead = cand == sent
+    ids = torch.stack([torch.where(dead, sent, 2 * cand), torch.where(dead, sent, 2 * cand + 1)],
+                      dim=-1).reshape(cand.shape[0], -1)
+    return ids.contiguous(), (2 * count).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EDGE_CASES + ["unreal", "margin"])
+def test_density_c32_equals_c16_bitwise(q_tables, cuda, case):
+    """Both kernels add each query's candidates in ascending particle
+    order: density_c32 in every mode gives density_c16's densities at
+    hit_sub 16 over the same particles bit for bit, and its hit_sub-16
+    and hit_sub-32 counts are c16's and the sums of their pairs."""
+    p = q_tables["params"]
+    pos4, cand, count, qblock = _on(cuda, *_c32_edge_inputs(q_tables, case))
+    d16, h16 = density.density_c16(pos4, *_as_c16(cand, count), p, hit_sub=16,
+                                   qblock=qblock)
+    for mode, kw in C32_MODES.items():
+        d, hits = density.density_c32(pos4, cand, count, p, qblock=qblock, **kw)
+        assert torch.equal(d, d16), mode
+        if mode == "hit16":
+            assert torch.equal(hits, h16)
+        elif mode == "groups4":
+            assert torch.equal(hits, h16.reshape(hits.shape[0], -1, 2).sum(-1, dtype=torch.int32))
 
 
 @pytest.mark.cuda

@@ -6,12 +6,10 @@
   1e-5, acceleration atol 1e-5 * max|a|), and against the port's main
   path from the same state at JAX's tolerance for a pair of impls
   (atol 1e-4 * max|a|, test_physics.py:334-352).
-* ``radix_sort_key_val`` bit-identical to JAX's (fused and unfused) and
-  to ``torch.sort(stable=True)``: scatter and gather, 5,
-  6 and 7 bits a pass, 30 and 15 key bits, heavy duplicates and n not a
-  multiple of 128 (as tests/test_sort.py holds JAX's to lax.sort).
-* ``rank_hist_torch`` (the rank kernel's plain version) against JAX's
-  ``_rank_hist_kernel`` in interpret mode.
+* ``radix_sort_key_val``'s refusals (its results against JAX's sort are
+  in test_torch_radix.py).
+* ``rank_hist_torch`` (the rank stage of the sort's plain version)
+  against JAX's ``_rank_hist_kernel`` in interpret mode.
 * ``sort_by_cell`` under each ``LIBCLSPH_TPU_SORT`` value, the reduced
   key width raising FLAG_GRID_DIM, the engine doubling ``cell_capacity``
   on FLAG_CAPACITY, and the CLI's exact run and refusal.
@@ -134,46 +132,6 @@ def _keys(n, num_bits, seed):
     return keys.astype(np.int32), rng.permutation(n).astype(np.int32)
 
 
-@pytest.mark.parametrize("num_bits", [30, 15])
-@pytest.mark.parametrize("bits_per_pass", [5, 6, 7])
-@pytest.mark.parametrize("apply", ["scatter", "gather"])
-@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
-def test_radix_sort_bit_identical(fused, apply, bits_per_pass, num_bits):
-    """The port's sort against each of JAX's two rank stages (XLA one-hot
-    and the fused Pallas kernel; the port has one, ``rank_hist``)."""
-    n = 3000  # not a multiple of 128
-    keys, vals = _keys(n, num_bits, seed=bits_per_pass * 100 + num_bits)
-    k, v = tradix.radix_sort_key_val(torch.as_tensor(keys), torch.as_tensor(vals),
-                                     num_bits=num_bits, bits_per_pass=bits_per_pass,
-                                     apply=apply)
-    jk, jv = jradix.radix_sort_key_val(jnp.asarray(keys.astype(np.uint32)), jnp.asarray(vals),
-                                       num_bits=num_bits, bits_per_pass=bits_per_pass,
-                                       fused=fused, apply=apply)
-    sk, order = torch.sort(torch.as_tensor(keys), stable=True)
-    assert k.dtype == torch.int32 and v.dtype == torch.int32
-    np.testing.assert_array_equal(np_(k), np.asarray(jk).astype(np.int32))
-    np.testing.assert_array_equal(np_(v), np.asarray(jv))
-    assert torch.equal(k, sk) and torch.equal(v, torch.as_tensor(vals)[order])
-
-
-@pytest.mark.parametrize("n", [128, 256, 4096])
-def test_radix_sort_padding_knobs_and_extreme_keys(n):
-    """The max-code padding to whole 128-key blocks (none, 1 key, 127
-    keys) sorts behind every real max code; all-equal, sorted, reversed
-    and max-code keys sort as torch.sort, with either apply."""
-    for keys in (torch.full((n,), (1 << 30) - 1, dtype=torch.int32),
-                 torch.zeros(n, dtype=torch.int32),
-                 torch.arange(n, dtype=torch.int32),
-                 torch.arange(n, dtype=torch.int32).flip(0),
-                 torch.as_tensor(_keys(n, 30, n)[0])):
-        for m in (n, n - 1, n - 127):
-            sk, order = torch.sort(keys[:m], stable=True)
-            for apply in ("scatter", "gather"):
-                k, v = tradix.radix_sort_key_val(keys[:m], torch.arange(m, dtype=torch.int32),
-                                                 apply=apply)
-                assert torch.equal(k, sk) and torch.equal(v, order.to(torch.int32)), (m, apply)
-
-
 def test_radix_sort_refusals():
     z = torch.zeros(128, dtype=torch.int32)
     with pytest.raises(ValueError, match="bits_per_pass"):
@@ -185,7 +143,7 @@ def test_radix_sort_refusals():
     with pytest.raises(ValueError, match="int32"):
         tradix.radix_sort_key_val(z.to(torch.int64), z)
     with pytest.raises(ValueError, match="multiple of 128"):
-        tradix_kernels.rank_hist(torch.zeros(100, dtype=torch.int32), 0, 5)
+        tradix_kernels.rank_hist_torch(torch.zeros(100, dtype=torch.int32), 0, 5)
 
 
 def _jax_rank_hist(keys, shift, bits, groups=8):
@@ -210,12 +168,12 @@ def _jax_rank_hist(keys, shift, bits, groups=8):
 @pytest.mark.parametrize("shift,bits", [(0, 5), (25, 5), (12, 7), (3, 1)])
 def test_rank_hist_plain_matches_jax_kernel(shift, bits):
     keys, _ = _keys(2048, 30, seed=shift + bits)
-    local, hist = tradix_kernels.rank_hist(torch.as_tensor(keys), shift, bits)
+    local, hist = tradix_kernels.rank_hist_torch(torch.as_tensor(keys), shift, bits)
     assert local.dtype == hist.dtype == torch.int32 and hist.shape == (1 << bits, 16)
     jl, jh = _jax_rank_hist(keys, shift, bits)
     np.testing.assert_array_equal(np_(local), jl)
     np.testing.assert_array_equal(np_(hist), jh)
-    assert int(hist.sum()) == 2048 and tradix_kernels.rank_hist.launches == 0
+    assert int(hist.sum()) == 2048 and tradix_kernels.radix_sort.launches == 0
 
 
 @pytest.mark.parametrize("impl", ["xla", "radix", "radix-fused"])

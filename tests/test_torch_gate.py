@@ -9,9 +9,10 @@ in the port against the JAX package.
 * Whole substeps (a rebuild and a reuse substep, the port's reuse from
   the JAX rebuild's state and tables) of (density_sub16, force_sub16,
   force_sub8) = (True, True, False) with ``density_gate`` and
-  ``cand_interval=2`` (the carried mask is compared bit for bit), and
-  with two-tier routing on a clustered cloud (heavy blocks forced as in
-  test_torch_tier2.py).
+  ``cand_interval=2`` (the carried mask is compared bit for bit) in
+  test_torch_gate_pair.py, and with two-tier routing in
+  test_torch_gate_tier2.py (files of their own, so that no file sets the
+  length of a parallel run).
 * The frame loop with and without the gate gives the same state, bit
   for bit, on the CPU.
 
@@ -33,9 +34,8 @@ from libclsph_tpu.ops.pallas import neighbor_nl as nl
 from libclsph_tpu_torch import interop
 from libclsph_tpu_torch.engine import step as tstep
 from libclsph_tpu_torch.ops.kernels import density
-from test_torch_step import assert_pair_matches, random_state, run_pair
+from test_torch_step import random_state
 from test_torch_sub16 import SHAPES, jax_blocks, sorted_cloud
-from test_torch_tier2 import two_tier_config
 
 N = 2000
 B = 128
@@ -128,36 +128,6 @@ def test_gated_density_equals_ungated_bitwise(gated):
     assert 0 < skipped < int(live.sum())
     with pytest.raises(ValueError, match="mask"):
         density.density_gated16(pos4, cand, count, mask[:, :1].contiguous(), p)
-
-
-def test_gated_substep_pair_matches_jax():
-    """(T, T, F) with the gate and candidate reuse every other substep:
-    the rebuild emits the dilated tile counts and packs the mask (the
-    carried fourth leaf, compared with JAX's), the reuse substep runs the
-    gated density on the JAX rebuild's table and mask."""
-    params = make_params(WATER, n=2048)
-    out = run_pair(params, random_state(params, 2048, 73), params.max_dt,
-                   **TTF, density_gate=True, cand_interval=2)
-    assert len(out["tables"][1]) == 3  # table, counts, mask
-    assert_pair_matches(out)
-
-
-def test_two_tier_substep_pair_matches_jax():
-    """(T, T, F) with two-tier routing: both tiers on the c16 density at
-    hit_sub 16 and forces_q32_c16, tier 2 at tier2_mult x
-    max_candidates_hit16 through the query-block map; the reuse substep
-    carries the tier-2-width table. The base capacity lies above the
-    median block and below the heavy ones (test_torch_tier2.py's recipe)
-    on a random cloud whose blocks near its faces see fewer candidates
-    (a clump dense enough to need tier 2 at this size throws particles
-    off the support in one substep, and the reuse substep would compare
-    stale tables)."""
-    params = make_params(WATER, n=4096)
-    state = random_state(params, 4096, 75)
-    over = two_tier_config(params, state, TTF)
-    out = run_pair(params, state, params.max_dt, **over)
-    assert out["tables"][1][0].shape[1] > over["max_candidates_sub"]
-    assert_pair_matches(out)
 
 
 def test_gated_frame_equals_ungated_frame_bitwise():

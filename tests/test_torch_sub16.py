@@ -1,9 +1,10 @@
 """The 16-wide force path of the port against the JAX package: the
 density kernels' hit_sub-16 modes and the dilated tile counts,
 ``pack_tile_nibbles``, ``fused_forces_nl32_c16``, the 16-wide hit lists
-of both table shapes, whole substeps of (density_sub16, force_sub16,
-force_sub8) = (True, True, False) and (False, True, False), and the
-autotune's and the pretune's c16 -> q downgrade from both.
+of both table shapes, and the autotune's and the pretune's c16 -> q
+downgrade from both; whole substeps of (density_sub16, force_sub16,
+force_sub8) = (True, True, False) and (False, True, False) are in
+test_torch_sub16_ttf.py and test_torch_sub16_ftf.py.
 
 The JAX side runs ``fused_density_nl`` (``c16`` True and False at
 ``hit_sub=16``, ``hit2_h``) and ``fused_forces_nl32_c16`` on a
@@ -33,7 +34,7 @@ from libclsph_tpu_torch.engine import simulation as tsim
 from libclsph_tpu_torch.engine import step as tstep
 from libclsph_tpu_torch.ops.kernels import density, forces
 from test_torch_pretune import FLAGS, lattice_positions, sheet_positions, states
-from test_torch_step import (assert_pair_matches, jax_config, random_state, run_pair)
+from test_torch_step import assert_pair_matches, jax_config, random_state, run_pair
 
 N = 2000
 B = 128
@@ -272,17 +273,15 @@ def test_wrappers_take_the_plain_versions_on_cpu(ref):
         forces.forces_q32_c16(*(a.to("meta") for a in fargs[:5]), fargs[5])
 
 
-@pytest.fixture(scope="module", params=[16, 32], ids=["TTF", "FTF"])
-def pair(request):
+def assert_substep_pair_matches_jax(width):
     """A rebuild and a reuse substep of one table shape in free space,
     both packages (the port's reuse substep starts from the JAX rebuild's
-    state and tables)."""
+    state and tables); test_torch_sub16_ttf.py and test_torch_sub16_ftf.py
+    run it, one shape each, since each takes minutes to compile on the
+    JAX side."""
     params = make_params(WATER, n=2048)
-    over = dict(SHAPES[request.param], max_candidates_hit16=CAP_HIT16)
-    return run_pair(params, random_state(params, 2048, 61), params.max_dt, **over)
-
-
-def test_substep_pair_matches_jax(pair):
+    over = dict(SHAPES[width], max_candidates_hit16=CAP_HIT16)
+    pair = run_pair(params, random_state(params, 2048, 61), params.max_dt, **over)
     assert_pair_matches(pair)
     p1, p2 = pair["port"]
     assert not np.array_equal(p1["position"], p2["position"])

@@ -1,8 +1,11 @@
 """Two-tier capacity routing in the port against the JAX package
 (``tiles.route_overflow``, ``engine/step.nl_two_tier_passes``), the
-agreement of every configuration the port runs, the 16-wide force
-shapes run end to end (engine and CLI), and the CLI's refusal of a
-shape the JAX package refuses too.
+tier-2 pool's overflow flag, and the configs and flags the engine and
+the CLI accept. The q32 two-tier substep and the agreement of every
+configuration the port runs are in test_torch_tier2_q32.py, the CLI's
+runs and refusal in test_torch_tier2_cli.py, the engine's runs of the
+16-wide force shapes in test_torch_tier2_engine.py (files of their own,
+so that no file sets the length of a parallel run).
 
 The two-tier substeps start from one clustered cloud on both sides:
 the base subblock capacity lies below the heavy blocks and above the
@@ -108,12 +111,12 @@ def cloud():
     return params, clustered_state(params, N, 41)
 
 
-@pytest.mark.parametrize("name", ["q32", "main"])
-def test_two_tier_substep_matches_jax(cloud, name):
+def assert_two_tier_substep_matches_jax(cloud, name):
     """q32 + tier 2 (tier 2 on density_c32 at one hit row per block and
     forces_q128_c32) and main + tier 2 (tier 2 on the main-path kernels
     through the query-block map), against JAX substep_jit; the carried
-    table is the tier-2-width one on both sides."""
+    table is the tier-2-width one on both sides. The q32 case runs in
+    test_torch_tier2_q32.py."""
     params, state = cloud
     over = two_tier_config(params, state, CONFIGS[name])
     jcfg = jstep.StepConfig(**dict(JAX_MAIN_PATH, **over))
@@ -133,18 +136,9 @@ def test_two_tier_substep_matches_jax(cloud, name):
     assert_passes_match(interop.state_to_numpy(t1), j)
 
 
-def test_all_port_configurations_agree(cloud):
-    """Every configuration the port runs, with and without tier 2, gives
-    the same density and acceleration on one cloud (main single-tier is
-    the reference)."""
-    params, state = cloud
-    ref, flags = port_substep(params, state, tstep.StepConfig(**CONFIGS["main"]))
-    assert flags == 0
-    for name, base in CONFIGS.items():
-        for over in (base, two_tier_config(params, state, base)):
-            out, flags = port_substep(params, state, tstep.StepConfig(**over))
-            assert flags == 0, (name, over)
-            assert_passes_match(out, ref)
+@pytest.mark.parametrize("name", ["main"])
+def test_two_tier_substep_matches_jax(cloud, name):
+    assert_two_tier_substep_matches_jax(cloud, name)
 
 
 def test_pool_overflow_raises_the_t2_flag(cloud):
@@ -169,26 +163,6 @@ def _tiny_root(tmp_path):
     return root
 
 
-@pytest.mark.parametrize("tables", [(True, True, False), (False, True, False)])
-def test_step_config_refuses_16_wide_force_pass(tables, tmp_path):
-    """Both 16-wide force shapes are ported: the engine runs the tiny cube
-    on the CPU on them and writes its frames."""
-    keys = ("density_sub16", "force_sub16", "force_sub8")
-    cfg = tstep.StepConfig(**dict(zip(keys, tables)))
-    root = _tiny_root(tmp_path)
-    sim = tsim.SPHSimulation(cfg, device="cpu", pretune=False)
-    sim.checkpoint_path = str(tmp_path / "none.npz")
-    sim.load_settings(str(root / "fluid_properties" / "water.json"),
-                      str(root / "simulation_properties" / "tiny.json"))
-    sim.load_scene("cube.obj", scenes_dir=str(root / "scenes"))
-    frames = []
-    sim.save_frame = lambda arrays, params: frames.append(arrays["position"])
-    sim.simulate()
-    assert sim.step_config == cfg  # no downgrade: the 16-wide tables ran
-    assert len(frames) == 4 and np.isfinite(frames[-1]).all()
-    assert frames[-1][:, 1].min() > -1.6
-
-
 def test_step_config_accepts_the_ported_shapes():
     for over in ({}, dict(tier2_frac=8), Q_PATH, dict(Q_PATH, force_query_rows=128),
                  dict(Q_PATH, force_query_rows=128, tier2_frac=1)):
@@ -201,26 +175,6 @@ def test_step_config_accepts_the_ported_shapes():
 def test_engine_refuses_other_pretune_values(pretune):
     with pytest.raises(ValueError, match="pretune"):
         tsim.SPHSimulation(device="cpu", pretune=pretune)
-
-
-def test_cli_refuses_unported_tables_with_the_message(capsys, tmp_path, monkeypatch):
-    """--no-force-sub8 and --no-density-sub16 (which drops force_sub8, as
-    the JAX CLI does) run the 16-wide force path and write frames; the
-    16-granular tables at 128 query rows are refused with the JAX
-    package's reason."""
-    root = _tiny_root(tmp_path)
-    monkeypatch.chdir(tmp_path)
-    for flag in ("--no-force-sub8", "--no-density-sub16"):
-        out = f"out{flag}_"
-        rc = cli.main(["water", "tiny", "cube", out, "--device", "cpu", "--root", str(root),
-                       flag])
-        assert rc == 0, capsys.readouterr().err
-        frames = sorted(os.listdir(tmp_path / f"{out}frames"))
-        assert len(frames) == 4 and frames[0] == "frame0000001.geo"
-    rc = cli.main(["water", "tiny", "cube", "out_", "--device", "cpu",
-                   "--force-query-rows", "128"])
-    assert rc == -1
-    assert "force_query_rows" in capsys.readouterr().err
 
 
 def test_cli_flags_reach_the_config(monkeypatch):
