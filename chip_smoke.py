@@ -164,7 +164,7 @@ KERNELS = {
                             ASYM + ":156", ("asym",)),
     "forces_blocks row": ("forces_q128_c32", None, CSRC + "forces_c32.cu", ROW + ":821",
                           ("row",)),
-    "forces_blocks fine": ("forces_q32_c32", None, CSRC + "forces_q32.cu", ROW + ":821",
+    "forces_blocks fine": ("forces_q128_c32", None, CSRC + "forces_c32.cu", ROW + ":821",
                            ("fine",)),
     "forces_blocks asym": ("forces_q128_c32", None, CSRC + "forces_c32.cu", ASYM + ":294",
                            ("asym",)),
@@ -183,11 +183,12 @@ PEAK_BYTES = 3.35e12
 # and the density kernels skip most of them); the dilated tile count
 # adds a test for each pair within its radius
 DENSITY_OPS = 16
-# force: r^2 and the support test for every pair; inside the support the
-# rsqrt, r, h - r and h^2 - r^2 with their clamps, the kernel weights
-# (8 products and a sum), the P, N sums (6 fmas), V (3 subs, 3 fmas) and
-# L (4)
-FORCE_OPS_ALL, FORCE_OPS_IN = 9, 42
+# force, for the pairs inside the support only (a pair outside adds
+# nothing, and the force kernels skip most of them): r^2 and the support
+# test (9), the rsqrt, r, h - r and h^2 - r^2 with their clamps, the
+# kernel weights (8 products and a sum), the P, N sums (6 fmas), V (3
+# subs, 3 fmas) and L (4)
+FORCE_OPS = 51
 # the radix sort's least traffic: every pass reads and writes each key
 # and value once
 SORT_BYTES_PER_KEY_PASS = 16
@@ -251,16 +252,13 @@ def density_work(args, outs, pairs, dilated=0):
     return nbytes(pos4, cand, count, *outs), pairs * DENSITY_OPS + dilated
 
 
-def force_work(args, width, qrows, pairs_in):
-    """(bytes, operations) of a force call over lists of ``width``-wide
-    entries shared by ``qrows`` queries: the support test for every pair
-    of a live entry, the force terms for the ``pairs_in`` pairs inside the
+def force_work(args, qrows, pairs_in):
+    """(bytes, operations) of a force call over lists shared by ``qrows``
+    queries: FORCE_OPS for each of the ``pairs_in`` pairs inside the
     support."""
     f8, dens, real, cand, count = args[:5]
-    pairs = int(count.sum()) * width * qrows
     out = cand.shape[0] * qrows * 3 * 4
-    return (nbytes(f8, dens, real, cand, count) + out,
-            pairs * FORCE_OPS_ALL + pairs_in * FORCE_OPS_IN)
+    return nbytes(f8, dens, real, cand, count) + out, pairs_in * FORCE_OPS
 
 
 def bound(nbytes_, ops):
@@ -279,6 +277,15 @@ def time_kernel(stats, rec, tag, fn, plain, work, plain_reps=REPS) -> str:
     b_ms, b_by = bound(*work)
     return (f" {rec} {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by "
             f"{b_by});")
+
+
+def cube_scene(params, dev):
+    """``scenes/cube.obj`` baked for ``params`` on ``dev``."""
+    from libclsph_tpu_torch.ops import collisions
+    from libclsph_tpu_torch.scene.scene import Scene
+
+    return collisions.build_device_scene(
+        Scene.load("cube.obj", params.h * 2.0, scenes_dir=os.path.join(ROOT, "scenes")), dev)
 
 
 def grown_tables(state, params, engine, plain_density, lists, fixed=None):
@@ -355,7 +362,7 @@ def compare_kernels(tag, t, stats, time_it):
         line += time_kernel(stats, "forces_q32_c8", tag,
                             lambda: forces.forces_q32_c8(*t["force_args"]),
                             lambda: forces.forces_q32_c8_torch(*t["force_args"]),
-                            force_work(t["force_args"], 8, 32, pairs_in))
+                            force_work(t["force_args"], 32, pairs_in))
     log(line)
 
 
@@ -489,7 +496,7 @@ def compare_q_kernels(tag, t, stats, time_it):
             args = fargs + t[lists] + (t["params"],)
             line += time_kernel(stats, name, tag, lambda a=args, n=name: kernel_fn(n)(*a),
                                 lambda a=args, n=name: getattr(forces, n + "_torch")(*a),
-                                force_work(args, 32, qrows, pairs_in))
+                                force_work(args, qrows, pairs_in))
     log(line)
 
 
@@ -573,15 +580,15 @@ def compare_sub16_kernels(tag, t16, t32, stats, time_it):
         line += time_kernel(stats, "forces_q32_c16", tag,
                             lambda: forces.forces_q32_c16(*fa),
                             lambda: forces.forces_q32_c16_torch(*fa),
-                            force_work(fa, 16, 32, int(t16["hits_plain"].sum())))
+                            force_work(fa, 32, int(t16["hits_plain"].sum())))
     log(line)
 
 
-def compare_gated(tag, state, params, scene, engine, stats, time_it):
-    """``density_gated16`` against the ungated ``density_c16`` (hit_sub
-    16) on the carried table and mask of a gated rebuild substep, three
-    reuse substeps later (inside the staleness guard): density and hits
-    bit for bit, and the plain gated version within tolerance."""
+def gated_inputs(tag, state, params, scene, engine):
+    """``density_gated16``'s inputs three reuse substeps after a gated
+    rebuild substep from ``state`` (inside the staleness guard): (pos4,
+    carried table, counts, mask, params), and the largest move since the
+    build in units of h."""
     import dataclasses
 
     import torch
@@ -602,7 +609,21 @@ def compare_gated(tag, state, params, scene, engine, stats, time_it):
     if not 2.0 * float(moved) <= cfg.cand_slack * params.h:
         raise RuntimeError(f"{tag}: the state left the staleness guard")
     pos4 = density.pos_pack(st.position, real)
-    args = (pos4, tab[0].contiguous(), tab[1].contiguous(), tab[3], params)
+    return (pos4, tab[0].contiguous(), tab[1].contiguous(), tab[3], params), \
+        float(moved) / params.h
+
+
+def compare_gated(tag, state, params, scene, engine, stats, time_it):
+    """``density_gated16`` against the ungated ``density_c16`` (hit_sub
+    16) on the carried table and mask of a gated rebuild substep, three
+    reuse substeps later (inside the staleness guard): density and hits
+    bit for bit, and the plain gated version within tolerance."""
+    import torch
+
+    from libclsph_tpu_torch.ops.kernels import density
+
+    args, moved = gated_inputs(tag, state, params, scene, engine)
+    pos4 = args[0]
     d, hits = density.density_gated16(*args)
     d0, hits0 = density.density_c16(*args[:3], params, hit_sub=16)
     torch.cuda.synchronize()
@@ -618,7 +639,7 @@ def compare_gated(tag, state, params, scene, engine, stats, time_it):
     panels = density.mask_panels(args[3], cap) & live
     share = float(panels.sum()) / float(live.sum())
     line = (f"phase 2 {tag}: density_gated16 three reuse substeps after its build "
-            f"(largest move {float(moved) / params.h:.4f} h): density and hits bit-equal "
+            f"(largest move {moved:.4f} h): density and hits bit-equal "
             f"to density_c16 hit_sub 16; plain rel err {drel:.3g}; {share:.4f} of the "
             f"live (subgroup, slot) panels flagged;")
     if time_it:
@@ -736,20 +757,15 @@ def compare_blocks(tag, t, stats):
     line = (f"phase 2 {tag} (block tables: {nb} blocks, {int(t['count'].sum())} live "
             f"candidate blocks, max {int(t['count'].max())}):")
     q_div = {"row": 1, "fine": 4, "asym": 1}  # the engine's choice per variant
-    plain_a = {}
+    plain_a = blocks.forces_blocks_torch(*fargs)  # one function for every q_div
     for variant in BLOCK_VARIANTS:
         d = blocks.density_blocks(*dargs)
         drel = check_density(tag, f"density_blocks {variant}", d, none, t["dens"], none, stats)
-        q = q_div[variant]
-        if q not in plain_a:
-            plain_a[q] = blocks.forces_blocks_torch(*fargs, q)
-        a = blocks.forces_blocks(*fargs, q)
-        aerr = check_accel(tag, f"forces_blocks {variant}", a, plain_a[q], stats)
+        a = blocks.forces_blocks(*fargs, q_div[variant])
+        aerr = check_accel(tag, f"forces_blocks {variant}", a, plain_a, stats)
         line += f" {variant} density rel err {drel:.3g}, accel err {aerr:.3g};"
     del plain_a
     ids, counts = t["ids"], t["counts"]
-    lists = {"row": (ids, counts), "asym": (ids, counts),
-             "fine": (ids.repeat_interleave(4, dim=0), counts.repeat_interleave(4))}
     for variant in BLOCK_VARIANTS:
         line += time_kernel(
             stats, f"density_blocks {variant}", tag,
@@ -757,12 +773,11 @@ def compare_blocks(tag, t, stats):
             lambda: blocks.density_blocks_torch(*dargs),
             density_work((t["pos4"], ids, counts), (t["dens"],), t["pairs_in"]),
             plain_reps=BLOCK_PLAIN_REPS)
-        qrows = 32 if variant == "fine" else 128
         line += time_kernel(
             stats, f"forces_blocks {variant}", tag,
             lambda q=q_div[variant]: blocks.forces_blocks(*fargs, q),
             lambda q=q_div[variant]: blocks.forces_blocks_torch(*fargs, q),
-            force_work(fargs[:3] + lists[variant], 32, qrows, t["pairs_in"]),
+            force_work(fargs[:3] + (ids, counts), 128, t["pairs_in"]),
             plain_reps=BLOCK_PLAIN_REPS)
     log(line)
 
@@ -810,7 +825,7 @@ def compare_asm(tag, t, stats):
     line += time_kernel(stats, "forces_q128_c32 (asm)", tag,
                         lambda: forces.forces_q128_c32(*fargs),
                         lambda: forces.forces_q128_c32_torch(*fargs),
-                        force_work(fargs, 32, 128, t["pairs_in"]))
+                        force_work(fargs, 128, t["pairs_in"]))
     log(line)
 
 
@@ -1501,8 +1516,7 @@ def phase8_exact(tmp, dev, card, paths):
     from libclsph_tpu_torch.engine import step
     from libclsph_tpu_torch.engine.simulation import SPHSimulation
     from libclsph_tpu_torch.io.checkpoint import arrays_to_state
-    from libclsph_tpu_torch.ops import collisions, grid
-    from libclsph_tpu_torch.scene.scene import Scene
+    from libclsph_tpu_torch.ops import grid
 
     if grid._SORT_IMPL != "radix-fused":
         raise RuntimeError(f"phase 8: the sort backend is {grid._SORT_IMPL!r}")
@@ -1514,8 +1528,7 @@ def phase8_exact(tmp, dev, card, paths):
         raise RuntimeError(f"phase 8: the radix sort's kernels did not launch: {got}")
     saved = save_launches()
     params = water_params(N_EXACT)
-    scene = collisions.build_device_scene(
-        Scene.load("cube.obj", params.h * 2.0, scenes_dir=os.path.join(ROOT, "scenes")), dev)
+    scene = cube_scene(params, dev)
     state = arrays_to_state(arrays, dev)
     exact = SPHSimulation(step.StepConfig(neighbor_impl="exact", sort_interval=1,
                                           cand_interval=1), device=dev, pretune=False)
@@ -1559,9 +1572,7 @@ def main(argv=None) -> int:
     from libclsph_tpu_torch.core.state import init_state
     from libclsph_tpu_torch.engine import step
     from libclsph_tpu_torch.engine.simulation import SPHSimulation, configure_device
-    from libclsph_tpu_torch.ops import collisions
     from libclsph_tpu_torch.ops.kernels import build
-    from libclsph_tpu_torch.scene.scene import Scene
 
     dev = configure_device("cuda")
     # phase 0
@@ -1591,10 +1602,6 @@ def main(argv=None) -> int:
             engines[key] = SPHSimulation(step.StepConfig(**over), device=dev, pretune=False)
         return engines[key]
 
-    def scene_for(p):
-        return collisions.build_device_scene(
-            Scene.load("cube.obj", p.h * 2.0, scenes_dir=os.path.join(ROOT, "scenes")), dev)
-
     def compare_all(tag, state, p, scene, time_it, qblock=False):
         cell = tag.split()[0]
         t_main = main_path_tables(state, p, engine_for(cell, {}))
@@ -1609,13 +1616,13 @@ def main(argv=None) -> int:
             compare_qblock(tag, t_main, t_q, t16, t32, stats)
 
     p64 = water_params(65536)
-    scene64 = scene_for(p64)
+    scene64 = cube_scene(p64, dev)
     s64 = init_state(p64, dev)
     compare_all("64k lattice", s64, p64, scene64, True)
     s64, _ = run_with_growth(s64, p64, scene64, engine_for("64k", {}), 10)
     compare_all("64k after 10 substeps", s64, p64, scene64, True)
     p1m = water_params(N_BENCH)
-    scene1m = scene_for(p1m)
+    scene1m = cube_scene(p1m, dev)
     s1m = init_state(p1m, dev)
     compare_all(BENCH_TAG, s1m, p1m, scene1m, True, qblock=True)
     compare_blocks(BENCH_TAG, block_tables(s1m, p1m, engine_for(

@@ -13,22 +13,33 @@ and loaded in place of the package's library while its turn runs.
 On the tables of the 1M cube lattice (those of ``chip_smoke.py``'s phase
 2: the main path's, the 16-wide force path's, the q-granular ones, the
 asm variant's and the row variant's block table expanded to 32-wide
-subblocks, with the fine variant's lists over it) every case is first
-run once per library
+subblocks, and ``density_gated16``'s carried table and mask three reuse
+substeps after a gated build) every case is first run once per library
 and held against the base build (densities, hit and tile counts bit for
 bit; accelerations by their largest difference and the share of equal
 bits) and against its plain PyTorch version (chip_smoke's tolerances).
-Then each case is timed in turns (base, package, variants, variants,
-package, base): CUDA events (median of 7 calls; the window also holds
-the wrapper's host work) and the kernel's device time from
-torch.profiler (mean of 5 calls). ptxas's
-register and spill report of every build is printed; ``--sass`` also
-writes each library's SASS (``cuobjdump -sass``) into the out dir. The
-tables' statistics are printed first: the density's (subgroup, 8
-candidates) panels that hold a pair within h and that pass
-``density_c16``'s box test, and on the force lists the pairs inside the
-support against what the per-lane bit walk of ``forces_q32`` pays a
-warp at rounds of 32, 64 and 128 candidates.
+``forces_q128_c32`` runs on the q128 lists, asm's lists and the block
+table; the fine case runs the package's route (``forces_q128_c32`` over
+the block table) against the base build's ``forces_q32_c32`` over the
+table repeated per subgroup. Then each case is timed in turns (base,
+package, variants, variants, package, base): CUDA events (median of 7
+calls; the window also holds the wrapper's host work) and the kernel's
+device time from torch.profiler (mean of 5 calls); ``density_gated16``
+has the ungated ``density_c16`` at hit_sub 16 on the same inputs timed
+beside it in each turn. ptxas's register and spill report of every
+build is printed; ``--sass`` also writes each library's SASS
+(``cuobjdump -sass``) into the out dir. The tables' statistics are
+printed first: the (subgroup, 8 candidates) panels that hold a pair
+within h and that pass the kernels' box test, on the density tables and
+on the q128 and asm force lists (the block table is both a density and
+a force list); on the gated inputs also the live tiles whose
+mask nibble is 0, the panels the mask flags and those that pass both
+mask and box; and on the q32 force lists the pairs inside the support
+against what the per-lane bit walk of ``forces_q32`` pays a warp at
+rounds of 32, 64 and 128 candidates. Last, the row variant's substep
+on the 1M cube (20 substeps from one warm state, host clock, ending in a
+synchronize) is timed with each library in three rounds of the same
+turns: the end-to-end effect of the block variants' kernels.
 
 The last line is one JSON object with every number; it is also written
 to ``OUT/kernel_ab.json`` (default ``build/kernel_ab/``). Needs a CUDA device
@@ -57,6 +68,8 @@ import chip_smoke as cs
 ROOT = Path(__file__).resolve().parent
 AB_BUILD = ROOT / "build" / "kernel_ab"
 PROFILE_CALLS = 5
+ROW_SUBSTEPS = 20  # substeps a timed window of row_substeps
+ROW_ROUNDS = 3  # rounds of (base, package, variants, variants, package, base)
 
 
 def device_ms(fn, kernel: str) -> float:
@@ -94,9 +107,11 @@ def build_all(trees: dict) -> dict:
 
 def cases_1m(dev, libs):
     """The tables' statistics (:func:`panel_stats`, :func:`lane_stats`)
-    and the cases (name, profiler key, call, plain call, work, kind) on
-    the 1M lattice's tables; kind is "density", or for a force case a
-    function that describes the rows of an acceleration that differ."""
+    and the cases (name, profiler key, call, plain call, work, kind,
+    beside) on the 1M lattice's tables; kind is "density", or for a force
+    case a function that describes the rows of an acceleration that
+    differ; beside is None or (label, profiler key, call): another call
+    timed in the same turns."""
     import torch
 
     from libclsph_tpu_torch.core.state import init_state
@@ -110,7 +125,9 @@ def cases_1m(dev, libs):
     params = cs.water_params(cs.N_BENCH)
     state = init_state(params, dev)
     tm = cs.main_path_tables(state, params, engine())
-    t16 = cs.sub16_tables(state, params, engine(**cs.SUB16), 16)
+    e16 = engine(**cs.SUB16)
+    t16 = cs.sub16_tables(state, params, e16, 16)
+    dg, moved = cs.gated_inputs("kernel_ab", state, params, cs.cube_scene(params, dev), e16)
     tq = cs.q_path_tables(state, params, engine(**cs.Q_PATH))
     tb = cs.block_tables(state, params, engine(pallas_variant="row", cand_interval=1))
     ta = cs.asm_tables(state, params, engine(pallas_variant="asm", cand_interval=1,
@@ -123,8 +140,10 @@ def cases_1m(dev, libs):
     fq = (tq["f8"], tq["dens_plain"], tq["real"])
     q32 = fq + tq["q32"] + (params,)
     q128 = fq + tq["q128"] + (params,)
-    fine = (tb["f8"], tb["dens"], tb["real"], tb["ids"].repeat_interleave(4, dim=0),
-            tb["counts"].repeat_interleave(4), params)
+    blk = (tb["f8"], tb["dens"], tb["real"], tb["ids"], tb["counts"], params)
+    fine = blk[:3] + (tb["ids"].repeat_interleave(4, dim=0),
+                      tb["counts"].repeat_interleave(4), params)
+    fasm = ta["force_args"]
     pairs_m = int(tm["hits_plain"].sum())
     pairs_16 = int(t16["hits_plain"].sum())
     pairs_q = int(tq["hits4"].sum())
@@ -134,22 +153,27 @@ def cases_1m(dev, libs):
                 lambda: density.density_c16_torch(*args, **kw))
 
     def dens32(args, pairs, groups, hit_sub=32):
-        """density_c32 on 32-wide tables. The base build predates the
-        densities-only mode (groups 0): there it runs 1 group, as
-        density_blocks did, and the comparison drops its hit counts."""
-        keep = 2 if groups else 1
-
+        """density_c32 on 32-wide tables (groups 0: densities only)."""
         def call():
-            g = 1 if groups == 0 and build._library is libs["base"] else groups
-            return density.density_c32(*args, groups=g, hit_sub=hit_sub)[:keep]
+            return density.density_c32(*args, groups=groups, hit_sub=hit_sub)
 
         def plain():
-            return density.density_c32_torch(*args, groups=groups, hit_sub=hit_sub)[:keep]
+            return density.density_c32_torch(*args, groups=groups, hit_sub=hit_sub)
         return call, plain, cs.density_work(args, plain(), pairs)
 
     def force(name, args):
         return (lambda: getattr(forces, name)(*args),
                 lambda: getattr(forces, name + "_torch")(*args))
+
+    def fine_route():
+        """forces_blocks fine: forces_q128_c32 over the block table; the
+        base build's route, forces_q32_c32 over the table repeated for the
+        four subgroups (both plain versions give the same bits)."""
+        def call():
+            if build._library is libs["base"]:
+                return forces.forces_q32_c32(*fine)
+            return forces.forces_q128_c32(*blk)
+        return call, lambda: forces.forces_q128_c32_torch(*blk)
 
     def rows_info(args):
         """For rows of an acceleration that differ: the query's position,
@@ -178,8 +202,13 @@ def cases_1m(dev, libs):
                  density_panels_q32=panel_stats(*dq[:3], params, 32),
                  density_panels_asm=panel_stats(*dasm[:3], params, 32),
                  density_panels_blocks=panel_stats(*dblk[:3], params, 32),
+                 gated_panels=dict(panel_stats(*dg[:3], params, 16, mask=dg[3]),
+                                   largest_move_h=moved),
+                 force_panels_q128=panel_stats(dq[0], *tq["q128"], params, 32),
+                 force_panels_asm=panel_stats(dasm[0], *fasm[3:5], params, 32),
                  lanes_c8=lane_stats(fm, 8), lanes_c16=lane_stats(f16, 16),
                  lanes_c32=lane_stats(q32, 32))
+    pairs_g = int(density.density_c16_torch(*dg[:3], params, hit_sub=16)[1].sum())
     return stats, [
         ("density_c16 hit_sub 8 (row 1)", "density_", *dens(da), dwork(da), "density"),
         ("density_c16 hit_sub 16 (row 1a)", "density_", *dens(d16, hit_sub=16),
@@ -196,27 +225,69 @@ def cases_1m(dev, libs):
         ("density_blocks: density_c32 densities only, block table (row 8)", "density_",
          *dens32(dblk, tb["pairs_in"], 0), "density"),
         ("forces_q32_c8 (row 2)", "forces_q32_kernel", *force("forces_q32_c8", fm),
-         cs.force_work(fm, 8, 32, pairs_m), rows_info(fm)),
+         cs.force_work(fm, 32, pairs_m), rows_info(fm)),
         ("forces_q32_c16 (row 6)", "forces_q32_kernel", *force("forces_q32_c16", f16),
-         cs.force_work(f16, 16, 32, pairs_16), rows_info(f16)),
+         cs.force_work(f16, 32, pairs_16), rows_info(f16)),
         ("forces_q32_c32 (row 4)", "forces_q32_kernel", *force("forces_q32_c32", q32),
-         cs.force_work(q32, 32, 32, pairs_q), rows_info(q32)),
-        ("forces_blocks fine: forces_q32_c32 (row 8a)", "forces_q32_kernel",
-         *force("forces_q32_c32", fine), cs.force_work(fine, 32, 32, tb["pairs_in"]),
-         rows_info(fine)),
-        ("forces_q128_c32, source unchanged, sph_pair.cuh changed (row 5)",
-         "forces_q128_c32_kernel", *force("forces_q128_c32", q128),
-         cs.force_work(q128, 32, 128, pairs_q), rows_info(q128)),
+         cs.force_work(q32, 32, pairs_q), rows_info(q32)),
+        ("forces_q128_c32 (row 5)", "forces_q128_c32", *force("forces_q128_c32", q128),
+         cs.force_work(q128, 128, pairs_q), rows_info(q128)),
+        ("forces_q128_c32, asm tables (row 7)", "forces_q128_c32",
+         *force("forces_q128_c32", fasm), cs.force_work(fasm, 128, ta["pairs_in"]),
+         rows_info(fasm)),
+        ("forces_blocks row: forces_q128_c32, block table (row 8a)", "forces_q128_c32",
+         *force("forces_q128_c32", blk), cs.force_work(blk, 128, tb["pairs_in"]),
+         rows_info(blk)),
+        ("forces_blocks fine: forces_q128_c32, block table; base forces_q32_c32 over "
+         "the repeated list (row 8a)", "forces_", *fine_route(),
+         cs.force_work(blk, 128, tb["pairs_in"]), rows_info(blk)),
+        ("density_gated16, three reuse substeps after a gated build (row 3)", "density_",
+         lambda: density.density_gated16(*dg), lambda: density.density_gated16_torch(*dg),
+         cs.density_work(dg, (dg[3],) + density.density_gated16_torch(*dg), pairs_g),
+         "density", ("density_c16 hit_sub 16 on the same inputs", "density_",
+                     lambda: density.density_c16(*dg[:3], params, hit_sub=16))),
     ]
 
 
-def panel_stats(pos4, cand, count, params, sub) -> dict:
-    """On density tables of ``sub``-particle slots (list row b = query
-    block b): the (subgroup, run of 8 candidates) panels of the live
-    slots, how many hold a pair within h and how many pass the density
-    kernels' box test (the subgroup's box and the run's box less than h
-    apart, with its 1e-4 margin)."""
+def row_substeps(dev, turns, run_with) -> dict:
+    """ms per substep of the row variant on the 1M cube (the host clock
+    over ROW_SUBSTEPS substeps that end in a synchronize, from one warm
+    state), each library in ``turns``: the end-to-end effect of the
+    kernels a row substep launches (density_blocks and forces_blocks)."""
     import torch
+
+    from libclsph_tpu_torch.core.state import init_state
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.engine.simulation import SPHSimulation
+
+    params = cs.water_params(cs.N_BENCH)
+    scene = cs.cube_scene(params, dev)
+    row = SPHSimulation(step.StepConfig(pallas_variant="row", cand_interval=1,
+                                        sort_interval=4), device=dev, pretune=False)
+    st, dt = cs.run_with_growth(init_state(params, dev), params, scene, row, cs.WARMUP_STEPS)
+    torch.cuda.synchronize()
+    ms = {}
+    for lib in turns:
+        got = run_with(lib, lambda: cs.timed_window("kernel_ab row", st, dt, params, scene,
+                                                    row, ROW_SUBSTEPS)[2])
+        ms.setdefault(lib, []).append(got)
+    print("row substeps (ms, in turns): " + ", ".join(
+        f"{lib} {statistics.median(v):.3f} ({', '.join(f'{x:.3f}' for x in v)})"
+        for lib, v in ms.items()), flush=True)
+    return dict(turns=ms, median_ms={lib: statistics.median(v) for lib, v in ms.items()})
+
+
+def panel_stats(pos4, cand, count, params, sub, mask=None) -> dict:
+    """On tables of ``sub``-particle slots (list row b = query block b):
+    the (subgroup, run of 8 candidates) panels of the live slots, how many
+    hold a pair within h and how many pass the kernels' box test (the
+    subgroup's box and the run's box less than h apart, with its 1e-4
+    margin). With a gate ``mask`` (16-wide slots, density_gated16's) also
+    the live tiles of 8 slots whose nibble is 0, the panels it flags and
+    those that pass both the mask and the box test."""
+    import torch
+
+    from libclsph_tpu_torch.ops.kernels import density
 
     nb, cap = cand.shape
     runs = cap * sub // 8
@@ -224,7 +295,9 @@ def panel_stats(pos4, cand, count, params, sub) -> dict:
     q = pos4[:, :3].reshape(nb, 4, 32, 3)
     qlo, qhi = q.amin(dim=2), q.amax(dim=2)  # (nb, 4, 3)
     live = (torch.arange(runs, device=cand.device)[None] * 8 // sub) < count[:, None]
-    passed = hit = 0
+    passed = hit = flagged = both = 0
+    if mask is not None:
+        flags = density.mask_panels(mask, cap).repeat_interleave(sub // 8, dim=2)
     rows = max(1, (1 << 24) // (128 * cap * sub))
     for b0 in range(0, nb, rows):
         b1 = min(nb, b0 + rows)
@@ -238,10 +311,22 @@ def panel_stats(pos4, cand, count, params, sub) -> dict:
         near = (gap * gap).sum(dim=-1) < h2 * 1.0001  # (r, 4, runs)
         on = live[b0:b1, None]
         passed += int((near & on).sum())
+        if mask is not None:
+            flag = flags[b0:b1] & on
+            flagged += int(flag.sum())
+            both += int((flag & near).sum())
         d = q[b0:b1, :, :, None, None, :] - c[:, None, None]  # (r, 4, 32, runs, 8, 3)
         r2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
         hit += int(((r2 < h2).any(dim=(2, 4)) & on).sum())
-    return dict(live_panels=int(live.sum()) * 4, box_pass=passed, with_hit=hit)
+    out = dict(live_panels=int(live.sum()) * 4, box_pass=passed, with_hit=hit)
+    if mask is not None:
+        nt = (count.long() + 7) // 8  # live tiles of each row
+        tile = torch.arange(-(-cap // 8), device=cand.device)
+        nib = density.mask_panels(mask, cap)[:, :, ::8].any(dim=1)  # (nb, tiles)
+        out.update(live_tiles=int(nt.sum()),
+                   zero_tiles=int(((tile[None] < nt[:, None]) & ~nib).sum()),
+                   flagged=flagged, flagged_box_pass=both)
+    return out
 
 
 def lane_stats(args, width, rounds=(32, 64, 128)) -> dict:
@@ -418,7 +503,7 @@ def main(argv=None) -> int:
     stats, cases = cases_1m(dev, libs)
     result["table_stats"] = stats
     print(f"table statistics: {json.dumps(stats)}", flush=True)
-    for name, key, call, plain, work, kind in cases:
+    for name, key, call, plain, work, kind, *beside in cases:
         outs = {lib: run_with(lib, call) for lib in ["base"] + order}
         torch.cuda.synchronize()
         ref = plain()
@@ -434,24 +519,34 @@ def main(argv=None) -> int:
             rec["checks"][lib] = dict(vs_base=vs_base, vs_plain=vs_plain)
         del outs, ref
         turns = ["base"] + order + order[::-1] + ["base"]
-        seq = [(lib, run_with(lib, lambda: cs.cuda_ms(call)),
-                run_with(lib, lambda: device_ms(call, key))) for lib in turns]
-        times = {lib: [(t, d) for other, t, d in seq if other == lib]
-                 for lib in dict.fromkeys(turns)}
+        # each turn times the case's call, then the call beside it if any
+        calls = [(name, key, call)] + [b for b in beside if b]
+        seq = [(lib, label, run_with(lib, lambda: cs.cuda_ms(fn)),
+                run_with(lib, lambda: device_ms(fn, k)))
+               for lib in turns for label, k, fn in calls]
         rec["turns"] = seq
-        rec["ms"] = {lib: statistics.mean(t for t, _ in v) for lib, v in times.items()}
-        rec["device_ms"] = {lib: statistics.mean(d for _, d in v) for lib, v in times.items()}
         line = f"{name}: bound {rec['bound_ms']:.4f} ms by {rec['bound_by']};"
-        for lib in ["base"] + order:
-            ev = ", ".join(f"{t:.4f}" for t, _ in times[lib])
-            dv = ", ".join(f"{d:.4f}" for _, d in times[lib])
-            line += (f" {lib} {rec['ms'][lib]:.4f} ms ({ev}; device "
-                     f"{rec['device_ms'][lib]:.4f}: {dv})")
-            if lib != "base":
-                line += f" {json.dumps(rec['checks'][lib]['vs_base'])};"
+        for label, _, _ in calls:
+            times = {lib: [(t, d) for other, lb, t, d in seq if other == lib and lb == label]
+                     for lib in dict.fromkeys(turns)}
+            ms = {lib: statistics.mean(t for t, _ in v) for lib, v in times.items()}
+            dev_ms = {lib: statistics.mean(d for _, d in v) for lib, v in times.items()}
+            if label == name:
+                rec["ms"], rec["device_ms"] = ms, dev_ms
+            else:
+                rec.setdefault("beside", {})[label] = dict(ms=ms, device_ms=dev_ms)
+                line += f" beside, {label}:"
+            for lib in ["base"] + order:
+                ev = ", ".join(f"{t:.4f}" for t, _ in times[lib])
+                dv = ", ".join(f"{d:.4f}" for _, d in times[lib])
+                line += f" {lib} {ms[lib]:.4f} ms ({ev}; device {dev_ms[lib]:.4f}: {dv})"
+                if lib != "base" and label == name:
+                    line += f" {json.dumps(rec['checks'][lib]['vs_base'])};"
         print(line, flush=True)
         result["cases"].append(rec)
         torch.cuda.empty_cache()
+    turns = (["base"] + order + order[::-1] + ["base"]) * ROW_ROUNDS
+    result["row_substeps"] = row_substeps(dev, turns, run_with)
     if args.sort_tree:
         result["sort"] = sort_ab(Path(args.sort_tree), dev)
     (out_dir / "kernel_ab.json").write_text(json.dumps(result, indent=1))

@@ -3,7 +3,8 @@
 // (32-particle subblocks). Each of those files states what its modes
 // compute, which JAX function they replace and what bounds them; this
 // header holds the one kernel body, templated on the subblock width
-// kSub, the width of a hit column HIT_SUB and what it counts (Hits).
+// kSub, the width of a hit column HIT_SUB, what it counts (Hits) and
+// whether a mask gates its tiles (kGate, density_gated16.cu).
 //
 // Computes, for list row b (query block qb = qblock[b], or b without a
 // map) and every query particle i = qb*128 + t:
@@ -21,6 +22,10 @@
 //   Hits::kBlock: the particles of slot k within h of some query of the
 //     block, at hits[b, k] (HIT_SUB = kSub);
 //   Hits::kNone: nothing (densities only; hits and tiles are not read).
+// With kGate (kSub 16, HIT_SUB 16, Hits::kSubgroup) only the panels of
+// (subgroup g, tile t) whose bit (t % 8)*4 + g of mask[b, t / 8] is set
+// are summed and counted: tiles with no bit set are skipped, and the
+// hit columns of a summed tile read 0 for a subgroup whose bit is clear.
 //
 // Design: one warp per list row, four rows a thread block, no block
 // barrier. Each lane holds four queries, one of each subgroup (lane l of
@@ -35,7 +40,9 @@
 // than h (h_dil with tile counts), with a 1e-4 margin over the rounding
 // of r^2 and of the gap, holds no pair inside the support, so every pair
 // it holds would add exactly +0 to the sums and nothing to the counts,
-// and the warp skips it (the branch is uniform). In the other panels a
+// and the warp skips it (the branch is uniform); the gate's nibble is
+// ANDed into those bits, and the pipeline walks only the flagged tiles
+// (next_flagged, uniform across the warp). In the other panels a
 // shared load of a candidate is a broadcast, r^2 < h^2 is the sign bit of
 // r^2 - h^2, which the clamp reuses (max(-(r^2 - h^2), 0) is
 // max(h^2 - r^2, 0) up to the sign of a zero, so the single fma adds the
@@ -53,6 +60,7 @@
 #pragma once
 
 #include "sph_pair.cuh"
+#include "stage_cull.cuh"
 
 namespace sph {
 
@@ -60,24 +68,8 @@ enum class Hits { kSubgroup, kSubgroupTiles, kBlock, kNone };
 
 constexpr int kRowsPerBlock = 4;  // list rows (warps) a thread block
 constexpr int kLaneQueries = kBlock / 32;  // queries a lane holds, one a subgroup
-constexpr int kRun = 8;           // candidates a step of the pair loop
 constexpr int kStagedPerLane = kBlock / 32;  // particles a lane stages per tile
 constexpr int kTileSlots16 = 8;   // slots of a dilated-count tile (kSub 16)
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits for all of this thread's copy groups but the newest.
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
 // Issue the copies of one tile into ``dst``: lanes 0 .. 128/kSub - 1
 // hold its slot ids in ``ids``, ``live`` slots are live (more than a
@@ -96,37 +88,29 @@ __device__ __forceinline__ void stage_tile(float4* dst, const float4* pos4,
   }
 }
 
-// Min and max of a box over xor-groups of kWidth lanes.
-template <int kWidth>
-__device__ __forceinline__ void box_reduce(float3& lo, float3& hi) {
-#pragma unroll
-  for (int off = 1; off < kWidth; off <<= 1) {
-    lo.x = fminf(lo.x, __shfl_xor_sync(0xffffffffu, lo.x, off));
-    lo.y = fminf(lo.y, __shfl_xor_sync(0xffffffffu, lo.y, off));
-    lo.z = fminf(lo.z, __shfl_xor_sync(0xffffffffu, lo.z, off));
-    hi.x = fmaxf(hi.x, __shfl_xor_sync(0xffffffffu, hi.x, off));
-    hi.y = fmaxf(hi.y, __shfl_xor_sync(0xffffffffu, hi.y, off));
-    hi.z = fmaxf(hi.z, __shfl_xor_sync(0xffffffffu, hi.z, off));
+// The first tile at or after ``t`` (and before ``nt``) whose nibble of the
+// gate mask row is set (bit (t % 8)*4 + g of word t / 8 flags subgroup g),
+// or nt. Every lane reads the same words, so the result is warp-uniform.
+__device__ __forceinline__ int next_flagged(const int* mask_row, int t, int nt) {
+  while (t < nt) {
+    const unsigned word = (unsigned)mask_row[t / 8] >> ((t % 8) * 4);
+    unsigned any = word | (word >> 1);  // bit 4j: nibble j (tile t + j) is set
+    any = (any | (any >> 2)) & 0x11111111u;
+    if (any) return min(t + (__ffs(any) - 1) / 4, nt);
+    t = (t / 8 + 1) * 8;
   }
+  return nt;
 }
 
-// Squared gap between two boxes, 0 where they overlap.
-__device__ __forceinline__ float box_gap2(float3 alo, float3 ahi, float4 blo,
-                                          float4 bhi) {
-  const float gx = fmaxf(fmaxf(alo.x - bhi.x, blo.x - ahi.x), 0.f);
-  const float gy = fmaxf(fmaxf(alo.y - bhi.y, blo.y - ahi.y), 0.f);
-  const float gz = fmaxf(fmaxf(alo.z - bhi.z, blo.z - ahi.z), 0.f);
-  return gx * gx + gy * gy + gz * gz;
-}
-
-template <int kSub, int HIT_SUB, Hits kHits>
+template <int kSub, int HIT_SUB, Hits kHits, bool kGate = false>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
 density_rows_kernel(const float4* __restrict__ pos4,
                     const int* __restrict__ cand, const int* __restrict__ count,
                     const int* __restrict__ qblock, int nq, int cap, float h2,
                     float h2_dil, float poly6, float mass, float fluid_density,
                     float* __restrict__ density, int* __restrict__ hits,
-                    int* __restrict__ tiles) {
+                    int* __restrict__ tiles, const int* __restrict__ mask,
+                    int words) {
   constexpr int kWarps = kRowsPerBlock;
   constexpr int kQ = kLaneQueries;
   constexpr int kTile = kBlock / kSub;     // slots staged per round
@@ -139,6 +123,8 @@ density_rows_kernel(const float4* __restrict__ pos4,
   static_assert(kSub % HIT_SUB == 0 && HIT_SUB % kRun == 0, "hit columns");
   static_assert(!kTiles || kSub * kTileSlots16 == kBlock, "tile counts: kSub 16");
   static_assert(!kAny || HIT_SUB == kSub, "the block mode counts whole slots");
+  static_assert(!kGate || (kSub * kTileSlots16 == kBlock && HIT_SUB == kSub &&
+                           kHits == Hits::kSubgroup), "the gate: kSub 16, subgroup counts");
   __shared__ float4 stage[kWarps][2][kBlock];
   __shared__ float4 run_box[kWarps][kBlock / kRun][2];  // lo, hi of each run
   const int lane = threadIdx.x & 31;
@@ -170,9 +156,8 @@ density_rows_kernel(const float4* __restrict__ pos4,
   }
   unsigned slot_bits = 0u;  // kAny: bit of each candidate of the slot hit
   // a (subgroup, run) panel whose boxes lie this far apart holds no pair
-  // with r^2 below h^2 (nor h2_dil with tile counts): the margin covers
-  // the rounding of r^2 and of the gap
-  const float reach2 = (kTiles ? fmaxf(h2, h2_dil) : h2) * 1.0001f;
+  // with r^2 below h^2 (nor h2_dil with tile counts)
+  const float reach2 = (kTiles ? fmaxf(h2, h2_dil) : h2) * kBoxMargin;
   const int n = count[b];
   const int* row = cand + (long long)b * cap;
   const long long ncol = kAny ? cap : (long long)kRuns * cap;
@@ -181,19 +166,10 @@ density_rows_kernel(const float4* __restrict__ pos4,
   const int ntiles = (cap + kTile - 1) / kTile;
   int* tile_row = kTiles ? tiles + (long long)b * kQ * ntiles : nullptr;
 
-  // software pipeline: tile t+1 is in flight while tile t is summed, and
-  // the slot ids of tile t+2 are loaded meanwhile
-  int ids = lane < min(n, kTile) ? row[lane] : 0;
-  stage_tile<kSub>(stage[w][0], pos4, ids, n, lane);
-  cp_async_commit();
-  ids = lane < min(n - kTile, kTile) ? row[kTile + lane] : 0;
-  for (int k0 = 0, t = 0; k0 < n; k0 += kTile, ++t) {
-    float4* cur = stage[w][t & 1];
-    const int next = k0 + kTile;
-    if (next < n) stage_tile<kSub>(stage[w][(t + 1) & 1], pos4, ids, n - next, lane);
-    cp_async_commit();
-    ids = lane < min(n - next - kTile, kTile) ? row[next + kTile + lane] : 0;
-    cp_async_wait_prior();
+  // Sum staged tile t (slots k0 .. k0 + kTile - 1) from ``cur``; ``gate``
+  // holds the tile's mask nibble in each of its eight nibbles (all ones
+  // without the gate).
+  auto sum_tile = [&](float4* cur, int k0, int t, unsigned gate) {
     const int ns = min(kTile, n - k0);
 #pragma unroll
     for (int m = 0; m < kStagedPerLane; ++m) {
@@ -212,13 +188,15 @@ density_rows_kernel(const float4* __restrict__ pos4,
     }
     __syncwarp();
     // bit 4r + g of live[r / 8]: run r may hold a pair of subgroup g
-    // within reach; lane l tests (run l / 4 + 8h, subgroup l % 4)
+    // within reach (and the gate flags subgroup g); lane l tests (run
+    // l / 4 + 8h, subgroup l % 4)
     unsigned live[2];
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = half * 8 + (lane >> 2);
       live[half] = __ballot_sync(
           0xffffffffu, box_gap2(qlo, qhi, run_box[w][r][0], run_box[w][r][1]) < reach2);
+      if (kGate) live[half] &= gate;
     }
 #pragma unroll 1
     for (int j = 0; j < ns * kSlotRuns; ++j) {
@@ -271,6 +249,51 @@ density_rows_kernel(const float4* __restrict__ pos4,
       }
     }
     __syncwarp();  // the buffers are refilled next round
+  };
+
+  if constexpr (!kGate) {
+    // software pipeline: tile t+1 is in flight while tile t is summed, and
+    // the slot ids of tile t+2 are loaded meanwhile
+    int ids = lane < min(n, kTile) ? row[lane] : 0;
+    stage_tile<kSub>(stage[w][0], pos4, ids, n, lane);
+    cp_async_commit();
+    ids = lane < min(n - kTile, kTile) ? row[kTile + lane] : 0;
+    for (int k0 = 0, t = 0; k0 < n; k0 += kTile, ++t) {
+      float4* cur = stage[w][t & 1];
+      const int next = k0 + kTile;
+      if (next < n) stage_tile<kSub>(stage[w][(t + 1) & 1], pos4, ids, n - next, lane);
+      cp_async_commit();
+      ids = lane < min(n - next - kTile, kTile) ? row[next + kTile + lane] : 0;
+      cp_async_wait_prior();
+      sum_tile(cur, k0, t, ~0u);
+    }
+  } else {
+    // the same pipeline over the flagged tiles only: a tile whose nibble
+    // is 0 is neither staged nor are its slot ids loaded, and its hit
+    // columns keep the caller's zeros
+    const int* mask_row = mask + (long long)b * words;
+    const int nt = (n + kTile - 1) / kTile;
+    auto ids_of = [&](int t) {
+      return t < nt && lane < min(n - t * kTile, kTile) ? row[t * kTile + lane] : 0;
+    };
+    int t = next_flagged(mask_row, 0, nt);
+    int ids = ids_of(t);
+    if (t < nt) stage_tile<kSub>(stage[w][0], pos4, ids, n - t * kTile, lane);
+    cp_async_commit();
+    int t1 = t < nt ? next_flagged(mask_row, t + 1, nt) : nt;
+    ids = ids_of(t1);
+    for (int u = 0; t < nt; ++u) {
+      float4* cur = stage[w][u & 1];
+      if (t1 < nt) stage_tile<kSub>(stage[w][(u + 1) & 1], pos4, ids, n - t1 * kTile, lane);
+      cp_async_commit();
+      const int t2 = t1 < nt ? next_flagged(mask_row, t1 + 1, nt) : nt;
+      ids = ids_of(t2);
+      const unsigned nib = ((unsigned)mask_row[t / 8] >> ((t % 8) * 4)) & 15u;
+      cp_async_wait_prior();
+      sum_tile(cur, t * kTile, t, nib * 0x11111111u);
+      t = t1;
+      t1 = t2;
+    }
   }
   float* out = density + (long long)b * kBlock + lane;
 #pragma unroll
@@ -281,18 +304,20 @@ density_rows_kernel(const float4* __restrict__ pos4,
 
 // Launch ``kernel`` (a density_rows_kernel instantiation) over nq list
 // rows, four a thread block, on ``stream``; returns cudaGetLastError().
+// ``mask`` ((nq, words) int32) is read by the gated instantiation only.
 template <typename Kernel>
 int launch_density_rows(Kernel kernel, const void* pos4, const void* cand,
                         const void* count, const void* qblock, int nq, int cap,
                         float h2, float h2_dil, float poly6, float mass,
                         float fluid_density, void* density, void* hits,
-                        void* tiles, void* stream) {
+                        void* tiles, void* stream, const void* mask = nullptr,
+                        int words = 0) {
   if (nq > 0) {
     kernel<<<(nq + kRowsPerBlock - 1) / kRowsPerBlock, kRowsPerBlock * 32, 0,
              (cudaStream_t)stream>>>(
         (const float4*)pos4, (const int*)cand, (const int*)count,
         (const int*)qblock, nq, cap, h2, h2_dil, poly6, mass, fluid_density,
-        (float*)density, (int*)hits, (int*)tiles);
+        (float*)density, (int*)hits, (int*)tiles, (const int*)mask, words);
   }
   return (int)cudaGetLastError();
 }

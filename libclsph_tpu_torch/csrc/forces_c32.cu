@@ -4,31 +4,89 @@
 //
 // Replaces: libclsph_tpu/ops/pallas/neighbor_nl.py fused_forces_nl
 // (kernel _forces_kernel, pair sums neighbor.py _forces_core_rowout) with
-// _combine_forces fused in. One list per 128-row query block, lists
-// (nq, cap). For list row b the queries are i = qb*128 + t with
-// qb = qblock[b] (b without a map); the candidates are
+// _combine_forces fused in; on the block tables of the row, fine and asym
+// variants also libclsph_tpu/ops/pallas/neighbor.py fused_forces (q_div 1
+// and 4) and neighbor_asym.py fused_forces. One list per 128-row query
+// block, lists (nq, cap). For list row b the queries are i = qb*128 + t
+// with qb = qblock[b] (b without a map); the candidates are
 // j = cand[b, k]*32 + l, k < count[b], l < 32, in the full f8 pack. The
 // sums and the combine are those of forces_q32.cu (csrc/sph_pair.cuh);
 // a_i is written at row b*128 + t. Self-exclusion compares global int32
 // ids, so gathered query blocks (the two-tier path) exclude the right
 // pair.
 //
-// What bounds it on an H100: fp32 pair arithmetic (about 45 operations
-// and one reciprocal square root per pair inside the support). A list
-// of the whole block admits more pairs outside the support than the
-// per-subgroup lists of forces_q32, and those cost the r^2 test only.
+// What bounds it on an H100: instruction issue, and how much of it goes
+// to pairs outside the support. A list of the whole block admits many
+// more such pairs than the per-subgroup lists of forces_q32: on the
+// expanded block tables of the 1M cube lattice 0.3 % of the pairs of a
+// list lie inside the support, and 6.8 % of the (subgroup, 8
+// candidates) panels hold one and 14.4 % pass the box test below
+// (PERF.md). The pair terms cost about 45 operations and a MUFU rsqrt;
+// the support test of a pair costs a lane 11 instructions in SASS, and
+// staging and boxing a tile costs each warp a fixed share whatever the
+// cull leaves. Registers (ptxas -v, sm_90a): 59, no spills; 19,456 bytes
+// of shared memory a block.
 //
-// Design: one thread block of 128 threads (one query each) per list row.
-// The block stages the list's candidates in shared memory 128 at a time
-// (four subblocks), one particle a thread (two 16-byte loads), behind
-// __syncthreads, and every thread then reads them as broadcasts.
+// Design: one thread block per list row, warp g = query subgroup g
+// (queries g*32 .. g*32+31, one a lane) against the row's shared list,
+// one 128-particle tile (4 slots) a round. Thread t copies particle t % 32
+// of slot t / 32 of the next tile with cp.async (the f8 pack's 32 bytes)
+// into one of three shared buffers while the block sums the current one;
+// on arrival it rewrites its own candidate into force_walk.cuh's staged
+// layout (id, visc * mr formed once a candidate) and the box of each run
+// of 8 candidates is reduced by shuffles. One barrier a tile makes the
+// tile and its run boxes visible to all four warps (three buffers: a
+// buffer is refilled only two barriers after its last read); a copy of
+// every tile for each warp, with no barrier, measured 1.6-3.3x slower
+// (4x the staging work, half the blocks an SM). Each warp tests its
+// subgroup's box (reduced once a row) against the tile's 16 run boxes, a
+// lane a run, and a ballot gives it one bit a run: a run whose box lies
+// beyond h of the subgroup's, with density_warp.cuh's 1e-4 margin over
+// the rounding of r^2 and of the gap, holds no pair inside the support,
+// and ForceSums::add adds only such pairs, so skipping it is exact.
+// sph::force_round (shared with forces_q32) then tests only the runs
+// that pass and walks each lane's own in-support candidates in
+// ascending order through sph::ForceSums::add_inside: the same pairs, in
+// the same order, with the same arithmetic as the earlier thread-a-query
+// form of this kernel, so the accelerations keep its bits.
 
-#include "sph_pair.cuh"
+#include <math_constants.h>
+
+#include "force_walk.cuh"
 
 namespace {
 
 using sph::kBlock;
-constexpr int kSub = 32;  // particles per candidate subblock
+using sph::kRound;
+using sph::kRun;
+constexpr int kSub = 32;                    // particles per candidate subblock
+constexpr int kTileSlots = kRound / kSub;   // slots a tile
+constexpr int kTileRuns = kRound / kRun;    // culled runs a tile
+constexpr int kBufs = 3;                    // staged tiles in shared memory
+
+__device__ __forceinline__ void write_accel(const sph::ForceSums& s,
+                                            const sph::ForceConsts& k,
+                                            const float* density,
+                                            const unsigned char* real, long long i,
+                                            float* accel) {
+  float a[3] = {0.f, 0.f, 0.f};
+  if (real[i]) s.combine(k, density[i], a);
+  const long long o = (long long)blockIdx.x * kBlock + threadIdx.x;
+  accel[3 * o] = a[0];
+  accel[3 * o + 1] = a[1];
+  accel[3 * o + 2] = a[2];
+}
+
+// Rewrite a staged candidate from the f8 pack's (x y z vx, vy vz pm mr)
+// into the staged layout of force_walk.cuh; returns its position.
+__device__ __forceinline__ float3 stage_layout(float4* c, int jid, float visc) {
+  const float4 a = c[0];
+  const float4 b = c[1];
+  c[0] = make_float4(a.x, a.y, a.z, __int_as_float(jid));
+  c[1] = make_float4(a.w, b.x, b.y, b.z);
+  c[2] = make_float4(b.w, visc * b.w, 0.f, 0.f);
+  return make_float3(a.x, a.y, a.z);
+}
 
 __global__ void __launch_bounds__(kBlock)
 forces_q128_c32_kernel(const float4* __restrict__ f8,
@@ -37,44 +95,68 @@ forces_q128_c32_kernel(const float4* __restrict__ f8,
                        const int* __restrict__ cand, const int* __restrict__ count,
                        const int* __restrict__ qblock, int cap, sph::ForceConsts k,
                        float* __restrict__ accel) {
-  __shared__ float4 stage[kBlock][2];
-  __shared__ int stage_id[kBlock];
+  __shared__ float4 stage[kBufs][kRound][3];
+  __shared__ float4 run_box[2][kTileRuns][2];  // lo, hi of each run
   const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int g = t >> 5;
   const long long qb = qblock ? qblock[blockIdx.x] : blockIdx.x;
   const long long i = qb * kBlock + t;
   const float4 qa = f8[2 * i];      // x y z vx
   const float4 qv = f8[2 * i + 1];  // vy vz pm mr
   const int n = count[blockIdx.x];
   const int* list = cand + (long long)blockIdx.x * cap;
+  float3 qlo = make_float3(qa.x, qa.y, qa.z), qhi = qlo;  // the subgroup's box
+  sph::box_reduce<32>(qlo, qhi);
+  const float reach2 = k.h2 * sph::kBoxMargin;
+
+  // thread t stages particle `lane` of slot k0 + g of each tile; the slot
+  // ids are loaded a tile ahead of their copies
+  int id0 = g < n ? list[g] : 0;
+  if (g < n) {
+    const float4* src = f8 + 2 * ((long long)id0 * kSub + lane);
+    sph::cp_async16(&stage[0][t][0], src);
+    sph::cp_async16(&stage[0][t][1], src + 1);
+  }
+  sph::cp_async_commit();
+  int id1 = kTileSlots + g < n ? list[kTileSlots + g] : 0;
 
   sph::ForceSums s;
-  for (int k0 = 0; k0 < n; k0 += kBlock / kSub) {
-    const int slot = k0 + t / kSub;
-    long long jid = -1;
-    float4 ca = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 cb = ca;
-    if (slot < n) {
-      jid = (long long)list[slot] * kSub + (t % kSub);
-      ca = f8[2 * jid];
-      cb = f8[2 * jid + 1];
+  for (int k0 = 0, u = 0; k0 < n; k0 += kTileSlots, ++u) {
+    const int slot1 = k0 + kTileSlots + g;
+    if (slot1 < n) {
+      float4* dst = stage[(u + 1) % kBufs][t];
+      const float4* src = f8 + 2 * ((long long)id1 * kSub + lane);
+      sph::cp_async16(&dst[0], src);
+      sph::cp_async16(&dst[1], src + 1);
+    }
+    sph::cp_async_commit();
+    const int slot2 = slot1 + kTileSlots;
+    const int id2 = slot2 < n ? list[slot2] : 0;
+    sph::cp_async_wait_prior();
+    float4 (*cur)[3] = stage[u % kBufs];
+    // a dead slot's runs get an empty box at infinity: always culled
+    float3 lo = make_float3(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
+    if (k0 + g < n) lo = stage_layout(cur[t], id0 * kSub + lane, k.visc);
+    float3 hi = lo;
+    sph::box_reduce<kRun>(lo, hi);
+    if ((lane & (kRun - 1)) == 0) {
+      run_box[u & 1][t / kRun][0] = make_float4(lo.x, lo.y, lo.z, 0.f);
+      run_box[u & 1][t / kRun][1] = make_float4(hi.x, hi.y, hi.z, 0.f);
     }
     __syncthreads();
-    stage[t][0] = ca;
-    stage[t][1] = cb;
-    stage_id[t] = (int)jid;
-    __syncthreads();
-    const int m = min(kBlock, (n - k0) * kSub);
-    for (int c = 0; c < m; ++c) {
-      s.add(k, qa, qv, (int)i, stage[c][0], stage[c][1], stage_id[c]);
-    }
+    // bit r: run r of the tile may hold a pair of this subgroup inside
+    // the support (lane l tests run l % 16)
+    const int r = lane & (kTileRuns - 1);
+    const unsigned runs =
+        __ballot_sync(0xffffffffu, sph::box_gap2(qlo, qhi, run_box[u & 1][r][0],
+                                                 run_box[u & 1][r][1]) < reach2) &
+        ((1u << kTileRuns) - 1u);
+    if (runs) sph::force_round<true>(k, qa, qv, (int)i, cur, runs, s);
+    id0 = id1;
+    id1 = id2;
   }
-
-  float a[3] = {0.f, 0.f, 0.f};
-  if (real[i]) s.combine(k, density[i], a);
-  const long long o = (long long)blockIdx.x * kBlock + t;
-  accel[3 * o] = a[0];
-  accel[3 * o + 1] = a[1];
-  accel[3 * o + 2] = a[2];
+  write_accel(s, k, density, real, i, accel);
 }
 
 }  // namespace

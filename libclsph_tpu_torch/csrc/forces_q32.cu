@@ -51,12 +51,14 @@
 // length). Each round the warp stages kRound = 128 candidates in its
 // own slice of shared memory (two 16-byte loads a candidate, one
 // candidate a lane per pass) as 48 bytes: position and id, velocity and
-// pm, and mr with visc * mr (formed once a candidate). Then (a) each
-// lane tests its query against every staged candidate and shifts the
-// sign bit of r^2 - h^2 into a bitmask, a bit a candidate; (b) each lane
-// walks its own set bits in ascending candidate order (__clz, clear the
-// bit) and adds the terms of those pairs only. The warp pays the largest
-// popcount over its lanes, not the round's width. Each query adds its
+// pm, and mr with visc * mr (formed once a candidate). Then
+// sph::force_round (force_walk.cuh, shared with forces_q128_c32, here
+// without its box cull): (a) each lane tests its query against every
+// staged candidate and shifts the sign bit of r^2 - h^2 into a bitmask,
+// a bit a candidate; (b) each lane walks its own set bits in ascending
+// candidate order (__clz, clear the bit) and adds the terms of those
+// pairs only. The warp pays the largest popcount over its lanes, not
+// the round's width. Each query adds its
 // in-support candidates in ascending order with the arithmetic of
 // sph::ForceSums::add (add_inside, whose fused multiply-adds are spelt
 // out), so a candidate-at-a-time kernel gets the same bits.
@@ -66,14 +68,14 @@
 
 #include <math_constants.h>
 
-#include "sph_pair.cuh"
+#include "force_walk.cuh"
 
 namespace {
 
 using sph::kBlock;
+using sph::kRound;  // candidates a warp stages per round
 constexpr int kWarps = kBlock / 32;
-constexpr int kRound = 128;           // candidates a warp stages per round
-constexpr int kWords = kRound / 32;   // hit-mask words a lane
+constexpr int kWords = kRound / 32;   // staging passes a round
 
 template <int kSub>
 __global__ void __launch_bounds__(kBlock)
@@ -122,47 +124,7 @@ forces_q32_kernel(const float4* __restrict__ f8,
       st[c][2] = ms;
     }
     __syncwarp();
-
-    // (a) this lane's pairs inside the support: bit 31 - c % 32 of word
-    // c / 32 (the sign bit of r^2 - h^2, shifted in candidate by candidate)
-    unsigned hit[kWords];
-    int left = 0;
-#pragma unroll
-    for (int m = 0; m < kWords; ++m) {
-      unsigned bits = 0u;
-#pragma unroll
-      for (int c = 0; c < 32; ++c) {
-        const float4 p = st[m * 32 + c][0];
-        const float r2 = sph::pair_r2(qa.x, qa.y, qa.z, p.x, p.y, p.z);
-        bits = __funnelshift_l(__float_as_uint(r2 - k.h2), bits, 1);
-      }
-      hit[m] = bits;
-      left += __popc(bits);
-    }
-
-    // (b) the terms of this lane's own hits, in ascending candidate order
-    int base = 0;
-    for (; left > 0; --left) {
-      while (hit[0] == 0u) {  // the lowest word is spent: shift the next down
-#pragma unroll
-        for (int m = 0; m + 1 < kWords; ++m) hit[m] = hit[m + 1];
-        hit[kWords - 1] = 0u;
-        base += 32;
-      }
-      const int z = __clz(hit[0]);
-      hit[0] ^= 0x80000000u >> z;
-      const float4* cj = st[base + z];
-      const float4 p = cj[0];
-      const float4 v = cj[1];
-      const float4 ms = cj[2];
-      const float dx = qa.x - p.x;
-      const float dy = qa.y - p.y;
-      const float dz = qa.z - p.z;
-      const float r2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                 __fmul_rn(dz, dz));
-      s.add_inside(k, qa, qv, (int)i, dx, dy, dz, r2, v.x, v.y, v.z, v.w, ms.x, ms.y,
-                   __float_as_int(p.w));
-    }
+    sph::force_round<false>(k, qa, qv, (int)i, st, 0u, s);
   }
 
   float a[3] = {0.f, 0.f, 0.f};

@@ -18,15 +18,19 @@ kernels run it:
 
 * density (every variant): :func:`density.density_c32` with no hit
   counts (``groups=0``, ``csrc/density_c32.cu``);
-* forces, ``row`` and ``asym``: :func:`forces.forces_q128_c32`, one list
-  a block (``csrc/forces_c32.cu``);
-* forces, ``fine``: :func:`forces.forces_q32_c32` over the expanded list
-  repeated for the block's four 32-row query subgroups, JAX's ``q_div``
-  4: finer query blocks sharing their parent's list (``csrc/forces_q32.cu``).
+* forces (every variant): :func:`forces.forces_q128_c32`, one list a
+  block (``csrc/forces_c32.cu``). Its warp g runs query subgroup g (rows
+  g*32 .. g*32+31) against the block's shared list, which is JAX's
+  ``q_div`` 4 of ``fine`` (finer query blocks sharing their parent's
+  list) as much as ``q_div`` 1 of ``row`` and ``asym``: each query adds
+  its in-support candidates in ascending order, so both give the same
+  bits.
 
 The plain versions are those kernels' plain versions over the same
-expanded table. The wrappers count no launches of their own: the 32-wide
-kernels they call count theirs.
+expanded table (``forces_q128_c32_torch`` equals ``forces_q32_c32_torch``
+over the table repeated for the four subgroups, bit for bit). The
+wrappers count no launches of their own: the 32-wide kernels they call
+count theirs.
 """
 
 from __future__ import annotations
@@ -59,14 +63,9 @@ def expand_block_table(cand: torch.Tensor, count: torch.Tensor):
     return ids.to(torch.int32).contiguous(), (count * SPLIT).to(torch.int32).contiguous()
 
 
-def _force_lists(cand, count, q_div):
+def _check_q_div(q_div):
     if q_div not in (1, GROUPS):
         raise ValueError(f"q_div must be 1 (row, asym) or {GROUPS} (fine), not {q_div}")
-    ids, counts = expand_block_table(cand, count)
-    if q_div == 1:
-        return ids, counts
-    return (torch.repeat_interleave(ids, GROUPS, dim=0).contiguous(),
-            torch.repeat_interleave(counts, GROUPS).contiguous())
 
 
 def density_blocks_torch(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
@@ -89,18 +88,18 @@ def density_blocks(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
 def forces_blocks_torch(f8, density_, real, cand, count, params: SimulationParameters,
                         q_div: int = 1) -> torch.Tensor:
     """Plain PyTorch version of :func:`forces_blocks`."""
-    ids, counts = _force_lists(cand, count, q_div)
-    plain = forces.forces_q128_c32_torch if q_div == 1 else forces.forces_q32_c32_torch
-    return plain(f8, density_, real, ids, counts, params)
+    _check_q_div(q_div)
+    ids, counts = expand_block_table(cand, count)
+    return forces.forces_q128_c32_torch(f8, density_, real, ids, counts, params)
 
 
 def forces_blocks(f8, density_, real, cand, count, params: SimulationParameters,
                   q_div: int = 1) -> torch.Tensor:
     """Accelerations (np, 3) over the block's live candidate blocks, 0 on
     padding queries: the whole block shares one list (``q_div`` 1: row,
-    asym) or each 32-row subgroup runs it (``q_div`` 4: fine). CPU
-    tensors take the plain version; CUDA tensors launch
-    ``forces_q128_c32`` / ``forces_q32_c32`` or raise."""
-    ids, counts = _force_lists(cand, count, q_div)
-    fn = forces.forces_q128_c32 if q_div == 1 else forces.forces_q32_c32
-    return fn(f8, density_, real, ids, counts, params)
+    asym) or each 32-row subgroup runs it (``q_div`` 4: fine); both are
+    one function, and one kernel runs it. CPU tensors take the plain
+    version; CUDA tensors launch ``forces_q128_c32`` or raise."""
+    _check_q_div(q_div)
+    ids, counts = expand_block_table(cand, count)
+    return forces.forces_q128_c32(f8, density_, real, ids, counts, params)

@@ -16,7 +16,14 @@ edge cases of the warp-per-list designs of ``density_c16`` and
 empty; counts that are no multiple of a staging round; a candidate
 inside the support of exactly one query of its subgroup and a coincident
 pair; the query-block map), and ``density_c16`` at hit_sub 16 bit for
-bit against ``density_gated16`` with every panel flagged.
+bit against ``density_gated16`` with every panel flagged. The edge
+cases of ``density_gated16``'s gated mode (a zero mask, one set bit,
+alternating nibbles, a capacity that is no multiple of a tile or a mask
+word with counts crossing a word, empty lists) and of
+``forces_q128_c32``'s warp-per-subgroup design (pairs closer than the
+spiky guard, self-exclusion under the query-block map, padding queries,
+empty lists), each also bit for bit against ``forces_q32_c32`` over the
+list repeated per subgroup, which is the ``fine`` route's old kernel.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -420,13 +427,12 @@ def block_tables(tables):
 def test_block_passes_match_plain(block_tables, cuda, variant):
     """density_blocks / forces_blocks launch the 32-wide kernels (counted
     on the kernel they run: density_c32 densities only, forces_q128_c32
-    for row and asym, forces_q32_c32 for fine) and agree with the plain
-    versions."""
+    for every variant) and agree with the plain versions."""
     t = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v
          for k, v in block_tables.items()}
     p = t["params"]
     q_div = 4 if variant == "fine" else 1
-    kernel = forces.forces_q32_c32 if variant == "fine" else forces.forces_q128_c32
+    kernel = forces.forces_q128_c32
     only = density.DENSITY_ONLY
     before = (density.density_c32.variants.get(only, 0), kernel.launches)
     d = blocks.density_blocks(t["pos4"], t["cand"], t["count"], p)
@@ -795,3 +801,179 @@ def test_density_c16_hit16_equals_gated16_bitwise(tables, cuda, case):
     dg, hg = density.density_gated16(pos4, cand, count, mask, p)
     torch.cuda.synchronize()
     assert torch.equal(d, dg) and torch.equal(hits, hg)
+
+
+# Edge cases of density_gated16 as density_c16's gated mode (the warp
+# stages only the tiles whose mask nibble is set).
+GATE_CASES = ["zero_mask", "one_bit", "alternating", "ragged_cap", "count0"]
+
+
+@pytest.fixture(scope="module")
+def gated_tables(tables):
+    """A c16 table of the clumped cloud built at (1 + slack) h (cap 192:
+    three mask words, most counts past the first), the positions moved by
+    up to 0.1 h, and the mask the build's dilated tile counts give."""
+    p = tables["params"]
+    cfg = step.StepConfig(**SUB16, cand_interval=4)
+    rng = np.random.default_rng(23)
+    st, real, _ = step.pad_and_sort(_clumped_state(p, 15), p, True)
+    cand, count, flags = step.build_candidates(st, real, p, cfg)
+    assert int(flags) == 0 and int(count.max()) > 128
+    tiles = density.density_c16_torch(density.pos_pack(st.position, real), cand, count, p,
+                                      hit_sub=16, hit2_h=p.h * (1 + cfg.cand_slack))[2]
+    step_ = torch.as_tensor(rng.uniform(-1, 1, st.position.shape).astype(np.float32))
+    moved = density.pos_pack(st.position + 0.057 * p.h * step_, real)
+    return dict(params=p, pos4=moved, cand=cand, count=count,
+                mask=density.pack_tile_nibbles(tiles))
+
+
+def _gate_inputs(t, case):
+    """(pos4, cand, count, mask) of a gate edge case, and whether the
+    mask leaves every panel with a pair inside the support flagged (then
+    the gated kernel equals the ungated one bit for bit)."""
+    pos4, cand, count, mask = t["pos4"], t["cand"], t["count"], t["mask"]
+    nb, words = mask.shape
+    if case == "zero_mask":
+        return pos4, cand, count, torch.zeros_like(mask), False
+    if case == "one_bit":  # the first panel past the first mask word with a pair
+        hits = density.density_c16_torch(pos4, cand, count, t["params"], hit_sub=16)[1]
+        row, slot = torch.nonzero(hits[:, 64:])[0].tolist()
+        tile = (slot + 64) // 8
+        one = torch.zeros_like(mask)
+        one[row // 4, tile // 8] = 1 << ((tile % 8) * 4 + row % 4)
+        return pos4, cand, count, one, False
+    if case == "alternating":  # whole tiles and subgroup pairs, row by row
+        alt = torch.tensor([0x0F0F0F0F, 0x5A5A5A5A], dtype=torch.int32)[torch.arange(nb) % 2]
+        return pos4, cand, count, alt[:, None].expand(nb, words).contiguous(), False
+    if case == "ragged_cap":  # cap 187: no multiple of 8 or 64, counts up to 165
+        cap = 187
+        cut = cand[:, :cap].contiguous()
+        return pos4, cut, count, mask[:, :-(-cap // 64)].contiguous(), True
+    assert case == "count0"
+    return pos4, cand, torch.zeros_like(count), mask, True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GATE_CASES)
+def test_density_gated16_edge_cases_match_plain(gated_tables, cuda, case):
+    p = gated_tables["params"]
+    *inputs, exact = _gate_inputs(gated_tables, case)
+    pos4, cand, count, mask = _on(cuda, *inputs)
+    before = density.density_gated16.launches
+    d, hits = density.density_gated16(pos4, cand, count, mask, p)
+    torch.cuda.synchronize()
+    assert density.density_gated16.launches == before + 1
+    d0, h0 = density.density_gated16_torch(pos4, cand, count, mask, p)
+    np.testing.assert_allclose(d.cpu().numpy(), d0.cpu().numpy(), rtol=1e-5)
+    assert torch.equal(hits, h0)
+    flagged = density.mask_panels(mask, cand.shape[1]).reshape(hits.shape)
+    assert not bool(hits[~flagged].any())
+    if case in ("one_bit", "alternating"):
+        assert int(h0.sum()) > 0
+    if exact:
+        du, hu = density.density_c16(pos4, cand, count, p, hit_sub=16)
+        assert torch.equal(d, du) and torch.equal(hits, hu)
+
+
+# Edge cases of forces_q128_c32 (warp g = query subgroup g against the
+# block's shared list, runs of 8 culled by their boxes).
+Q128_CASES = ["near_eps", "self_qblock", "padding", "count0"]
+
+
+def _near_eps_tables(params):
+    """Two blocks: block 0 a cloud in a cube of side 2h at x ~ 0.3, block
+    1 its copies moved along x by 0 to 4 float32 ulps (candidate 128 + j
+    beside query j): pairs at r = 0, below the spiky guard (1e-7: 1 to 3
+    ulps of 3e-8) and just above it (4 ulps). Both rows list every
+    32-wide subblock."""
+    h = params.h
+    rng = np.random.default_rng(24)
+    pos = np.zeros((256, 3), np.float32)
+    pos[:128] = (0.3 + rng.random((128, 3)) * 2 * h).astype(np.float32)
+    pos[128:] = pos[:128]
+    for j in range(128):
+        for _ in range(j % 5):
+            pos[128 + j, 0] = np.nextafter(pos[128 + j, 0], np.float32(1))
+    real = torch.ones(256, dtype=torch.bool)
+    position = torch.as_tensor(pos)
+    pos4 = density.pos_pack(position, real)
+    cand = torch.arange(8, dtype=torch.int32).repeat(2, 1)
+    count = torch.full((2,), 8, dtype=torch.int32)
+    dens = density.density_c32_torch(pos4, cand, count, params, groups=0)[0]
+    vel = torch.as_tensor(rng.normal(size=(256, 3)).astype(np.float32))
+    f8 = forces.force_pack(position, vel, dens, tait_pressure(dens, params), real,
+                           params.particle_mass)
+    return f8, dens, real, cand, count
+
+
+def _q128_inputs(q_tables, block_tables, case):
+    """(f8, density, real, cand, count), qblock of a forces_q128_c32 edge
+    case, on the CPU."""
+    p = q_tables["params"]
+    t = q_tables
+    if case == "near_eps":
+        return _near_eps_tables(p), None
+    if case == "self_qblock":  # block tables list each block itself
+        b = block_tables
+        ids, counts = blocks.expand_block_table(b["cand"], b["count"])
+        pool = _pool(ids.shape[0], "cpu")
+        return (b["f8"], b["dens"], b["real"], ids[pool.long()].contiguous(),
+                counts[pool.long()].contiguous()), pool
+    if case == "padding":  # every fifth particle padding: pm = mr = 0, a = 0
+        real = t["real"].clone()
+        real[::5] = False
+        f8 = t["f8"].clone()
+        f8[~real, 6:] = 0.0
+        return (f8, t["dens"], real, t["cand128"], t["count128"]), None
+    assert case == "count0"
+    return (t["f8"], t["dens"], t["real"], t["cand128"], torch.zeros_like(t["count128"])), None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", Q128_CASES)
+def test_forces_q128_edge_cases_match_plain(q_tables, block_tables, cuda, case):
+    """forces_q128_c32 against its plain version, and bit for bit against
+    forces_q32_c32 over the list repeated for the block's four subgroups
+    (each query adds its in-support candidates in ascending order)."""
+    p = q_tables["params"]
+    fargs, qblock = _q128_inputs(q_tables, block_tables, case)
+    fargs, (qblock,) = _on(cuda, *fargs), _on(cuda, qblock)
+    before = forces.forces_q128_c32.launches
+    a = forces.forces_q128_c32(*fargs, p, qblock=qblock)
+    torch.cuda.synchronize()
+    assert forces.forces_q128_c32.launches == before + 1
+    a0 = forces.forces_q128_c32_torch(*fargs, p, qblock=qblock).cpu().numpy()
+    assert np.abs(a0).max() > 0
+    np.testing.assert_allclose(a.cpu().numpy(), a0, atol=1e-5 * np.abs(a0).max())
+    f8, dens, real, cand, count = fargs
+    a32 = forces.forces_q32_c32(f8, dens, real, cand.repeat_interleave(4, dim=0),
+                                count.repeat_interleave(4), p, qblock=qblock)
+    assert torch.equal(a, a32)
+    if case == "self_qblock":  # the same rows as the unmapped call's, bit for bit
+        ids, counts = _on(cuda, *blocks.expand_block_table(block_tables["cand"],
+                                                           block_tables["count"]))
+        full = forces.forces_q128_c32(f8, dens, real, ids, counts, p).reshape(-1, 128, 3)
+        assert torch.equal(a.reshape(-1, 128, 3), full[qblock.long()])
+    if case == "padding":
+        rows = real if qblock is None else real.reshape(-1, 128)[qblock.long()].reshape(-1)
+        assert not bool(a[~rows].any())
+
+
+@pytest.mark.cuda
+def test_fine_route_equals_forces_q32_c32_bitwise(block_tables, cuda):
+    """forces_blocks at q_div 4 (fine) runs forces_q128_c32 over the block
+    table, and gives the bits of its old route, forces_q32_c32 over the
+    table repeated for the four subgroups."""
+    t = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v
+         for k, v in block_tables.items()}
+    p = t["params"]
+    before = (forces.forces_q128_c32.launches, forces.forces_q32_c32.launches)
+    a = blocks.forces_blocks(t["f8"], t["dens"], t["real"], t["cand"], t["count"], p, 4)
+    torch.cuda.synchronize()
+    assert (forces.forces_q128_c32.launches, forces.forces_q32_c32.launches) == (
+        before[0] + 1, before[1])
+    ids, counts = blocks.expand_block_table(t["cand"], t["count"])
+    a32 = forces.forces_q32_c32(t["f8"], t["dens"], t["real"],
+                                ids.repeat_interleave(4, dim=0).contiguous(),
+                                counts.repeat_interleave(4).contiguous(), p)
+    assert torch.equal(a, a32)
