@@ -1,0 +1,383 @@
+#!/usr/bin/env python3
+"""Benchmark harness of libclsph-tpu's PyTorch port: particle-steps/s on
+one GPU.
+
+    python3 bench_torch.py [--n N] [--steps K] [--warmup W] [--scene cube|none]
+                           [--device cuda|cpu] [bench.py's StepConfig flags]
+
+The counterpart of ``bench.py``'s single-chip run. A water (or mucus)
+dam-break of N particles (1,000,000 on the card, 32,768 with
+``--device cpu``) falls onto ``scenes/cube.obj``. W warm-up substeps run
+first; a flag raised there grows the flagged table by the engine's own
+rule (``SPHSimulation._needs_rerun``) and the warm-up runs again from the
+start. The K substeps of the timed window then run once, untimed, from
+the warm state, growing the tables the same way, so that a window the
+fall deepens raises no flag. Then the K substeps are timed from the warm
+state on bench.py's schedule: a re-sort every ``--sort-interval``
+substeps, a candidate rebuild every ``--cand-interval``, the carried
+tables reused in between. The device is synchronised before and after
+the timed window, which is not re-run.
+
+Prints ONE JSON line with bench.py's keys; the number stands only with
+``detail.timed_flags == 0``. Where it differs from bench.py:
+
+* the warm-up grows capacity through the engine's rule, which stops the
+  8-wide hit capacity at 160 and then moves to the q-granular tables, and
+  grows ``cand_slack`` on a stale-reuse flag (bench.py adds 32 to the
+  hit capacity without a ceiling and never grows the slack), and it
+  rehearses the timed window (bench.py warms up on its W substeps
+  only);
+* ``vs_baseline`` is null: bench.py's north star is a TPU v5e-8 target,
+  and the port has no H100 baseline yet;
+* ``detail`` adds ``card`` (``nvidia-smi`` name and power limit),
+  ``host_cpu`` and ``config`` (the grown ``StepConfig``); ``platform`` is
+  ``cuda`` or ``cpu``;
+* ``--mesh``, ``--exchange`` and ``--halo-*`` are refused (the port has no
+  ``parallel/`` yet), and so is ``--tile-mode mxu`` (a TPU-only layout).
+
+Without a GPU it refuses to run unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import platform as _platform
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# particles a run holds by default, on the card and on the CPU (bench.py)
+N_CARD = 1_000_000
+N_CPU = 32_768
+MESH_REFUSAL = ("bench_torch: --mesh, --exchange and --halo-* need the port's parallel/, "
+                "which is not written yet (ROADMAP.md queue 1 item 5)")
+MXU_REFUSAL = ("bench_torch: --tile-mode mxu is a TPU-only layout that the port does not "
+               "run (ROADMAP.md queue 2 C); the port runs --tile-mode direct")
+# bench.py's values of the multi-chip flags, which a single-chip run keeps
+MESH_DEFAULTS = dict(mesh=0, exchange="all_gather", halo_max=0, halo_hops=1)
+
+
+def build_params(n: int, fluid_name: str = "water"):
+    """The dam-break's parameters at ``n`` particles (bench.py:30-42)."""
+    from libclsph_tpu_torch.core.params import derive_parameters
+    from libclsph_tpu_torch.models.presets import FLUIDS
+
+    sim = dict(
+        particles_count=n,
+        particle_mass=0.05,
+        simulation_time=3,
+        target_fps=60,
+        simulation_scale=0.1,
+        constant_acceleration=dict(x=0, y=-9.8, z=0),
+    )
+    return derive_parameters(dict(FLUIDS[fluid_name]), sim)
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    """bench.py's flags, whose defaults are the port's ``StepConfig()``,
+    and ``--device``."""
+    from libclsph_tpu_torch.engine.step import IMPLS, VARIANTS, StepConfig
+
+    d = StepConfig()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--n", type=int, default=None,
+                    help=f"particle count ({N_CARD} on the card, {N_CPU} on the CPU)")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--scene", default="cube",
+                    help="scenes/<name>.obj collision mesh, or 'none' (free space)")
+    ap.add_argument("--fluid", default="water", choices=["water", "mucus"])
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default; refuses to run without a GPU) or 'cpu'")
+    ap.add_argument("--impl", default=d.neighbor_impl, choices=list(IMPLS))
+    ap.add_argument("--block-size", type=int, default=d.block_size)
+    ap.add_argument("--max-candidates", type=int, default=d.max_candidates)
+    ap.add_argument("--tile-mode", default="direct", choices=["direct", "mxu"])
+    ap.add_argument("--pallas-variant", default=d.pallas_variant, choices=list(VARIANTS))
+    ap.add_argument("--nl-query-rows", type=int, default=d.nl_query_rows)
+    ap.add_argument("--max-candidates-sub", type=int, default=d.max_candidates_sub)
+    ap.add_argument("--max-candidates-hit", type=int, default=d.max_candidates_hit)
+    ap.add_argument("--no-hit-compact", action="store_true")
+    ap.add_argument("--force-query-rows", type=int, default=d.force_query_rows,
+                    choices=[32, 128])
+    ap.add_argument("--force-sub16", action=argparse.BooleanOptionalAction,
+                    default=d.force_sub16)
+    ap.add_argument("--max-candidates-hit16", type=int, default=d.max_candidates_hit16)
+    ap.add_argument("--force-sub8", action=argparse.BooleanOptionalAction,
+                    default=d.force_sub8)
+    ap.add_argument("--max-candidates-hit8", type=int, default=d.max_candidates_hit8)
+    ap.add_argument("--density-sub16", action=argparse.BooleanOptionalAction,
+                    default=d.density_sub16)
+    ap.add_argument("--tier2-frac", type=int, default=d.tier2_frac)
+    ap.add_argument("--tier2-mult", type=int, default=d.tier2_mult)
+    ap.add_argument("--sort-interval", type=int, default=d.sort_interval,
+                    help="re-sort every k-th substep (1 = every substep)")
+    ap.add_argument("--cand-interval", type=int, default=d.cand_interval,
+                    help="rebuild candidate lists every k-th substep")
+    ap.add_argument("--cand-slack", type=float, default=d.cand_slack,
+                    help="refine dilation as a fraction of h for reuse")
+    ap.add_argument("--density-gate", action=argparse.BooleanOptionalAction,
+                    default=d.density_gate)
+    ap.add_argument("--json-only", action="store_true")
+    ap.add_argument("--mesh", type=int, default=MESH_DEFAULTS["mesh"], metavar="N",
+                    help="refused: the port has no sharded frame loop yet")
+    ap.add_argument("--exchange", default=MESH_DEFAULTS["exchange"],
+                    choices=["all_gather", "halo", "ring"])
+    ap.add_argument("--halo-max", type=int, default=MESH_DEFAULTS["halo_max"])
+    ap.add_argument("--halo-hops", type=int, default=MESH_DEFAULTS["halo_hops"])
+    return ap
+
+
+def config_from_args(args):
+    """The ``StepConfig`` of a parsed command line (bench.py:254-295).
+    Exits with a message on the multi-chip flags, ``--tile-mode mxu``, a
+    ``--cand-interval`` that does not divide ``--sort-interval`` and any
+    combination ``StepConfig`` refuses; off the nl shape the candidate
+    tables are rebuilt every substep, as in bench.py."""
+    from libclsph_tpu_torch.engine.step import StepConfig
+
+    if any(getattr(args, k) != v for k, v in MESH_DEFAULTS.items()):
+        sys.exit(MESH_REFUSAL)
+    if args.tile_mode != "direct":
+        sys.exit(MXU_REFUSAL)
+    if args.cand_interval > 1 and args.sort_interval % args.cand_interval:
+        # reuse substeps must not re-sort (ids index the sorted order)
+        sys.exit("--cand-interval must divide --sort-interval")
+    fields = dict(
+        neighbor_impl=args.impl,
+        pallas_variant=args.pallas_variant,
+        block_size=args.block_size,
+        nl_query_rows=args.nl_query_rows,
+        max_candidates=args.max_candidates,
+        max_candidates_sub=args.max_candidates_sub,
+        max_candidates_hit=args.max_candidates_hit,
+        hit_compact=not args.no_hit_compact,
+        force_query_rows=args.force_query_rows,
+        force_sub16=args.force_sub16,
+        max_candidates_hit16=args.max_candidates_hit16,
+        density_sub16=args.density_sub16,
+        force_sub8=args.force_sub8,
+        max_candidates_hit8=args.max_candidates_hit8,
+        tier2_frac=args.tier2_frac,
+        tier2_mult=args.tier2_mult,
+        sort_interval=args.sort_interval,
+        cand_interval=args.cand_interval,
+        cand_slack=args.cand_slack,
+        density_gate=args.density_gate,
+    )
+    if args.cand_interval > 1 and (args.impl != "pallas" or args.pallas_variant != "nl"
+                                   or args.nl_query_rows < args.block_size):
+        # candidate reuse is a feature of the nl shape; rebuild every
+        # substep on the others
+        fields["cand_interval"] = 1
+    try:
+        return StepConfig(**fields)
+    except ValueError as e:
+        sys.exit(f"bench_torch: {e}")
+
+
+def sync(device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU)."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_substep(state, dt, i, tables, params, scene, cfg):
+    """Substep ``i`` of bench.py's schedule (bench.py:325-335): re-sort
+    when i % sort_interval == 0, rebuild the candidate tables when
+    i % cand_interval == 0, else reuse ``tables``. Returns (state, dt,
+    flags, tables)."""
+    from libclsph_tpu_torch.engine import step
+
+    if i % cfg.cand_interval == 0:
+        return step.substep(state, dt, params, scene, cfg,
+                            do_sort=i % cfg.sort_interval == 0)
+    return step.substep(state, dt, params, scene, cfg, do_sort=False, cand_in=tables)
+
+
+def run_substeps(state, dt, params, scene, cfg, steps):
+    """``steps`` substeps of bench.py's schedule from ``state`` (substep 0
+    rebuilds). Returns (state, dt, flags ORed over the substeps)."""
+    import torch
+
+    flags = torch.zeros((), dtype=torch.int32, device=state.device)
+    tables = None
+    for i in range(steps):
+        state, dt, f, tables = run_substep(state, dt, i, tables, params, scene, cfg)
+        flags = flags | f
+    return state, dt, flags
+
+
+def warm_up(state, params, scene, engine, steps, dt=None, window=0):
+    """``steps`` substeps from ``state`` at ``dt`` (a 0-d tensor; max_dt
+    when None), re-run from the start with the engine's capacity growth
+    (``engine._needs_rerun``) until no flag is raised. Then, with
+    ``window``, that many substeps once more from the warm state, grown
+    the same way and discarded: the timed window's own substeps, so that
+    the capacities cover them too (the dam's fall deepens the tables past
+    what the first substeps need). Returns the warm (state, dt);
+    ``engine.step_config`` holds the grown capacities."""
+    import torch
+
+    dt0 = dt if dt is not None else torch.tensor(params.max_dt, dtype=torch.float32,
+                                                 device=state.device)
+    for _ in range(6):
+        st, dt, flags = run_substeps(state, dt0, params, scene, engine.step_config, steps)
+        if not engine._needs_rerun(flags):
+            break
+    else:
+        raise RuntimeError("capacity growth did not converge")
+    if window:
+        warm_up(st, params, scene, engine, window, dt)
+    return st, dt
+
+
+def timed_run(state, dt, params, scene, cfg, steps):
+    """``steps`` substeps from (state, dt), the device synchronised before
+    and after. Returns (state, dt, elapsed seconds, flags ORed)."""
+    sync(state.device)
+    t0 = time.perf_counter()
+    st, dt, flags = run_substeps(state, dt, params, scene, cfg, steps)
+    sync(state.device)
+    return st, dt, time.perf_counter() - t0, flags
+
+
+def timed_window(label, state, dt, params, scene, engine, steps, counts=None):
+    """A :func:`timed_run` on ``engine.step_config`` that is re-run from the
+    same state, with the flagged table grown, until it raises no flag (as
+    the engine re-runs a frame); its state must be finite. ``counts``: a
+    function returning a dict of counters, read around the window that
+    stands. Returns (state, dt, ms/substep, the counters' increase or
+    None)."""
+    import torch
+
+    for _ in range(6):
+        before = counts() if counts else None
+        st, dt_t, elapsed, flags = timed_run(state, dt, params, scene, engine.step_config,
+                                             steps)
+        if not engine._needs_rerun(flags):
+            break
+        print(f"{label}: timed window raised flags {int(flags)} -> grown to "
+              f"{engine.step_config}; re-running it", flush=True)
+    else:
+        raise RuntimeError(f"{label}: timed window kept raising capacity flags")
+    if not (torch.isfinite(st.position).all() and torch.isfinite(st.density).all()):
+        raise RuntimeError(f"{label}: non-finite state after the timed window")
+    grown = None
+    if counts:
+        after = counts()
+        grown = {k: after[k] - before[k] for k in after}
+    return st, dt_t, 1000.0 * elapsed / steps, grown
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def host_cpu(cpuinfo: str = "/proc/cpuinfo") -> str:
+    """The host CPU's model name from ``cpuinfo`` (its vendor, family and
+    model numbers where a virtual machine hides the name) and the logical
+    CPU count."""
+    fields = {}
+    try:
+        with open(cpuinfo) as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    model = fields.get("model name")
+    if not model or model == "unknown":
+        model = " ".join(f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model")
+                         if k in fields) or _platform.machine() or "unknown"
+    return f"{model}, {os.cpu_count()} logical CPUs"
+
+
+def bench_result(n, steps, elapsed, flags, final_dt, fluid, impl, scene, device, cfg,
+                 card) -> dict:
+    """bench.py's JSON record (bench.py:400-420) for a timed window, with
+    the port's additions in ``detail``."""
+    platform = "cuda" if str(device).startswith("cuda") else "cpu"
+    psteps = n * steps / elapsed
+    return {
+        "metric": f"particle-steps/sec {fluid} dam-break @ {n} particles ({platform})",
+        "value": round(psteps, 1),
+        "unit": "particle-steps/s",
+        "vs_baseline": None,
+        "detail": {
+            "n": n,
+            "steps": steps,
+            "elapsed_s": round(elapsed, 4),
+            "ms_per_step": round(1000 * elapsed / steps, 3),
+            "impl": impl,
+            "scene": scene,
+            "platform": platform,
+            "final_dt": float(final_dt),
+            # the status bits ORed over the timed substeps: the number
+            # stands only at 0 (no truncated table, no stale reuse)
+            "timed_flags": int(flags),
+            "card": card,
+            "host_cpu": host_cpu(),
+            "config": dataclasses.asdict(cfg),
+        },
+    }
+
+
+def main(argv=None) -> int:
+    args = build_arg_parser().parse_args(argv)
+    cfg = config_from_args(args)
+
+    from libclsph_tpu_torch.core.state import init_state
+    from libclsph_tpu_torch.engine.simulation import SPHSimulation, configure_device
+    from libclsph_tpu_torch.ops import collisions
+    from libclsph_tpu_torch.scene.scene import Scene
+
+    try:
+        dev = configure_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        sys.exit(f"bench_torch: {e}; pass --device cpu for a run on the CPU")
+
+    def log(msg):
+        if not args.json_only:
+            print(msg, file=sys.stderr, flush=True)
+
+    n = args.n or (N_CARD if dev.type == "cuda" else N_CPU)
+    params = build_params(n, args.fluid)
+    scene = None
+    if args.scene != "none":
+        scene = collisions.build_device_scene(
+            Scene.load(args.scene + ".obj", params.h * 2, scenes_dir=os.path.join(ROOT, "scenes")),
+            dev)
+    engine = SPHSimulation(cfg, device=dev, pretune=False)
+    log(f"device={dev} n={n} impl={args.impl} scene={args.scene}")
+
+    t0 = time.perf_counter()
+    state, dt = warm_up(init_state(params, dev), params, scene, engine, args.warmup,
+                        window=args.steps)
+    sync(dev)
+    log(f"warm-up: {time.perf_counter() - t0:.1f}s, config {engine.step_config}")
+
+    state, dt, elapsed, flags = timed_run(state, dt, params, scene, engine.step_config,
+                                          args.steps)
+    if int(flags):
+        log(f"WARNING: flags {int(flags)} raised during the timed run")
+    card = card_line() if dev.type == "cuda" else None
+    print(json.dumps(bench_result(n, args.steps, elapsed, flags, dt, args.fluid, args.impl,
+                                  args.scene, dev, engine.step_config, card)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

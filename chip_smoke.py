@@ -27,14 +27,25 @@ non-zero):
    atol 1e-5 * max|a|; kernel and plain times (CUDA events, median of 7)
    and the bound (bytes or fp32 operations at the H100's peaks) at 1M;
 3. the CLI main path: ``sph-torch water default cube`` at 64,000
-   particles for 3 frames, checking the .geo frames, that no particle
-   left the fluid's column above the cube obstacle, and the densities;
+   particles for 3 frames with the native ``.geo`` writer (built in
+   phase 1), checking the .geo frames, that no particle left the fluid's
+   column above the cube obstacle, and the densities;
    3b. the same with ``--no-force-sub8`` (the 16-wide force path);
-4. the 1M-particle cube dam-break the way ``bench.py`` runs it (no
-   pretune): warm-up with the engine's capacity growth, then 20 timed
-   substeps that must raise no flag (a flagged window grows the table
-   and is re-run, as the engine re-runs a frame); ms/substep and
-   particle-steps/s;
+   3c. fidelity in free space (``experiments/torch_fidelity_64k.py``):
+   65,536 particles settled 20 substeps, then the production path's
+   density (every particle) and acceleration (512 rows) against a
+   float64 oracle; the density or acceleration RMS relative error at
+   1e-4 or more fails the phase;
+4. the 1M-particle cube dam-break through ``bench_torch.py``'s functions
+   (no pretune): its warm-up with the engine's capacity growth (3
+   substeps, then the window's 20 once, untimed), then 20 timed substeps
+   that must raise no flag (a flagged window grows the table and is
+   re-run, as the engine re-runs a frame); ms/substep and
+   particle-steps/s, and bench_torch's JSON line for the window; then a
+   ``torch.profiler`` breakdown (``utils/profiling``) of one rebuild and
+   one reuse substep from the window's last state: the top 15 entries by
+   device time, the device total and the host wall time of each, beside
+   the median of 5 unprofiled runs;
    4b. the same on the 16-wide force path (True, True, False), then with
    ``density_gate``: ``forces_q32_c16`` on every timed substep,
    ``density_gated16`` on every reuse substep, positions bit-equal to the
@@ -50,9 +61,10 @@ non-zero):
    tiers of the 16-granular one;
 6. the river: 1,048,576 water particles (mass 0.025) stacked on
    ``scenes/river.obj`` through ``SPHSimulation(pretune="auto")`` for 3
-   frames with ``.geo`` export; prints the probe statistics, the config
-   the pretune chose and s/frame; the q-granular config must be taken
-   and ``density_c32`` / ``forces_q32_c32`` must launch during the
+   frames with ``.geo`` export by the native writer
+   (``experiments/torch_scene_run.py``); prints the probe statistics, the
+   config the pretune chose and s/frame; the q-granular config must be
+   taken and ``density_c32`` / ``forces_q32_c32`` must launch during the
    frames;
 7. the block-granular 1M cube dam-break (the ``row``, ``fine`` and
    ``asym`` variants: whole candidate blocks through the 32-wide kernels,
@@ -83,13 +95,13 @@ The block variants' plain versions are timed
 over 2 repetitions after a warm-up (about a second each at 1M), the rest
 over 7.
 
-Each path (main: phases 3-4; 16-wide: 3b-4b; deep columns: 5-6; row,
+Each path (main: phases 3, 3c and 4; 16-wide: 3b-4b; deep columns: 5-6; row,
 fine, asym and asm: 7; exact: 8) runs with the launch counts set to 0
 just before it and read just after; each record counts the launches of
 the paths it belongs to. The line before last holds the per-kernel JSON
 record, the last line ``{"ok": true, "device": {...}}``. Needs one CUDA
-device; refuses to run without one. ``--profile DIR`` adds a
-torch.profiler table of four 1M substeps to DIR.
+device; refuses to run without one. ``--profile DIR`` keeps phase 4's
+profiler traces and full tables in DIR (``rebuild/`` and ``reuse/``).
 """
 
 from __future__ import annotations
@@ -99,21 +111,22 @@ import json
 import os
 import shutil
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
 
+from bench_torch import bench_result, card_line, run_substeps, sync, timed_window, warm_up
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
+EXPERIMENTS = os.path.join(ROOT, "experiments")
 N_BENCH = 1_000_000
 TIMED_STEPS = 20
 WARMUP_STEPS = 3
 REPS = 7
 N_RIVER = 1_048_576
-RIVER_MASS = 0.025  # keeps the river's free surface below its walls
 RIVER_FRAMES = 3
-RIVER_FRAC = (0.92, 0.8)  # lattice footprint, fraction of the scene's x/z extent
-CLEARANCE = 0.04  # gap between the support surface and the first layer
+N_FIDELITY = 65_536
+PROFILE_TOP = 15  # entries of the profiler breakdown by device time
 Q_PATH = dict(density_sub16=False, force_sub16=False, force_sub8=False)
 # the 16-wide force path, with the hit capacity set as bench.py's
 # --max-candidates-hit16 can (a shortfall would downgrade to Q_PATH)
@@ -201,14 +214,6 @@ N_EXACT = 64_000
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps=REPS) -> float:
@@ -923,85 +928,19 @@ def compare_radix(tag, stats, dev):
     log(line)
 
 
-def run_substeps(state, dt, params, scene, cfg, steps):
-    """bench.py's schedule: sort and rebuild every sort_interval /
-    cand_interval substeps, reuse the carried tables in between.
-    Returns (state, dt, flags ORed)."""
-    import torch
-
-    from libclsph_tpu_torch.engine import step
-
-    flags = torch.zeros((), dtype=torch.int32, device=state.device)
-    tables = None
-    for i in range(steps):
-        if i % cfg.cand_interval == 0:
-            state, dt, f, tables = step.substep(
-                state, dt, params, scene, cfg, do_sort=i % cfg.sort_interval == 0
-            )
-        else:
-            state, dt, f, _ = step.substep(state, dt, params, scene, cfg,
-                                           do_sort=False, cand_in=tables)
-        flags = flags | f
-    return state, dt, flags
-
-
-def run_with_growth(state, params, scene, engine, steps):
-    """``steps`` substeps from ``state``, re-run from the start with the
-    engine's capacity growth (SPHSimulation._needs_rerun) until no flag
-    is raised. Returns (state, dt); ``engine.step_config`` holds the
-    grown capacities."""
-    import torch
-
-    dt0 = torch.tensor(params.max_dt, dtype=torch.float32, device=state.device)
-    for _ in range(6):
-        st, dt, flags = run_substeps(state, dt0, params, scene, engine.step_config, steps)
-        if not engine._needs_rerun(flags):
-            return st, dt
-        log(f"  flags {int(flags)} -> grown to {engine.step_config}")
-    raise RuntimeError("capacity growth did not converge")
-
-
-def timed_window(phase, st, dt, params, scene, engine, steps=TIMED_STEPS):
-    """``steps`` substeps from (st, dt) on ``engine.step_config``; a
-    flagged window grows the flagged table and is re-run from the same
-    state, as the engine re-runs a frame (the number stands only for a
-    window that raised no flag). Returns (state, dt, ms/substep, the
-    window's launches by record)."""
-    import torch
-
-    for _ in range(6):
-        before = read_launches()
-        t0 = time.perf_counter()
-        st_t, dt_t, flags = run_substeps(st, dt, params, scene, engine.step_config, steps)
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
-        if not engine._needs_rerun(flags):
-            break
-        log(f"phase {phase} timed window raised flags {int(flags)} -> grown to "
-            f"{engine.step_config}; re-running it")
-    else:
-        raise RuntimeError("timed window kept raising capacity flags")
-    if not (torch.isfinite(st_t.position).all() and torch.isfinite(st_t.density).all()):
-        raise RuntimeError(f"phase {phase}: non-finite state in the 1M run")
-    after = read_launches()
-    return st_t, dt_t, 1000.0 * elapsed / steps, {k: after[k] - before[k] for k in after}
-
-
 def substep_ms(st, dt, params, scene, cfg, reps=5):
     """Median ms of one rebuild substep and of one reuse substep on its
     tables, from the same state (host clock around synchronised
     substeps)."""
-    import torch
-
     from libclsph_tpu_torch.engine import step
 
     def timed(fn):
         times = []
         for _ in range(reps):
-            torch.cuda.synchronize()
+            sync(st.device)
             t0 = time.perf_counter()
             fn()
-            torch.cuda.synchronize()
+            sync(st.device)
             times.append(1000.0 * (time.perf_counter() - t0))
         return statistics.median(times)
 
@@ -1026,7 +965,7 @@ def phase4b_sub16(s1m, params, scene, engine, card):
             raise RuntimeError(f"phase 4b: the growth rules left the 16-wide tables: {cfg}")
 
     t0 = time.perf_counter()
-    st, dt = run_with_growth(s1m, params, scene, engine, WARMUP_STEPS)
+    st, dt = warm_up(s1m, params, scene, engine, WARMUP_STEPS)
     torch.cuda.synchronize()
     require_16_wide(engine.step_config)
     log(f"phase 4b warm-up: {time.perf_counter() - t0:.2f} s, config {engine.step_config}")
@@ -1038,7 +977,8 @@ def phase4b_sub16(s1m, params, scene, engine, card):
     ms = {"ungated": [], "gated": []}
     for which in ("ungated", "gated", "gated", "ungated"):
         eng = engine if which == "ungated" else gate
-        _, _, t, got = timed_window(f"4b {which}", st, dt, params, scene, eng)
+        _, _, t, got = timed_window(f"phase 4b {which}", st, dt, params, scene, eng,
+                                    TIMED_STEPS, read_launches)
         require_16_wide(eng.step_config)
         densities = (got["density_c16 hit_sub 16"] + got["density_c16 hit_sub 16, hit2_h"]
                      + got["density_gated16"])
@@ -1187,147 +1127,94 @@ def two_tier_hits(st, real, params, cfg):
             f"{int(used.sum())} routed rows")
 
 
-def load_tris(path):
-    import numpy as np
+def phase3c_fidelity(dev):
+    """torch_fidelity_64k's comparison at N_FIDELITY particles: settled
+    SETTLE substeps on the main path, then one substep's density and
+    acceleration against the float64 oracle; fails at the 1e-4 RMS bar."""
+    import torch_fidelity_64k as fid
 
-    vs, fs = [], []
-    for line in open(path):
-        if line.startswith("v "):
-            vs.append([float(x) for x in line.split()[1:4]])
-        elif line.startswith("f "):
-            fs.append([int(t.split("/")[0]) - 1 for t in line.split()[1:4]])
-    v = np.array(vs, np.float32)
-    return v, v[np.array(fs, np.int32)]  # (F, 3, 3)
-
-
-def support_height(tris, xs, zs, default):
-    """Highest mesh surface under each (x, z) column (vertical ray-cast,
-    vectorised over columns); ``default`` where nothing is hit."""
-    import numpy as np
-
-    a, b, c = tris[:, 0], tris[:, 1], tris[:, 2]
-    v0 = (b - a)[:, [0, 2]]
-    v1 = (c - a)[:, [0, 2]]
-    den = v0[:, 0] * v1[:, 1] - v0[:, 1] * v1[:, 0]
-    ok_f = np.abs(den) > 1e-9  # skip vertical faces
-    sup = np.full((len(xs),), default, np.float32)
-    p = np.stack([xs, zs], axis=1)
-    for f in np.nonzero(ok_f)[0]:
-        d = p - a[f, [0, 2]]
-        u = (d[:, 0] * v1[f, 1] - d[:, 1] * v1[f, 0]) / den[f]
-        w = (v0[f, 0] * d[:, 1] - v0[f, 1] * d[:, 0]) / den[f]
-        inside = (u >= -1e-6) & (w >= -1e-6) & (u + w <= 1 + 1e-6)
-        y = a[f, 1] + u * (b[f, 1] - a[f, 1]) + w * (c[f, 1] - a[f, 1])
-        sup = np.where(inside & (y > sup), y, sup)
-    return sup
+    r = fid.measure(dev, N_FIDELITY)
+    log(f"phase 3c fidelity: {N_FIDELITY} particles settled {fid.SETTLE} substeps; against "
+        f"the float64 oracle {json.dumps(r)}; bar {fid.BAR}")
+    if not fid.passes(r):
+        raise RuntimeError(f"phase 3c: density or accel RMS relative error at or above "
+                           f"{fid.BAR}: {r}")
 
 
-def terrain_lattice(n, volume, scene_path, frac):
-    """n particles at rest spacing stacked on the scene's support surface
-    (experiments/scene_run.py): per-(x, z) column base from a vertical
-    ray-cast, filled bottom-up layer by layer, so no particle starts
-    inside the geometry."""
-    import numpy as np
+def phase4_profile(logdir, st, dt, params, scene, cfg, reps=5):
+    """torch.profiler breakdowns (utils/profiling.trace) of one rebuild
+    substep from ``st`` and one reuse substep on its tables: for each the
+    PROFILE_TOP entries by device time, the device total, the host wall
+    time of the profiled run and the median of ``reps`` unprofiled ones;
+    traces and full tables in ``logdir``."""
+    from torch.autograd import DeviceType
 
-    dx = float(np.cbrt(volume / n))  # rest spacing
-    verts, tris = load_tris(scene_path)
-    lo, hi = verts.min(0), verts.max(0)
-    fx, fz = frac
-    cx, cz = (lo[0] + hi[0]) / 2, (lo[2] + hi[2]) / 2
-    x0, x1 = cx - fx * (hi[0] - lo[0]) / 2, cx + fx * (hi[0] - lo[0]) / 2
-    z0, z1 = cz - fz * (hi[2] - lo[2]) / 2, cz + fz * (hi[2] - lo[2]) / 2
-    nx = max(1, int((x1 - x0) / dx))
-    nz = max(1, int((z1 - z0) / dx))
-    cols_x = np.repeat(x0 + np.arange(nx) * dx, nz)
-    cols_z = np.tile(z0 + np.arange(nz) * dx, nx)
-    base = support_height(tris, cols_x, cols_z, lo[1]) + CLEARANCE
-    layers = -(-n // (nx * nz))
-    y = base[None, :] + np.arange(layers)[:, None] * dx
-    x = np.broadcast_to(cols_x, y.shape)
-    z = np.broadcast_to(cols_z, y.shape)
-    return np.stack([x, y, z], axis=-1).reshape(-1, 3)[:n].astype(np.float32)
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.utils import profiling
+
+    s1, d1, _, tab = step.substep(st, dt, params, scene, cfg)
+    runs = {"rebuild": lambda: step.substep(st, dt, params, scene, cfg),
+            "reuse": lambda: step.substep(s1, d1, params, scene, cfg, do_sort=False,
+                                          cand_in=tab)}
+    unprofiled = substep_ms(st, dt, params, scene, cfg, reps)
+    for (name, fn), plain_ms in zip(runs.items(), unprofiled):
+        with profiling.trace(os.path.join(logdir, name)) as prof:
+            t0 = time.perf_counter()
+            with profiling.annotate(f"{name} substep"):
+                fn()
+            sync(st.device)
+            wall_ms = 1000.0 * (time.perf_counter() - t0)
+        # the device's own entries (kernels, copies): an op's device time
+        # is its kernels' again, and the annotation's range spans them all
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.key != f"{name} substep"]
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3
+        top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
+        log(f"phase 4 profile, 1M {name} substep: device {device_ms:.3f} ms of a "
+            f"{wall_ms:.3f} ms host wall time under the profiler ({device_ms / wall_ms:.1%} "
+            f"busy); unprofiled {plain_ms:.3f} ms (median of {reps}); top "
+            f"{PROFILE_TOP} kernels and copies by device time:")
+        for e in top[:PROFILE_TOP]:
+            log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
+    log(f"phase 4 profile: traces and tables in {logdir}")
 
 
 def phase6_river(tmp, dev, frames):
     """1M water particles on scenes/river.obj through the engine with the
-    pretune on, ``frames`` frames with .geo export. Returns the launch
-    counts of the frames."""
-    import numpy as np
+    pretune on, ``frames`` frames with .geo export by the native writer
+    (torch_scene_run's river placement). Returns the launch counts of the
+    frames."""
     import torch
 
-    from libclsph_tpu_torch.core.params import derive_parameters
-    from libclsph_tpu_torch.core.state import ParticleState
-    from libclsph_tpu_torch.engine import pretune, step
-    from libclsph_tpu_torch.engine.simulation import SPHSimulation
-    from libclsph_tpu_torch.io.houdini import HoudiniFileSaver
-    from libclsph_tpu_torch.models.presets import FLUIDS, simulation_config
+    import torch_scene_run
+    from libclsph_tpu_torch.io import geo_format
+    from libclsph_tpu_torch.models.presets import WATER
 
-    fluid = dict(FLUIDS["water"])
-    # half a frame short of ``frames`` frames, so float accumulation of
-    # the frame time cannot add one
-    p = derive_parameters(fluid, simulation_config(
-        particles_count=N_RIVER, particle_mass=RIVER_MASS,
-        simulation_time=(frames - 0.5) / 60.0))
-    sim = SPHSimulation(step.StepConfig(), device=dev, pretune="auto")
-    sim.parameters = p
-    sim.precomputed_terms = p.precomputed()
-    sim.initial_volume = p.initial_volume
-    sim.checkpoint_path = os.path.join(tmp, "no_checkpoint.npz")
-    t0 = time.perf_counter()
-    sim.load_scene("river.obj", scenes_dir=os.path.join(ROOT, "scenes"))
-    pos = terrain_lattice(N_RIVER, p.initial_volume, os.path.join(ROOT, "scenes", "river.obj"),
-                          RIVER_FRAC)
-    state0 = ParticleState.zeros(N_RIVER, dev).replace(position=torch.as_tensor(pos, device=dev))
-    sim.init_particles = lambda: state0
-    saver = HoudiniFileSaver(os.path.join(tmp, "river_"))
-    sim.save_frame = lambda arrays, params: saver.write_frame_to_file(arrays, params)
-    setup_s = time.perf_counter() - t0
-
-    frame_s, configs, pretune_s = [], [], []
-    run_frame = sim._run_frame
-
-    def timed_frame(state, dt):
-        configs.append(sim.step_config)
-        t = time.perf_counter()
-        out = run_frame(state, dt)
-        torch.cuda.synchronize()
-        frame_s.append(time.perf_counter() - t)
-        return out
-
-    probe = pretune.pretune_config
-
-    def timed_probe(*args, **kw):
-        t = time.perf_counter()
-        out = probe(*args, **kw)
-        torch.cuda.synchronize()
-        pretune_s.append(time.perf_counter() - t)
-        return out
-
-    sim._run_frame = timed_frame
-    pretune.pretune_config = timed_probe
     before = read_launches()
-    try:
-        total = sim.simulate()
-    finally:
-        pretune.pretune_config = probe
+    r = torch_scene_run.run_scene("river", N_RIVER, frames, dev, os.path.join(tmp, "river_"))
     after = read_launches()
+    if not geo_format.have_native():
+        raise RuntimeError("phase 6: the .geo frames were not written by the native writer")
     launches = {k: after[k] - before[k] for k in after}
-    chosen, final = configs[0], sim.step_config
+    frame_s, chosen, final, sim, pos = r["frame_s"], r["chosen"], r["final"], r["sim"], r["pos"]
     st = sim.state
-    rho0 = fluid["fluid_density"]
+    rho0 = WATER["fluid_density"]
     med = float(torch.median(st.density))
     names = sorted(os.listdir(os.path.join(tmp, "river_frames")))
-    log(f"phase 6 river: {N_RIVER} particles (mass {RIVER_MASS}) on river.obj, "
+    log(f"phase 6 river: {N_RIVER} particles (mass "
+        f"{torch_scene_run.PLACEMENTS['river']['mass']}) on river.obj, "
         f"lattice y [{pos[:, 1].min():.3f}, {pos[:, 1].max():.3f}], scene and lattice "
-        f"{setup_s:.2f} s; pretune {'ran' if pretune_s else 'did not run'} "
-        f"({pretune_s[0] if pretune_s else 0.0:.3f} s), probe {sim.pretune_stats}")
+        f"{r['setup_s']:.2f} s; pretune "
+        f"{'did not run' if r['pretune_s'] is None else 'ran'} "
+        f"({r['pretune_s'] or 0.0:.3f} s), probe {sim.pretune_stats}")
     log(f"  config chosen by the pretune: {chosen}")
     if final != chosen:
         log(f"  grown by the autotune during the frames to: {final}")
     log(f"  {len(frame_s)} frames, s/frame {[round(x, 4) for x in frame_s]} "
-        f"(median {statistics.median(frame_s):.4f}, mean {statistics.mean(frame_s):.4f}); "
-        f"simulate() {total:.2f} s incl. DF bake, pretune and export; "
-        f"{len(names)} .geo frames; density median {med:.2f}; launches {launches}")
+        f"(median {statistics.median(frame_s):.4f}, mean {statistics.mean(frame_s):.4f}) "
+        f"with the native .geo writer; simulate() {r['total_s']:.2f} s incl. DF bake, "
+        f"pretune and export; {len(names)} .geo frames; density median {med:.2f}; "
+        f"launches {launches}")
     if len(frame_s) != frames or len(names) != frames + 1:
         raise RuntimeError(f"river: {len(frame_s)} frames run, {len(names)} written")
     if chosen.density_sub16 and final.density_sub16:
@@ -1348,6 +1235,7 @@ def phase3_cli(tmp, phase="3", flags=()):
     import numpy as np
 
     from libclsph_tpu_torch import cli
+    from libclsph_tpu_torch.io import geo_format
 
     root = os.path.join(tmp, "root")
     for d in ("fluid_properties", "simulation_properties", "scenes"):
@@ -1371,6 +1259,9 @@ def phase3_cli(tmp, phase="3", flags=()):
         os.chdir(cwd)
     if rc != 0:
         raise RuntimeError(f"sph-torch exited {rc}")
+    if not geo_format.have_native():
+        raise RuntimeError(f"phase {phase}: the .geo frames were not written by the native "
+                           f"writer")
     out = os.path.join(tmp, "out_frames")
     names = sorted(os.listdir(out))
     if len(names) != frames + 1:
@@ -1401,7 +1292,7 @@ def phase3_cli(tmp, phase="3", flags=()):
         raise RuntimeError(f"densities off: median {med}, max {float(dens.max())}")
     log(f"phase {phase} cli {' '.join(flags)}: {len(names)} frames of 64000 points in "
         f"{seconds:.2f} s "
-        f"(scene bake, 3 frames and export included); min y {ymin:.4f}, "
+        f"(scene bake, 3 frames and native .geo export included); min y {ymin:.4f}, "
         f"max |x|,|z| {xzmax:.4f} (bound {half + 0.05:.4f}); "
         f"density median {med:.2f} max {float(dens.max()):.2f}")
     return seconds, {k: ck[k] for k in ck.files}
@@ -1461,10 +1352,11 @@ def phase7_blocks(state, params, scene, dev, card, ms_main, paths):
     row = SPHSimulation(step.StepConfig(pallas_variant="row", **base), device=dev,
                         pretune=False)
     t0 = time.perf_counter()
-    st, dt = run_with_growth(state, params, scene, row, WARMUP_STEPS)
+    st, dt = warm_up(state, params, scene, row, WARMUP_STEPS)
     torch.cuda.synchronize()
     log(f"phase 7 row warm-up: {time.perf_counter() - t0:.2f} s, config {row.step_config}")
-    _, _, ms, got = timed_window("7 row", st, dt, params, scene, row)
+    _, _, ms, got = timed_window("phase 7 row", st, dt, params, scene, row, TIMED_STEPS,
+                                read_launches)
     if min(got["density_blocks row"], got["forces_blocks row"]) < TIMED_STEPS:
         raise RuntimeError(f"phase 7 row: the block kernels launched {got}")
     paths["row"] = read_launches()
@@ -1475,7 +1367,8 @@ def phase7_blocks(state, params, scene, dev, card, ms_main, paths):
     for variant in ("fine", "asym"):
         reset_launches()
         eng = engine_with(row, dataclasses.replace(row.step_config, pallas_variant=variant))
-        _, _, ms_v, got = timed_window(f"7 {variant}", st, dt, params, scene, eng, FEW_STEPS)
+        _, _, ms_v, got = timed_window(f"phase 7 {variant}", st, dt, params, scene, eng,
+                                        FEW_STEPS, read_launches)
         recs = (f"density_blocks {variant}", f"forces_blocks {variant}")
         if min(got[r] for r in recs) < FEW_STEPS:
             raise RuntimeError(f"phase 7 {variant}: the block kernels launched {got}")
@@ -1554,7 +1447,8 @@ def phase8_exact(tmp, dev, card, paths):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="write a torch.profiler table of four 1M substeps to DIR")
+                    help="keep phase 4's profiler traces and tables of a 1M rebuild and "
+                    "reuse substep in DIR")
     ap.add_argument("--river-frames", type=int, default=RIVER_FRAMES,
                     help="frames of the river run (phase 6)")
     args = ap.parse_args(argv)
@@ -1565,13 +1459,14 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    sys.path[:0] = [ROOT, EXPERIMENTS]
     # the exact impl's sort (phase 8) runs the fused radix sort; the
     # package reads its sort backend when it is imported
     os.environ["LIBCLSPH_TPU_SORT"] = "radix-fused"
     from libclsph_tpu_torch.core.state import init_state
     from libclsph_tpu_torch.engine import step
     from libclsph_tpu_torch.engine.simulation import SPHSimulation, configure_device
+    from libclsph_tpu_torch.io import geo_format, native
     from libclsph_tpu_torch.ops.kernels import build
 
     dev = configure_device("cuda")
@@ -1591,6 +1486,11 @@ def main(argv=None) -> int:
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    fresh = not native.library_path().exists()
+    geo_format.native_writer(required=True)
+    log(f"phase 1 native .geo writer: {'compiled' if fresh else 'found'} "
+        f"{os.path.relpath(native.library_path(), ROOT)} in {time.perf_counter() - t0:.2f} s")
 
     # phase 2
     stats = {name: {} for name in KERNELS}
@@ -1619,7 +1519,7 @@ def main(argv=None) -> int:
     scene64 = cube_scene(p64, dev)
     s64 = init_state(p64, dev)
     compare_all("64k lattice", s64, p64, scene64, True)
-    s64, _ = run_with_growth(s64, p64, scene64, engine_for("64k", {}), 10)
+    s64, _ = warm_up(s64, p64, scene64, engine_for("64k", {}), 10)
     compare_all("64k after 10 substeps", s64, p64, scene64, True)
     p1m = water_params(N_BENCH)
     scene1m = cube_scene(p1m, dev)
@@ -1634,38 +1534,36 @@ def main(argv=None) -> int:
     del s64
     torch.cuda.empty_cache()
 
-    # phases 3 and 4 drive the main path; count the kernels' launches there
+    # phases 3, 3c and 4 drive the main path; count the kernels' launches
+    # there
     reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         phase3_cli(tmp)
     cli_launches = read_launches()
     if min(cli_launches["density_c16"], cli_launches["forces_q32_c8"]) <= 0:
         raise RuntimeError(f"CLI run launched the main kernels {cli_launches}")
+    phase3c_fidelity(dev)
 
-    # phase 4: bench.py's 1M cube dam-break
+    # phase 4: bench_torch's 1M cube dam-break
     engine = SPHSimulation(step.StepConfig(), device=dev, pretune=False)
     t0 = time.perf_counter()
-    st, dt = run_with_growth(s1m, p1m, scene1m, engine, WARMUP_STEPS)
-    torch.cuda.synchronize()
-    log(f"phase 4 warm-up: {time.perf_counter() - t0:.2f} s")
-    st, dt, ms_main, got = timed_window("4", st, dt, p1m, scene1m, engine)
+    st, dt = warm_up(s1m, p1m, scene1m, engine, WARMUP_STEPS, window=TIMED_STEPS)
+    sync(dev)
+    log(f"phase 4 warm-up (bench_torch's, the timed window rehearsed): "
+        f"{time.perf_counter() - t0:.2f} s, config {engine.step_config}")
+    st, dt, ms_main, got = timed_window("phase 4", st, dt, p1m, scene1m, engine, TIMED_STEPS,
+                                        read_launches)
     if min(got["density_c16"], got["forces_q32_c8"]) < TIMED_STEPS:
         raise RuntimeError(f"timed run launched the kernels {got}")
     log(f"phase 4 bench: {N_BENCH} particles, {TIMED_STEPS} substeps, "
         f"{ms_main:.3f} ms/substep, {N_BENCH * 1e3 / ms_main:.6g} particle-steps/s, "
         f"timed_flags 0, final dt {float(dt):.6g}, config {engine.step_config}; "
         f"card {card}")
-    if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-
-        os.makedirs(args.profile, exist_ok=True)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run_substeps(st, dt, p1m, scene1m, engine.step_config, 4)
-            torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-        with open(os.path.join(args.profile, "profile_1m.txt"), "w") as f:
-            f.write(f"card {card}\n{table}\n")
-        log(f"profile: {os.path.join(args.profile, 'profile_1m.txt')}")
+    line = bench_result(N_BENCH, TIMED_STEPS, ms_main * TIMED_STEPS / 1e3, 0, dt, "water",
+                        "pallas", "cube", dev, engine.step_config, card)
+    log(f"phase 4 bench_torch: {json.dumps(line)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase4_profile(args.profile or tmp, st, dt, p1m, scene1m, engine.step_config)
     paths = {"main": read_launches()}
 
     # phases 3b and 4b drive the 16-wide force path and the gated density

@@ -63,6 +63,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import bench_torch
 import chip_smoke as cs
 
 ROOT = Path(__file__).resolve().parent
@@ -264,12 +265,12 @@ def row_substeps(dev, turns, run_with) -> dict:
     scene = cs.cube_scene(params, dev)
     row = SPHSimulation(step.StepConfig(pallas_variant="row", cand_interval=1,
                                         sort_interval=4), device=dev, pretune=False)
-    st, dt = cs.run_with_growth(init_state(params, dev), params, scene, row, cs.WARMUP_STEPS)
+    st, dt = bench_torch.warm_up(init_state(params, dev), params, scene, row, cs.WARMUP_STEPS)
     torch.cuda.synchronize()
     ms = {}
     for lib in turns:
-        got = run_with(lib, lambda: cs.timed_window("kernel_ab row", st, dt, params, scene,
-                                                    row, ROW_SUBSTEPS)[2])
+        got = run_with(lib, lambda: bench_torch.timed_window("kernel_ab row", st, dt, params,
+                                                            scene, row, ROW_SUBSTEPS)[2])
         ms.setdefault(lib, []).append(got)
     print("row substeps (ms, in turns): " + ", ".join(
         f"{lib} {statistics.median(v):.3f} ({', '.join(f'{x:.3f}' for x in v)})"
@@ -475,7 +476,7 @@ def main(argv=None) -> int:
     from libclsph_tpu_torch.ops.kernels import build
 
     dev = configure_device("cuda")
-    card = cs.card_line()
+    card = bench_torch.card_line()
     print(f"card: {card}; device {torch.cuda.get_device_name(0)}", flush=True)
     trees = {"base": args.base}
     trees.update(v.split("=", 1) for v in args.variant)

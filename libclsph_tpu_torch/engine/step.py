@@ -145,8 +145,8 @@ class StepConfig:
             raise ValueError(f"StepConfig.pallas_variant={self.pallas_variant!r}: "
                              f"use one of {VARIANTS}")
         not_yet = {
-            "block_size": (128, "ROADMAP.md queue 1 item 12 (other block shapes)"),
-            "nl_query_rows": (128, "ROADMAP.md queue 1 item 12 (finer query blocks)"),
+            "block_size": (128, "ROADMAP.md queue 1 item 4 (other block shapes)"),
+            "nl_query_rows": (128, "ROADMAP.md queue 1 item 4 (finer query blocks)"),
         }
         for name, (value, item) in not_yet.items():
             if getattr(self, name) != value:
@@ -158,7 +158,7 @@ class StepConfig:
             raise ValueError(
                 f"StepConfig.force_query_rows={self.force_query_rows!r}: the port runs "
                 f"32 and 128, as the JAX package does; other query granularities are "
-                f"ROADMAP.md queue 1 item 12"
+                f"ROADMAP.md queue 1 item 4"
             )
         if self.sort_interval < 1 or self.cand_interval < 1:
             raise ValueError("sort_interval and cand_interval must be >= 1")

@@ -10,24 +10,44 @@ attribute; the same Part/PrimitiveAttrib trailer.
 
 Formatting is vectorised: all float -> text conversion happens in one
 NumPy pass instead of a per-particle ostream loop (this writer is the
-frame-export hot path at millions of particles). If the optional C
-serializer extension is built (native/), it is used automatically.
+frame-export hot path at millions of particles). The native writer,
+``native/geo_writer.cpp`` built by :mod:`io.native`, is used where it
+builds; :func:`dump_geo` is its plain version.
 """
 
 from __future__ import annotations
 
 import io as _io
+import threading
 from typing import IO
 
 import numpy as np
 
-try:  # optional C++ serializer (native/geo_writer.cpp)
-    import _libclsph_native as _native
-except ImportError:  # pragma: no cover - depends on build
-    _native = None
+from . import native as native_build
+
+_lock = threading.Lock()
+_native = None  # the loaded native writer, once built
+_native_error = None  # why the build failed, once it has
+
+
+def native_writer(required: bool = False):
+    """The native writer module, built and loaded at the first call of
+    the process. Where it does not build, None, or with ``required`` a
+    RuntimeError carrying the compiler's output."""
+    global _native, _native_error
+    with _lock:
+        if _native is None and _native_error is None:
+            try:
+                _native = native_build.load(native_build.build())
+            except (OSError, RuntimeError, ImportError) as e:
+                _native_error = e
+    if _native is None and required:
+        raise RuntimeError(f"the native .geo writer is not available: {_native_error}")
+    return _native
 
 
 def have_native() -> bool:
+    """Whether the native writer has been built and loaded."""
     return _native is not None
 
 
@@ -38,9 +58,11 @@ def write_geo_file(
     color: np.ndarray,
     mass: float,
 ) -> None:
-    """Write a frame to ``path``, preferring the native serializer."""
-    if _native is not None:
-        _native.write_geo(
+    """Write a frame to ``path`` with the native writer where it builds,
+    else with :func:`dump_geo`."""
+    writer = native_writer()
+    if writer is not None:
+        writer.write_geo(
             path,
             np.ascontiguousarray(position, dtype=np.float32),
             np.ascontiguousarray(velocity, dtype=np.float32),

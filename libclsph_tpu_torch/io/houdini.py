@@ -37,14 +37,16 @@ class HoudiniFileSaver:
         self.frames_folder_prefix = frames_folder_prefix
         self.frame_count = 0
         self.use_partio = use_partio
-        if not use_partio and not geo_format.have_native():
+        if not use_partio and geo_format.native_writer() is None:
             import logging
 
             logging.getLogger(__name__).warning(
                 ".geo export using the pure-NumPy serializer — ~10x "
                 "slower and it gates the frame loop via the async "
-                "saver's join. Build the C extension: "
-                "python native/setup.py build_ext --inplace"
+                "saver's join. The native writer (native/geo_writer.cpp, "
+                "built by libclsph_tpu_torch.io.native into "
+                "build/libclsph_tpu_torch/native/) did not build; "
+                "geo_format.native_writer(required=True) shows why"
             )
 
     def write_frame_to_file(
