@@ -174,6 +174,10 @@ def config_from_args(args):
         # candidate reuse is a feature of the nl shape; rebuild every
         # substep on the others
         fields["cand_interval"] = 1
+    if args.density_sub16 and min(args.block_size, args.nl_query_rows) < 128:
+        # the 16-granular tables need whole-128 query rows; fall back
+        # quietly at smaller blocks, as bench.py:288-292 does
+        fields.update(density_sub16=False, force_sub8=False)
     try:
         return StepConfig(**fields)
     except ValueError as e:

@@ -29,7 +29,10 @@ non-zero):
 3. the CLI main path: ``sph-torch water default cube`` at 64,000
    particles for 3 frames with the native ``.geo`` writer (built in
    phase 1), checking the .geo frames, that no particle left the fluid's
-   column above the cube obstacle, and the densities;
+   column above the cube obstacle, and the densities; then the CLI round
+   trip through ``--import-legacy``: the run's last checkpoint, moved
+   0.3 m in x, written as a reference-format ``last_frame.bin``,
+   imported and run for one frame (its centroid must carry the move);
    3b. the same with ``--no-force-sub8`` (the 16-wide force path);
    3c. fidelity in free space (``experiments/torch_fidelity_64k.py``):
    65,536 particles settled 20 substeps, then the production path's
@@ -81,7 +84,27 @@ non-zero):
    script before the package is imported), checked as phase 3; the
    sort's kernels must launch; then one exact substep from the run's last
    state with its peak device memory, against a main-path substep from
-   the same state at phase 7's tolerances.
+   the same state at phase 7's tolerances;
+9. the shapes: ``bench_torch``'s functions at 1M, one warm-up and one
+   timed window of 20 substeps each, for ``--nl-query-rows 64``,
+   ``--nl-query-rows 32``, ``--block-size 64``, ``--block-size 256``
+   (on the q-granular tables, ``--no-density-sub16 --no-force-sub16
+   --no-force-sub8``: the 16-granular ones need 128-row query blocks, and
+   at 1M the 16-wide hit lists of 256-particle blocks overflow into the
+   engine's downgrade to them), ``--pallas-variant asm --nl-query-rows
+   32``, ``refine_mode="aabb"``, ``--block-size 64 --pallas-variant row``
+   and ``--nl-query-rows 32 --no-hit-compact``: ``timed_flags`` 0, the
+   shape's kernels launched on every timed substep, ms/substep, and one
+   substep against the main path's substep from the same warm state
+   (density rtol 1e-5, acceleration atol 1e-4 * max|a|);
+10. the view: 3 frames of the 1M cube through ``SPHSimulation`` with
+    ``io/render.PointRenderer.view`` as ``device_view``; the hook must
+    receive CUDA tensors, and each image must equal the CPU render of the
+    same state on at least 99.9 % of its pixels; the render ms a frame;
+11. the emitter (``experiments/torch_emitter_run.py``, the round-5
+    matrix's row 9): 262,144 particles from ``shower.obj``'s tray onto
+    ``monkey.obj`` for 5 frames; every frame after the first must
+    recycle particles.
 
 Phase 2 also holds, at the 1M lattice, ``density_blocks`` and
 ``forces_blocks`` of the three block variants on the block search's
@@ -91,15 +114,22 @@ table expanded to 32-wide subblocks, ``density_c32`` at 1 group and
 against ``torch.sort(stable=True)`` and its plain version on the Morton
 codes of the 1M and 4M cube lattices and on as many uniform random keys,
 timed in turns beside ``torch.sort`` with each kernel's device time.
+At the 64k and 1M lattices it also holds the finer query blocks' modes
+on the port's own tables at those shapes: ``density_c32`` with block
+counts and ``forces_q128_c32`` on 64- and 32-row lists (nl and asm),
+``density_c32`` densities only on the full 32-row lists, and the row
+variant's passes at ``block_size`` 64.
 The block variants' plain versions are timed
 over 2 repetitions after a warm-up (about a second each at 1M), the rest
 over 7.
 
 Each path (main: phases 3, 3c and 4; 16-wide: 3b-4b; deep columns: 5-6; row,
-fine, asym and asm: 7; exact: 8) runs with the launch counts set to 0
-just before it and read just after; each record counts the launches of
-the paths it belongs to. The line before last holds the per-kernel JSON
-record, the last line ``{"ok": true, "device": {...}}``. Needs one CUDA
+fine, asym and asm: 7; exact: 8; each shape of phase 9) runs with the
+launch counts set to 0 just before it and read just after; each record
+counts the launches of the paths it belongs to. Every phase prints its
+wall time, and one line before the card's holds them all and the total.
+The line before last holds the per-kernel JSON record, the last line
+``{"ok": true, "device": {...}}``. Needs one CUDA
 device; refuses to run without one. ``--profile DIR`` keeps phase 4's
 profiler traces and full tables in DIR (``rebuild/`` and ``reuse/``).
 """
@@ -128,6 +158,9 @@ RIVER_FRAMES = 3
 N_FIDELITY = 65_536
 PROFILE_TOP = 15  # entries of the profiler breakdown by device time
 Q_PATH = dict(density_sub16=False, force_sub16=False, force_sub8=False)
+# the finer query blocks' tables: 32-wide, rebuilt every substep (no
+# reuse below whole-block query rows)
+Q_PATH_ROWS = dict(Q_PATH, cand_interval=1)
 # the 16-wide force path, with the hit capacity set as bench.py's
 # --max-candidates-hit16 can (a shortfall would downgrade to Q_PATH)
 SUB16 = dict(force_sub8=False, max_candidates_hit16=128)
@@ -167,6 +200,28 @@ KERNELS = {
                                    CSRC + "density_c32.cu", NL + ":2048", ("asm",)),
     "forces_q128_c32 (asm)": ("forces_q128_c32", None, CSRC + "forces_c32.cu",
                               NL + ":2079", ("asm",)),
+    # finer query blocks (phase 9): the 32-wide kernels on lists that
+    # serve 64 or 32 query rows
+    "density_c32 groups 1, rows 64": ("density_c32", "groups 1, rows 64",
+                                      CSRC + "density_c32.cu", NL + ":394", ("q64", "b64")),
+    "density_c32 groups 1, rows 32": ("density_c32", "groups 1, rows 32",
+                                      CSRC + "density_c32.cu", NL + ":394", ("q32",)),
+    "density_c32 densities only, rows 32": ("density_c32", "densities only, rows 32",
+                                            CSRC + "density_c32.cu", NL + ":394",
+                                            ("q32-full",)),
+    "forces_q128_c32 rows 64": ("forces_q128_c32", "rows 64", CSRC + "forces_c32.cu",
+                                NL + ":730", ("q64", "b64")),
+    "forces_q128_c32 rows 32": ("forces_q128_c32", "rows 32", CSRC + "forces_c32.cu",
+                                NL + ":730", ("q32", "q32-full")),
+    "density_c32 groups 1, rows 32 (asm)": ("density_c32", "groups 1, rows 32",
+                                            CSRC + "density_c32.cu", NL + ":2048",
+                                            ("asm32",)),
+    "forces_q128_c32 rows 32 (asm)": ("forces_q128_c32", "rows 32", CSRC + "forces_c32.cu",
+                                      NL + ":2079", ("asm32",)),
+    "density_blocks row, block 64": ("density_c32", "densities only, rows 64",
+                                     CSRC + "density_c32.cu", ROW + ":319", ("b64-row",)),
+    "forces_blocks row, block 64": ("forces_q128_c32", "rows 64", CSRC + "forces_c32.cu",
+                                    ROW + ":821", ("b64-row",)),
     # whole candidate blocks, expanded to 32-wide subblocks
     # (ops/kernels/blocks.py): the 32-wide kernels on the variant's path
     "density_blocks row": ("density_c32", "densities only", CSRC + "density_c32.cu",
@@ -210,6 +265,8 @@ SORT_KEYS = (N_BENCH, 4_000_000)  # keys of the timed sorts (phase 2)
 BLOCK_PLAIN_REPS = 2
 FEW_STEPS = 8  # timed substeps of the fine and asym variants (phase 7)
 N_EXACT = 64_000
+VIEW_FRAMES = 3  # frames of the rendered 1M cube (phase 10)
+EMITTER_FRAMES = 5  # frames of the 256k emitter (phase 11)
 
 
 def log(msg: str) -> None:
@@ -304,7 +361,8 @@ def grown_tables(state, params, engine, plain_density, lists, fixed=None):
     from libclsph_tpu_torch.engine import step
     from libclsph_tpu_torch.ops.kernels import density
 
-    st, real, _ = step.pad_and_sort(state, params, True)
+    st, real, _ = step.pad_and_sort(state, params, True,
+                                    block_size=engine.step_config.block_size)
     for _ in range(6):
         cfg = engine.step_config
         if fixed is not None and not fixed(cfg):
@@ -832,6 +890,159 @@ def compare_asm(tag, t, stats):
                         lambda: forces.forces_q128_c32_torch(*fargs),
                         force_work(fargs, 128, t["pairs_in"]))
     log(line)
+
+
+def pair_count(pos4, cand, count, params, rows) -> int:
+    """Pairs with r^2 < h^2 between each list's ``rows`` queries and its
+    live candidates (32-particle subblocks): the work the bound counts.
+    Chunked over lists."""
+    import torch
+
+    h2 = float(params.h) ** 2
+    nq, cap = cand.shape
+    lane = torch.arange(32, device=pos4.device)
+    qlane = torch.arange(rows, device=pos4.device)
+    step_rows = max(1, (1 << 24) // (rows * cap * 32))
+    total = 0
+    for b0 in range(0, nq, step_rows):
+        b1 = min(nq, b0 + step_rows)
+        live = torch.arange(cap, device=pos4.device)[None, :] < count[b0:b1, None]
+        ids = (torch.where(live, cand[b0:b1], 0).long()[..., None] * 32 + lane)
+        c = pos4[ids][:, None, :, :, :3]  # (r, 1, cap, 32, 3)
+        q = pos4[(torch.arange(b0, b1, device=pos4.device)[:, None] * rows + qlane)][
+            :, :, None, None, :3]
+        d = q - c
+        r2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+        total += int(((r2 < h2) & live[:, None, :, None]).sum())
+    return total
+
+
+def rows_tables(state, params, engine, compact=True):
+    """The finer query blocks' inputs for ``state`` at
+    ``engine.step_config`` (q_rows 64 or 32; the asm variant too): the
+    32-wide refined table of lists that serve q_rows queries, the plain
+    density with block counts (``compact``) or densities only, the
+    compacted force lists (or the full refined lists), the pairs inside
+    the support and the force pack."""
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.ops.kernels import density
+
+    rows = engine.step_config.q_rows
+    groups = 1 if compact else 0
+
+    def plain(*args):
+        return density.density_c32_torch(*args, groups=groups, rows=rows)
+
+    def lists(cand, out, cfg):
+        return step.hit_lists(cand, out[1], cfg, 1) if compact else (None, None, 0)
+
+    st, real, args, (dens, hits), made = grown_tables(
+        state, params, engine, plain, lists, fixed=lambda cfg: cfg.q_rows == rows)
+    cand_f, count_f = made if compact else args[1:3]
+    return dict(rows=rows, groups=groups, density_args=args, dens=dens, hits=hits,
+                pairs_in=pair_count(*args[:3], params, rows),
+                force_args=(force_pack_of(st, real, dens, params), dens, real,
+                            cand_f.contiguous(), count_f.contiguous(), params))
+
+
+def compare_rows(tag, t, stats, drec, frec, time_it=True):
+    """``density_c32`` and ``forces_q128_c32`` at the table's rows against
+    their plain versions; times and bounds under ``drec`` and ``frec``
+    (None: checked, not timed)."""
+    from libclsph_tpu_torch.ops.kernels import density, forces
+
+    rows, groups = t["rows"], t["groups"]
+    args, fargs = t["density_args"], t["force_args"]
+    d, hits = density.density_c32(*args, groups=groups, rows=rows)
+    drel = check_density(tag, drec, d, hits, t["dens"], t["hits"], stats)
+    line = (f"phase 2 {tag} ({rows}-row lists, {args[1].shape[0]} of them, "
+            f"{int(args[2].sum())} live slots): {drec} rel err {drel:.3g}, hits equal;")
+    if frec is not None:
+        a = forces.forces_q128_c32(*fargs, rows=rows)
+        aerr = check_accel(tag, frec, a, forces.forces_q128_c32_torch(*fargs, rows=rows),
+                           stats)
+        line += f" {frec} accel err {aerr:.3g};"
+    if time_it:
+        line += time_kernel(stats, drec, tag,
+                            lambda: density.density_c32(*args, groups=groups, rows=rows),
+                            lambda: density.density_c32_torch(*args, groups=groups,
+                                                              rows=rows),
+                            density_work(args, (d, hits), t["pairs_in"]))
+        if frec is not None:
+            line += time_kernel(stats, frec, tag,
+                                lambda: forces.forces_q128_c32(*fargs, rows=rows),
+                                lambda: forces.forces_q128_c32_torch(*fargs, rows=rows),
+                                force_work(fargs, rows, t["pairs_in"]))
+    log(line)
+
+
+def compare_block64(tag, state, params, engine, stats):
+    """``density_blocks`` and ``forces_blocks`` of the row variant at
+    block_size 64 (64-row lists over the expanded block table) against
+    their plain versions, timed."""
+    import torch
+
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.ops import tiles
+    from libclsph_tpu_torch.ops.kernels import blocks, density
+
+    b = engine.step_config.block_size
+    st, real, _ = step.pad_and_sort(state, params, True, block_size=b)
+    nb = st.n // b
+    bmin, bmax = tiles.split_block_bounds(st.position.reshape(nb, b, 3), real.reshape(nb, b))
+    for _ in range(6):
+        cand, count, ovf = tiles.candidate_blocks_auto(bmin, bmax, params.h,
+                                                       engine.step_config.max_candidates)
+        if not engine._needs_rerun(ovf.to(torch.int32) * step.FLAG_CAPACITY):
+            break
+    else:
+        raise RuntimeError("block capacity growth did not converge")
+    pos4 = density.pos_pack(st.position, real)
+    dargs = (pos4, cand, count, params)
+    dens = blocks.density_blocks_torch(*dargs, block=b)
+    fargs = (force_pack_of(st, real, dens, params), dens, real, cand, count, params)
+    none = torch.zeros(0, dtype=torch.int32, device=pos4.device)
+    d = blocks.density_blocks(*dargs, block=b)
+    drel = check_density(tag, "density_blocks row, block 64", d, none, dens, none, stats)
+    a = blocks.forces_blocks(*fargs, block=b)
+    aerr = check_accel(tag, "forces_blocks row, block 64", a,
+                       blocks.forces_blocks_torch(*fargs, block=b), stats)
+    ids, counts = blocks.expand_block_table(cand, count, b)
+    pairs = pair_count(pos4, ids, counts, params, b)
+    line = (f"phase 2 {tag} (block_size {b} block table: {nb} blocks, "
+            f"{int(count.sum())} live candidate blocks): density rel err {drel:.3g}, "
+            f"accel err {aerr:.3g};")
+    line += time_kernel(stats, "density_blocks row, block 64", tag,
+                        lambda: blocks.density_blocks(*dargs, block=b),
+                        lambda: blocks.density_blocks_torch(*dargs, block=b),
+                        density_work((pos4, ids, counts), (dens,), pairs),
+                        plain_reps=BLOCK_PLAIN_REPS)
+    line += time_kernel(stats, "forces_blocks row, block 64", tag,
+                        lambda: blocks.forces_blocks(*fargs, block=b),
+                        lambda: blocks.forces_blocks_torch(*fargs, block=b),
+                        force_work(fargs[:3] + (ids, counts), b, pairs),
+                        plain_reps=BLOCK_PLAIN_REPS)
+    log(line)
+
+
+def compare_all_rows(tag, state, params, engine_for, stats):
+    """Phase 2's finer-query-block checks on one state: nl at 64 and 32
+    rows (block counts and compacted lists), nl at 32 rows without hit
+    compaction (densities only, full lists), asm at 32 rows, and the row
+    variant at block_size 64."""
+    cell = tag.split()[0]
+    for rows in (64, 32):
+        eng = engine_for(cell, dict(Q_PATH_ROWS, nl_query_rows=rows))
+        compare_rows(tag, rows_tables(state, params, eng), stats,
+                     f"density_c32 groups 1, rows {rows}", f"forces_q128_c32 rows {rows}")
+    full = engine_for(cell, dict(Q_PATH_ROWS, nl_query_rows=32, hit_compact=False))
+    compare_rows(tag, rows_tables(state, params, full, compact=False), stats,
+                 "density_c32 densities only, rows 32", None)
+    asm = engine_for(cell, dict(Q_PATH_ROWS, pallas_variant="asm", nl_query_rows=32))
+    compare_rows(tag, rows_tables(state, params, asm), stats,
+                 "density_c32 groups 1, rows 32 (asm)", "forces_q128_c32 rows 32 (asm)")
+    compare_block64(tag, state, params, engine_for(cell, dict(
+        pallas_variant="row", block_size=64, cand_interval=1)), stats)
 
 
 def sort_device_us(keys, vals, sorts=5) -> dict:
@@ -1444,6 +1655,204 @@ def phase8_exact(tmp, dev, card, paths):
         f"main path {compare_states('phase 8 exact vs main', s_exact, s_main)}; card {card}")
 
 
+# phase 9: (path, bench_torch flags, StepConfig fields set after them,
+# the records that must launch on every timed substep)
+SHAPES = (
+    ("q64", ("--nl-query-rows", "64"), {},
+     ("density_c32 groups 1, rows 64", "forces_q128_c32 rows 64")),
+    ("q32", ("--nl-query-rows", "32"), {},
+     ("density_c32 groups 1, rows 32", "forces_q128_c32 rows 32")),
+    ("b64", ("--block-size", "64"), {},
+     ("density_c32 groups 1, rows 64", "forces_q128_c32 rows 64")),
+    ("b256", ("--block-size", "256", "--no-density-sub16", "--no-force-sub16",
+              "--no-force-sub8"), {}, ("density_c32", "forces_q32_c32")),
+    ("asm32", ("--pallas-variant", "asm", "--nl-query-rows", "32"), {},
+     ("density_c32 groups 1, rows 32 (asm)", "forces_q128_c32 rows 32 (asm)")),
+    ("aabb", (), {"refine_mode": "aabb"}, ("density_c16", "forces_q32_c8")),
+    ("b64-row", ("--block-size", "64", "--pallas-variant", "row"), {},
+     ("density_blocks row, block 64", "forces_blocks row, block 64")),
+    ("q32-full", ("--nl-query-rows", "32", "--no-hit-compact"), {},
+     ("density_c32 densities only, rows 32", "forces_q128_c32 rows 32")),
+)
+
+
+def phase9_shapes(state, params, scene, dev, card, ms_main, paths, steps=TIMED_STEPS):
+    """Each of SHAPES at 1M through bench_torch's functions: its config
+    from bench_torch's flags (and clamps), the warm-up with capacity
+    growth and the window rehearsed, one timed window that must raise no
+    flag and launch the shape's kernels on every substep, then one
+    substep against the main path's substep from the same warm state
+    (compare_states: the same order, density rtol 1e-5, acceleration
+    atol 1e-4 * max|a|)."""
+    import dataclasses
+
+    import torch
+
+    import bench_torch
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.engine.simulation import SPHSimulation
+
+    main = SPHSimulation(step.StepConfig(), device=dev, pretune=False)
+    for name, flags, fields, recs in SHAPES:
+        t0 = time.perf_counter()
+        cfg = bench_torch.config_from_args(bench_torch.build_arg_parser().parse_args(
+            list(flags)))
+        cfg = dataclasses.replace(cfg, **fields)
+        reset_launches()
+        eng = SPHSimulation(cfg, device=dev, pretune=False)
+        st, dt = warm_up(state, params, scene, eng, WARMUP_STEPS, window=steps)
+        _, _, ms, got = timed_window(f"phase 9 {name}", st, dt, params, scene, eng, steps,
+                                     read_launches)
+        if min(got[r] for r in recs) < steps:
+            raise RuntimeError(f"phase 9 {name}: {recs} launched {got}")
+        paths[name] = read_launches()
+        saved = save_launches()
+        s_shape, ms_one = one_substep(st, params, scene, eng)
+        s_main, _ = one_substep(st, params, scene, main)
+        restore_launches(saved)
+        cmp = compare_states(f"phase 9 {name} vs main", s_shape, s_main)
+        del st, s_shape, s_main
+        torch.cuda.empty_cache()
+        how = " ".join(list(flags) + [f"{k}={v}" for k, v in fields.items()])
+        log(f"phase 9 {name} ({how}): {N_BENCH} particles, "
+            f"{steps} substeps, {ms:.3f} ms/substep ({ms / ms_main:.3f}x the main path's "
+            f"{ms_main:.3f}), timed_flags 0, launches {json.dumps({r: got[r] for r in recs})}; "
+            f"one substep {ms_one:.3f} ms, vs the main path's substep from the same state: "
+            f"{cmp}; config {eng.step_config}; {time.perf_counter() - t0:.2f} s; card {card}")
+
+
+def phase10_view(dev, card, frames):
+    """The 1M cube through SPHSimulation for ``frames`` frames with
+    PointRenderer.view as device_view, behind a thin wrapper that checks
+    that the hook receives CUDA tensors. PointRenderer.on_image compares
+    each image with the CPU render of the same state (a second
+    PointRenderer with the same camera, on host copies): they must agree
+    on at least 99.9 % of the pixels. Prints the render ms of each frame
+    (host clock from the call of view to its image's arrival in
+    on_image, the one copy to the host included)."""
+    import numpy as np
+    import torch
+
+    from libclsph_tpu_torch.core.params import derive_parameters
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.engine.simulation import SPHSimulation
+    from libclsph_tpu_torch.io.render import PointRenderer
+
+    fluid = json.load(open(os.path.join(ROOT, "fluid_properties", "water.json")))
+    simp = json.load(open(os.path.join(ROOT, "simulation_properties", "bench64k.json")))
+    sim = SPHSimulation(step.StepConfig(), device=dev)
+    sim.parameters = derive_parameters(fluid, dict(
+        simp, particles_count=N_BENCH, simulation_time=frames / simp["target_fps"]))
+    sim.precomputed_terms = sim.parameters.precomputed()
+    sim.initial_volume = sim.parameters.initial_volume
+    sim.checkpoint_path = os.path.join(tempfile.gettempdir(), "chip_smoke_no_checkpoint.npz")
+    sim.load_scene("cube.obj", scenes_dir=os.path.join(ROOT, "scenes"))
+    gpu, cpu = PointRenderer(), PointRenderer()
+    seen, now = [], {}
+
+    def on_image(img):
+        ms = 1000.0 * (time.perf_counter() - now["t0"])
+        state = now["state"]
+        ref = cpu.render(state.position.cpu(), state.density.cpu())
+        same = float((img == ref).all(axis=-1).mean())
+        lit = int((img != np.array([18, 18, 24], np.uint8)).any(axis=-1).sum())
+        seen.append(dict(render_ms=ms, equal_share=same, lit_pixels=lit))
+
+    def view(state, params, is_full_frame):
+        if not (state.position.is_cuda and state.density.is_cuda):
+            raise RuntimeError("phase 10: device_view received host tensors")
+        torch.cuda.synchronize()
+        now.update(state=state, t0=time.perf_counter())
+        gpu.view(state, params, is_full_frame)
+
+    gpu.on_image = on_image
+    sim.device_view = view
+    t0 = time.perf_counter()
+    sim.simulate()
+    wall = time.perf_counter() - t0
+    if len(seen) != frames + 1:
+        raise RuntimeError(f"phase 10: the hook ran {len(seen)} times for {frames} frames")
+    bad = [v for v in seen if v["equal_share"] < 0.999 or v["lit_pixels"] == 0]
+    if bad:
+        raise RuntimeError(f"phase 10: images differ from the CPU render: {bad}")
+    log(f"phase 10 view: {N_BENCH} particles, {frames} frames in {wall:.2f} s with "
+        f"PointRenderer.view (900 x 700) as device_view on CUDA tensors; per call "
+        f"{json.dumps(seen)}; config {sim.step_config}; card {card}")
+
+
+def phase11_emitter(dev, card, frames):
+    """experiments/torch_emitter_run.py (the round-5 emitter row) at
+    262,144 particles for ``frames`` frames: every frame after the first
+    must recycle particles."""
+    import torch_emitter_run as em
+
+    out = em.run(n=em.N, frames=frames, device=str(dev))
+    rec = out["recycled_per_frame"]
+    if out["frames"] != frames or not all(r > 0 for r in rec[1:]):
+        raise RuntimeError(f"phase 11: recycled per frame {rec} over {out['frames']} frames")
+    log(f"phase 11 emitter: {json.dumps(out)}; card {card}")
+
+
+def phase3_legacy(tmp, arrays, shift=0.3):
+    """The CLI round trip through ``--import-legacy``: phase 3's final
+    checkpoint, moved by ``shift`` in x, written as a reference-format
+    last_frame.bin, imported by ``sph-torch ... --import-legacy`` and run
+    for one frame; the run must start from the imported state (its
+    centroid moved by ``shift``, not the lattice's) and stay finite."""
+    import numpy as np
+
+    from libclsph_tpu_torch import cli
+    from libclsph_tpu_torch.io import legacy
+
+    moved = dict(arrays)
+    moved["position"] = arrays["position"] + np.float32([shift, 0.0, 0.0])
+    src = os.path.join(tmp, "import", "last_frame.bin")
+    os.makedirs(os.path.dirname(src))
+    legacy.write_legacy_checkpoint(src, moved)
+    root = os.path.join(tmp, "root")
+    sim_file = os.path.join(root, "simulation_properties", "default.json")
+    sim = json.load(open(sim_file))
+    sim["simulation_time"] = 1 / sim["target_fps"]
+    json.dump(sim, open(sim_file, "w"))
+    work = os.path.join(tmp, "import")
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(["water", "default", "cube", os.path.join(work, "out_"), "--root", root,
+                       "--import-legacy", src])
+        seconds = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    if rc != 0:
+        raise RuntimeError(f"phase 3 --import-legacy: sph-torch exited {rc}")
+    with np.load(os.path.join(work, "last_frame.npz")) as z:
+        pos = z["position"]
+    dx = float(pos[:, 0].mean() - arrays["position"][:, 0].mean())
+    if not (np.isfinite(pos).all() and abs(dx - shift) < 0.02):
+        raise RuntimeError(f"phase 3 --import-legacy: centroid moved {dx} in x, not {shift}")
+    log(f"phase 3 --import-legacy: {pos.shape[0]} particles imported from a "
+        f"{os.path.getsize(src)}-byte last_frame.bin and run 1 frame in {seconds:.2f} s; "
+        f"centroid x {dx:+.4f} from phase 3's checkpoint (moved {shift:+.1f})")
+
+
+class Walls:
+    """Wall time of each phase (host clock) and the total."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.walls = {}
+
+    def mark(self, phase: str) -> None:
+        now = time.perf_counter()
+        self.walls[phase] = now - self.last
+        self.last = now
+        log(f"phase {phase} wall {self.walls[phase]:.2f} s")
+
+    def total(self) -> float:
+        return time.perf_counter() - self.start
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -1470,6 +1879,7 @@ def main(argv=None) -> int:
     from libclsph_tpu_torch.ops.kernels import build
 
     dev = configure_device("cuda")
+    walls = Walls()
     # phase 0
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -1491,6 +1901,7 @@ def main(argv=None) -> int:
     geo_format.native_writer(required=True)
     log(f"phase 1 native .geo writer: {'compiled' if fresh else 'found'} "
         f"{os.path.relpath(native.library_path(), ROOT)} in {time.perf_counter() - t0:.2f} s")
+    walls.mark("0-1")
 
     # phase 2
     stats = {name: {} for name in KERNELS}
@@ -1502,7 +1913,7 @@ def main(argv=None) -> int:
             engines[key] = SPHSimulation(step.StepConfig(**over), device=dev, pretune=False)
         return engines[key]
 
-    def compare_all(tag, state, p, scene, time_it, qblock=False):
+    def compare_all(tag, state, p, scene, time_it, qblock=False, rows=False):
         cell = tag.split()[0]
         t_main = main_path_tables(state, p, engine_for(cell, {}))
         compare_kernels(tag, t_main, stats, time_it)
@@ -1514,17 +1925,19 @@ def main(argv=None) -> int:
         compare_gated(tag, state, p, scene, engine_for(cell, SUB16), stats, time_it)
         if qblock:
             compare_qblock(tag, t_main, t_q, t16, t32, stats)
+        if rows:
+            compare_all_rows(tag, state, p, engine_for, stats)
 
     p64 = water_params(65536)
     scene64 = cube_scene(p64, dev)
     s64 = init_state(p64, dev)
-    compare_all("64k lattice", s64, p64, scene64, True)
+    compare_all("64k lattice", s64, p64, scene64, True, rows=True)
     s64, _ = warm_up(s64, p64, scene64, engine_for("64k", {}), 10)
     compare_all("64k after 10 substeps", s64, p64, scene64, True)
     p1m = water_params(N_BENCH)
     scene1m = cube_scene(p1m, dev)
     s1m = init_state(p1m, dev)
-    compare_all(BENCH_TAG, s1m, p1m, scene1m, True, qblock=True)
+    compare_all(BENCH_TAG, s1m, p1m, scene1m, True, qblock=True, rows=True)
     compare_blocks(BENCH_TAG, block_tables(s1m, p1m, engine_for(
         "1M", dict(pallas_variant="row", cand_interval=1))), stats)
     compare_asm(BENCH_TAG, asm_tables(s1m, p1m, engine_for("1M", dict(
@@ -1533,12 +1946,14 @@ def main(argv=None) -> int:
     compare_radix(BENCH_TAG, stats, dev)
     del s64
     torch.cuda.empty_cache()
+    walls.mark("2")
 
     # phases 3, 3c and 4 drive the main path; count the kernels' launches
     # there
     reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
-        phase3_cli(tmp)
+        _, ck = phase3_cli(tmp)
+        phase3_legacy(tmp, ck)
     cli_launches = read_launches()
     if min(cli_launches["density_c16"], cli_launches["forces_q32_c8"]) <= 0:
         raise RuntimeError(f"CLI run launched the main kernels {cli_launches}")
@@ -1565,6 +1980,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase4_profile(args.profile or tmp, st, dt, p1m, scene1m, engine.step_config)
     paths = {"main": read_launches()}
+    walls.mark("3-4")
 
     # phases 3b and 4b drive the 16-wide force path and the gated density
     reset_launches()
@@ -1575,6 +1991,7 @@ def main(argv=None) -> int:
         raise RuntimeError(f"the --no-force-sub8 CLI run launched {got}")
     phase4b_sub16(s1m, p1m, scene1m, engine_with(engine, step.StepConfig(**SUB16)), card)
     paths["16-wide"] = read_launches()
+    walls.mark("3b-4b")
 
     # phases 5 and 6 drive the deep-column path: two-tier routing and the
     # q-granular tables
@@ -1585,15 +2002,29 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase6_river(tmp, dev, args.river_frames)
     paths["deep"] = read_launches()
+    walls.mark("5-6")
 
     # phase 7 drives the row, fine, asym and asm paths, phase 8 the exact
     # impl; each path's counts are reset before it and read after it
     s1m = init_state(p1m, dev)
     phase7_blocks(s1m, p1m, scene1m, dev, card, ms_main, paths)
-    del s1m
-    torch.cuda.empty_cache()
+    walls.mark("7")
     with tempfile.TemporaryDirectory() as tmp:
         phase8_exact(tmp, dev, card, paths)
+    walls.mark("8")
+
+    # phase 9 drives the finer query blocks, the other block sizes and the
+    # aabb refine, each shape a path of its own; phases 10 and 11 the
+    # renderer and the emitter on the main path
+    phase9_shapes(s1m, p1m, scene1m, dev, card, ms_main, paths)
+    del s1m
+    torch.cuda.empty_cache()
+    walls.mark("9")
+    phase10_view(dev, card, VIEW_FRAMES)
+    torch.cuda.empty_cache()
+    walls.mark("10")
+    phase11_emitter(dev, card, EMITTER_FRAMES)
+    walls.mark("11")
 
     launches = {rec: sum(paths[path][rec] for path in spec[4])
                 for rec, spec in KERNELS.items()}
@@ -1606,7 +2037,14 @@ def main(argv=None) -> int:
                 "fine": ("density_blocks fine", "forces_blocks fine"),
                 "asym": ("density_blocks asym", "forces_blocks asym"),
                 "asm": ("density_c32 groups 1 (asm)", "forces_q128_c32 (asm)"),
-                "exact": ("radix_sort",)}
+                "exact": ("radix_sort",),
+                "q64": ("density_c32 groups 1, rows 64", "forces_q128_c32 rows 64"),
+                "q32": ("density_c32 groups 1, rows 32", "forces_q128_c32 rows 32"),
+                "b64": ("density_c32 groups 1, rows 64", "forces_q128_c32 rows 64"),
+                "asm32": ("density_c32 groups 1, rows 32 (asm)",
+                          "forces_q128_c32 rows 32 (asm)"),
+                "b64-row": ("density_blocks row, block 64", "forces_blocks row, block 64"),
+                "q32-full": ("density_c32 densities only, rows 32", "forces_q128_c32 rows 32")}
     for path, recs in required.items():
         missing = [rec for rec in recs if paths[path][rec] <= 0]
         if missing:
@@ -1621,6 +2059,8 @@ def main(argv=None) -> int:
                            launches=launches[rec], max_abs_err=stats[rec]["max_abs_err"],
                            ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by,
                            library_ms=stats[rec].get("library_ms")))
+    log(f"phase walls {json.dumps({k: round(v, 2) for k, v in walls.walls.items()})}; "
+        f"total {walls.total():.2f} s")
     print(card)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,12 @@ bits) and against its plain PyTorch version (chip_smoke's tolerances).
 ``forces_q128_c32`` runs on the q128 lists, asm's lists and the block
 table; the fine case runs the package's route (``forces_q128_c32`` over
 the block table) against the base build's ``forces_q32_c32`` over the
-table repeated per subgroup. Then each case is timed in turns (base,
+table repeated per subgroup. The finer query blocks' modes (64- and
+32-row lists of the nl and asm tables at ``nl_query_rows`` 64 and 32)
+have no counterpart in earlier builds: their densities run on the
+package (and variants) only, and their forces against the base build's
+``forces_q32_c32`` over each list repeated for its 32-row subgroups,
+which gives the same bits. Then each case is timed in turns (base,
 package, variants, variants, package, base): CUDA events (median of 7
 calls; the window also holds the wrapper's host work) and the kernel's
 device time from torch.profiler (mean of 5 calls); ``density_gated16``
@@ -71,6 +76,11 @@ AB_BUILD = ROOT / "build" / "kernel_ab"
 PROFILE_CALLS = 5
 ROW_SUBSTEPS = 20  # substeps a timed window of row_substeps
 ROW_ROUNDS = 3  # rounds of (base, package, variants, variants, package, base)
+# cases with no base-build counterpart, timed on the package and variants only
+PACKAGE_ONLY = set()
+# the profiler's name of forces_q128_c32's kernel in every build
+# (forces_q128_c32_kernel before the rows template, forces_rows_c32_kernel<128>)
+Q128_KEY = "c32_kernel"
 
 
 def device_ms(fn, kernel: str) -> float:
@@ -133,6 +143,12 @@ def cases_1m(dev, libs):
     tb = cs.block_tables(state, params, engine(pallas_variant="row", cand_interval=1))
     ta = cs.asm_tables(state, params, engine(pallas_variant="asm", cand_interval=1,
                                              **cs.Q_PATH))
+    trows = {rows: cs.rows_tables(state, params, engine(**cs.Q_PATH_ROWS, nl_query_rows=rows))
+             for rows in (64, 32)}
+    tasm32 = cs.rows_tables(state, params, engine(**cs.Q_PATH_ROWS, pallas_variant="asm",
+                                                  nl_query_rows=32))
+    tfull = cs.rows_tables(state, params, engine(**cs.Q_PATH_ROWS, nl_query_rows=32,
+                                                 hit_compact=False), compact=False)
     del state
     torch.cuda.empty_cache()
     hit2_h = params.h * 1.25
@@ -192,6 +208,32 @@ def cases_1m(dev, libs):
             return out
         return info
 
+    def rows_density(t):
+        args, rows, groups = t["density_args"], t["rows"], t["groups"]
+
+        def call():
+            return density.density_c32(*args, groups=groups, rows=rows)
+
+        def plain():
+            return density.density_c32_torch(*args, groups=groups, rows=rows)
+        return call, plain, cs.density_work(args, plain(), t["pairs_in"])
+
+    def rows_force(t):
+        """forces_q128_c32 at the table's rows; the base build's route,
+        forces_q32_c32 over each list repeated for its 32-row subgroups
+        (the same bits)."""
+        fa, rows = t["force_args"], t["rows"]
+        rep_ = rows // 32
+        q32 = fa[:3] + (fa[3].repeat_interleave(rep_, dim=0).contiguous(),
+                        fa[4].repeat_interleave(rep_).contiguous(), fa[5])
+
+        def call():
+            if build._library is libs["base"]:
+                return forces.forces_q32_c32(*q32)
+            return forces.forces_q128_c32(*fa, rows=rows)
+        return (call, lambda: forces.forces_q128_c32_torch(*fa, rows=rows),
+                cs.force_work(fa, rows, t["pairs_in"]), rows_info(fa))
+
     def dwork(args, **kw):
         outs = density.density_c16_torch(*args, **kw)
         return cs.density_work(args, outs, int(outs[1].sum()),
@@ -210,7 +252,24 @@ def cases_1m(dev, libs):
                  lanes_c8=lane_stats(fm, 8), lanes_c16=lane_stats(f16, 16),
                  lanes_c32=lane_stats(q32, 32))
     pairs_g = int(density.density_c16_torch(*dg[:3], params, hit_sub=16)[1].sum())
-    return stats, [
+    rows_cases = [
+        ("density_c32 groups 1, rows 64 (row 1f)", "density_", *rows_density(trows[64]),
+         "density"),
+        ("density_c32 groups 1, rows 32 (row 1g)", "density_", *rows_density(trows[32]),
+         "density"),
+        ("density_c32 densities only, rows 32, full lists (row 1h)", "density_",
+         *rows_density(tfull), "density"),
+        ("density_c32 groups 1, rows 32, asm tables (row 7a)", "density_",
+         *rows_density(tasm32), "density"),
+        ("forces_q128_c32 rows 64; base forces_q32_c32 over the lists repeated (row 5a)",
+         "forces_", *rows_force(trows[64])),
+        ("forces_q128_c32 rows 32; base forces_q32_c32 over the same lists (row 5b)",
+         "forces_", *rows_force(trows[32])),
+        ("forces_q128_c32 rows 32, asm tables; base forces_q32_c32 (row 7a)", "forces_",
+         *rows_force(tasm32)),
+    ]
+    PACKAGE_ONLY.update(c[0] for c in rows_cases if c[0].startswith("density"))
+    return stats, rows_cases + [
         ("density_c16 hit_sub 8 (row 1)", "density_", *dens(da), dwork(da), "density"),
         ("density_c16 hit_sub 16 (row 1a)", "density_", *dens(d16, hit_sub=16),
          dwork(d16, hit_sub=16), "density"),
@@ -231,12 +290,12 @@ def cases_1m(dev, libs):
          cs.force_work(f16, 32, pairs_16), rows_info(f16)),
         ("forces_q32_c32 (row 4)", "forces_q32_kernel", *force("forces_q32_c32", q32),
          cs.force_work(q32, 32, pairs_q), rows_info(q32)),
-        ("forces_q128_c32 (row 5)", "forces_q128_c32", *force("forces_q128_c32", q128),
+        ("forces_q128_c32 (row 5)", Q128_KEY, *force("forces_q128_c32", q128),
          cs.force_work(q128, 128, pairs_q), rows_info(q128)),
-        ("forces_q128_c32, asm tables (row 7)", "forces_q128_c32",
+        ("forces_q128_c32, asm tables (row 7)", Q128_KEY,
          *force("forces_q128_c32", fasm), cs.force_work(fasm, 128, ta["pairs_in"]),
          rows_info(fasm)),
-        ("forces_blocks row: forces_q128_c32, block table (row 8a)", "forces_q128_c32",
+        ("forces_blocks row: forces_q128_c32, block table (row 8a)", Q128_KEY,
          *force("forces_q128_c32", blk), cs.force_work(blk, 128, tb["pairs_in"]),
          rows_info(blk)),
         ("forces_blocks fine: forces_q128_c32, block table; base forces_q32_c32 over "
@@ -505,13 +564,14 @@ def main(argv=None) -> int:
     result["table_stats"] = stats
     print(f"table statistics: {json.dumps(stats)}", flush=True)
     for name, key, call, plain, work, kind, *beside in cases:
-        outs = {lib: run_with(lib, call) for lib in ["base"] + order}
+        first = [] if name in PACKAGE_ONLY else ["base"]
+        outs = {lib: run_with(lib, call) for lib in first + order}
         torch.cuda.synchronize()
         ref = plain()
         rec = dict(name=name, bound_ms=cs.bound(*work)[0], bound_by=cs.bound(*work)[1],
                    checks={})
         for lib in order:
-            vs_base = compare(kind, outs[lib], outs["base"], rows=4)
+            vs_base = compare(kind, outs[lib], outs["base"], rows=4) if first else None
             vs_plain = compare(kind, outs[lib], ref)
             ok = (vs_plain["density_rel"] <= 1e-5 and vs_plain["counts_equal"]
                   if kind == "density" else vs_plain["max_abs"] <= 1e-5 * vs_plain["amax"])
@@ -519,7 +579,7 @@ def main(argv=None) -> int:
                 raise RuntimeError(f"{name} {lib}: disagrees with the plain version {vs_plain}")
             rec["checks"][lib] = dict(vs_base=vs_base, vs_plain=vs_plain)
         del outs, ref
-        turns = ["base"] + order + order[::-1] + ["base"]
+        turns = first + order + order[::-1] + first
         # each turn times the case's call, then the call beside it if any
         calls = [(name, key, call)] + [b for b in beside if b]
         seq = [(lib, label, run_with(lib, lambda: cs.cuda_ms(fn)),
@@ -537,7 +597,7 @@ def main(argv=None) -> int:
             else:
                 rec.setdefault("beside", {})[label] = dict(ms=ms, device_ms=dev_ms)
                 line += f" beside, {label}:"
-            for lib in ["base"] + order:
+            for lib in first + order:
                 ev = ", ".join(f"{t:.4f}" for t, _ in times[lib])
                 dv = ", ".join(f"{d:.4f}" for _, d in times[lib])
                 line += f" {lib} {ms[lib]:.4f} ms ({ev}; device {dev_ms[lib]:.4f}: {dv})"

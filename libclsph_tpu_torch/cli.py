@@ -13,6 +13,8 @@ config asks for it) and times the run. Capacity, table and cadence
 defaults come from :class:`engine.step.StepConfig`; a combination the
 port does not run exits -1 with ``StepConfig``'s message. As in the JAX
 CLI, there is no flag for ``density_gate``: it is a ``StepConfig`` field.
+``--import-legacy LAST_FRAME_BIN`` converts a reference-format
+``last_frame.bin`` into the checkpoint the run then resumes from.
 Exit codes: 0 done, -1 bad configuration or scene, 1 refused checkpoint
 or failed run.
 """
@@ -26,7 +28,7 @@ import os
 import sys
 
 from .engine.simulation import SPHSimulation
-from .engine.step import IMPLS, VARIANTS, StepConfig
+from .engine.step import BLOCK_SIZES, IMPLS, QUERY_ROWS, VARIANTS, StepConfig
 from .io.houdini import HoudiniFileSaver
 
 _DEFAULTS = StepConfig()
@@ -55,6 +57,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="kernel family of the pallas impl: nl (default), asm "
                     "(needs --no-density-sub16), or row/fine/asym (whole "
                     "candidate blocks)")
+    ap.add_argument("--block-size", type=int, choices=list(BLOCK_SIZES),
+                    default=_DEFAULTS.block_size,
+                    help="particles per Morton block (64, 128 or 256)")
+    ap.add_argument("--nl-query-rows", type=int, choices=list(QUERY_ROWS),
+                    default=_DEFAULTS.nl_query_rows,
+                    help="query rows per candidate list of the nl and asm variants "
+                    "(finer query blocks below the block size; below 128 the "
+                    "16-granular tables are switched off)")
     ap.add_argument("--hit-compact", action=argparse.BooleanOptionalAction,
                     default=_DEFAULTS.hit_compact,
                     help="force pass over the true-hit lists (--no-hit-compact: "
@@ -102,6 +112,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="candidate-reuse refine dilation as a fraction of h")
     ap.add_argument("--confirm", action="store_true",
                     help="ask for confirmation before simulating (reference behaviour)")
+    ap.add_argument("--import-legacy", metavar="LAST_FRAME_BIN", default=None,
+                    help="resume from a reference-format last_frame.bin checkpoint")
     ap.add_argument("--root", default=".",
                     help="directory holding fluid_properties/ etc.")
     return ap
@@ -121,9 +133,13 @@ def main(argv=None) -> int:
     if ci > 1 and si % ci:
         print("--cand-interval must divide --sort-interval", file=sys.stderr)
         return -1
-    if values["neighbor_impl"] != "pallas" or values["pallas_variant"] != "nl":
-        values["cand_interval"] = 1  # reuse is a feature of the nl variant
-    if values["neighbor_impl"] != "pallas":
+    if (values["neighbor_impl"] != "pallas" or values["pallas_variant"] != "nl"
+            or values["nl_query_rows"] < values["block_size"]):
+        # reuse is a feature of the nl variant at whole-block query rows
+        values["cand_interval"] = 1
+    if (values["neighbor_impl"] != "pallas"
+            or min(values["block_size"], values["nl_query_rows"]) < 128):
+        # the 16-granular tables need the pallas nl shape at 128 query rows
         values["density_sub16"] = False
     if not values["density_sub16"]:
         values["force_sub8"] = False  # the 8-wide pass rides the 16-granular tables
@@ -187,6 +203,18 @@ Saving to folder:          {args.out_prefix}frames/"""
     except Exception as ex:
         print(f"Unable to load scene: {args.scene} ({ex})", file=sys.stderr)
         return -1
+
+    if args.import_legacy:
+        from .io.checkpoint import save_checkpoint
+        from .io.legacy import read_legacy_checkpoint
+
+        try:
+            arrays = read_legacy_checkpoint(args.import_legacy, p.particles_count)
+        except (OSError, ValueError) as ex:
+            print(ex, file=sys.stderr)
+            return 1
+        save_checkpoint(simulation.checkpoint_path, arrays, p)
+        print(f"Imported legacy checkpoint {args.import_legacy}")
 
     if args.confirm:
         print(

@@ -23,6 +23,9 @@
 //   G = 1: hits[b, k] = particles of slot k within h of some query of
 //          the block;
 //   G = 0: none (the densities of the block variants).
+// On finer query blocks (nl_query_rows 64 or 32, block_size 64, and the
+// asm variant at 32 rows) a list row serves R = 64 or 32 queries,
+// qb*R .. qb*R + R-1, and G is 1 or 0 (density_c32_rows_launch).
 //
 // What bounds it on an H100: instruction issue, as density_c16.cu sets
 // out: the pairs of the panels that pass the box test are computed at
@@ -71,6 +74,35 @@ extern "C" int density_c32_launch(const void* pos4, const void* cand,
     kernel = sph::density_rows_kernel<32, 32, Hits::kBlock>;
   } else if (groups == 0 && hit_sub == 32) {
     kernel = sph::density_rows_kernel<32, 32, Hits::kNone>;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return sph::launch_density_rows(kernel, pos4, cand, count, qblock, nq, cap, h2,
+                                  0.f, poly6, mass, fluid_density, density, hits,
+                                  nullptr, stream);
+}
+
+// Plain C entry point of the finer query blocks: ``rows`` (32 or 64, the
+// queries a list row serves, qb*rows .. qb*rows + rows-1) and ``groups``
+// (1: block counts, 0: densities only) pick the instantiation; otherwise
+// as density_c32_launch at hit_sub 32 (``hits`` (nq*groups, cap) int32
+// zeroed by the caller; cudaErrorInvalidValue for another pair).
+extern "C" int density_c32_rows_launch(const void* pos4, const void* cand,
+                                       const void* count, const void* qblock,
+                                       int nq, int cap, int groups, int rows,
+                                       float h2, float poly6, float mass,
+                                       float fluid_density, void* density,
+                                       void* hits, void* stream) {
+  using sph::Hits;
+  decltype(&sph::density_rows_kernel<32, 32, Hits::kBlock, false, 64>) kernel;
+  if (groups == 1 && rows == 64) {
+    kernel = sph::density_rows_kernel<32, 32, Hits::kBlock, false, 64>;
+  } else if (groups == 1 && rows == 32) {
+    kernel = sph::density_rows_kernel<32, 32, Hits::kBlock, false, 32>;
+  } else if (groups == 0 && rows == 64) {
+    kernel = sph::density_rows_kernel<32, 32, Hits::kNone, false, 64>;
+  } else if (groups == 0 && rows == 32) {
+    kernel = sph::density_rows_kernel<32, 32, Hits::kNone, false, 32>;
   } else {
     return (int)cudaErrorInvalidValue;
   }

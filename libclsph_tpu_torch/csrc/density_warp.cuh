@@ -7,12 +7,13 @@
 // whether a mask gates its tiles (kGate, density_gated16.cu).
 //
 // Computes, for list row b (query block qb = qblock[b], or b without a
-// map) and every query particle i = qb*128 + t:
+// map) and every query particle i = qb*R + t of the R = kRows rows a list
+// serves (128, or 64 and 32 on finer query blocks):
 //   rho_i = m * sum_j real_j * poly6 * max(h^2 - r_ij^2, 0)^3
 // over the particles j of the row's candidate subblocks cand[b, k]
 // (particles cand*kSub .. cand*kSub + kSub-1, k < count[b]), self
 // included; non-real queries get the rest density. rho_i is written at
-// row b*128 + t. With query subgroup g (rows g*32 .. g*32+31) it counts
+// row b*R + t. With query subgroup g (rows g*32 .. g*32+31) it counts
 //   Hits::kSubgroup: the pairs with r^2 < h^2 between subgroup g and run
 //     e of HIT_SUB particles of slot k, at hits[b*4 + g, k*kSub/HIT_SUB
 //     + e];
@@ -22,20 +23,24 @@
 //   Hits::kBlock: the particles of slot k within h of some query of the
 //     block, at hits[b, k] (HIT_SUB = kSub);
 //   Hits::kNone: nothing (densities only; hits and tiles are not read).
+// The subgroup modes and the gate need R = 128; the block mode and kNone
+// run at every R.
 // With kGate (kSub 16, HIT_SUB 16, Hits::kSubgroup) only the panels of
 // (subgroup g, tile t) whose bit (t % 8)*4 + g of mask[b, t / 8] is set
 // are summed and counted: tiles with no bit set are skipped, and the
 // hit columns of a summed tile read 0 for a subgroup whose bit is clear.
 //
 // Design: one warp per list row, four rows a thread block, no block
-// barrier. Each lane holds four queries, one of each subgroup (lane l of
-// the warp holds queries l, 32 + l, 64 + l, 96 + l). The warp stages one
+// barrier. Each lane holds R/32 queries, one of each subgroup (at R = 128
+// lane l holds queries l, 32 + l, 64 + l, 96 + l). The warp stages one
 // tile (128 particles: 8 slots of 16 or 4 of 32) a round with cp.async
 // into one of two shared buffers while it sums the other; on arrival each
 // lane forms w_j = poly6 * real_j for its own copies (once a candidate)
 // and the bounding box of each run of 8 candidates is reduced by
-// shuffles. A subgroup's box is reduced once a row. Each lane tests two
-// of the tile's 64 (run, subgroup) panels box against box, and a ballot
+// shuffles. A subgroup's box is reduced once a row (at R < 128 the
+// missing subgroups get an empty box, and their bits are never read).
+// Each lane tests two of the tile's 64 (run, subgroup) panels box against
+// box, and a ballot
 // gives the warp one bit a panel: a panel whose boxes lie farther apart
 // than h (h_dil with tile counts), with a 1e-4 margin over the rounding
 // of r^2 and of the gap, holds no pair inside the support, so every pair
@@ -59,6 +64,8 @@
 
 #pragma once
 
+#include <math_constants.h>
+
 #include "sph_pair.cuh"
 #include "stage_cull.cuh"
 
@@ -67,7 +74,6 @@ namespace sph {
 enum class Hits { kSubgroup, kSubgroupTiles, kBlock, kNone };
 
 constexpr int kRowsPerBlock = 4;  // list rows (warps) a thread block
-constexpr int kLaneQueries = kBlock / 32;  // queries a lane holds, one a subgroup
 constexpr int kStagedPerLane = kBlock / 32;  // particles a lane stages per tile
 constexpr int kTileSlots16 = 8;   // slots of a dilated-count tile (kSub 16)
 
@@ -102,7 +108,7 @@ __device__ __forceinline__ int next_flagged(const int* mask_row, int t, int nt) 
   return nt;
 }
 
-template <int kSub, int HIT_SUB, Hits kHits, bool kGate = false>
+template <int kSub, int HIT_SUB, Hits kHits, bool kGate = false, int kRows = kBlock>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
 density_rows_kernel(const float4* __restrict__ pos4,
                     const int* __restrict__ cand, const int* __restrict__ count,
@@ -112,7 +118,7 @@ density_rows_kernel(const float4* __restrict__ pos4,
                     int* __restrict__ tiles, const int* __restrict__ mask,
                     int words) {
   constexpr int kWarps = kRowsPerBlock;
-  constexpr int kQ = kLaneQueries;
+  constexpr int kQ = kRows / 32;  // queries a lane holds, one a subgroup
   constexpr int kTile = kBlock / kSub;     // slots staged per round
   constexpr int kSlotRuns = kSub / kRun;   // pair-loop steps a slot
   constexpr bool kTiles = kHits == Hits::kSubgroupTiles;
@@ -125,6 +131,9 @@ density_rows_kernel(const float4* __restrict__ pos4,
   static_assert(!kAny || HIT_SUB == kSub, "the block mode counts whole slots");
   static_assert(!kGate || (kSub * kTileSlots16 == kBlock && HIT_SUB == kSub &&
                            kHits == Hits::kSubgroup), "the gate: kSub 16, subgroup counts");
+  static_assert(kRows == kBlock || ((kRows == 32 || kRows == 64) && !kGate &&
+                                    (kAny || kHits == Hits::kNone)),
+                "finer query blocks: 32 or 64 rows, block counts or none");
   __shared__ float4 stage[kWarps][2][kBlock];
   __shared__ float4 run_box[kWarps][kBlock / kRun][2];  // lo, hi of each run
   const int lane = threadIdx.x & 31;
@@ -132,11 +141,15 @@ density_rows_kernel(const float4* __restrict__ pos4,
   const int b = blockIdx.x * kWarps + w;
   if (b >= nq) return;  // warps are independent: no block barrier follows
   const long long qb = qblock ? qblock[b] : b;
-  const float4* qrow = pos4 + qb * kBlock + lane;
+  const float4* qrow = pos4 + qb * kRows + lane;
   float qx[kQ], qy[kQ], qz[kQ], sum[kQ];
   unsigned cnt[kQ], dil[kQ];
   int mine[kQ];  // lane c keeps column c of the tile's counts
   float3 qlo, qhi;  // the box of subgroup lane % 4
+  if constexpr (kQ < 4) {  // an empty box where the row has no such subgroup
+    qlo = make_float3(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
+    qhi = make_float3(-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F);
+  }
 #pragma unroll
   for (int g = 0; g < kQ; ++g) {
     const float4 q = qrow[g * 32];
@@ -295,7 +308,7 @@ density_rows_kernel(const float4* __restrict__ pos4,
       t1 = t2;
     }
   }
-  float* out = density + (long long)b * kBlock + lane;
+  float* out = density + (long long)b * kRows + lane;
 #pragma unroll
   for (int g = 0; g < kQ; ++g) {
     out[g * 32] = qrow[g * 32].w > 0.f ? mass * sum[g] : fluid_density;

@@ -13,7 +13,11 @@
 // sums and the combine are those of forces_q32.cu (csrc/sph_pair.cuh);
 // a_i is written at row b*128 + t. Self-exclusion compares global int32
 // ids, so gathered query blocks (the two-tier path) exclude the right
-// pair.
+// pair. On finer query blocks (nl_query_rows 64 or 32, block_size 64, the
+// asm variant at 32 rows, fused_forces_nl and fused_forces_asm at those
+// query widths) a list serves R = 64 or 32 rows: queries qb*R + t, a_i
+// at row b*R + t (forces_c32_rows_launch; the 128-row kernel is the same
+// template at R = 128).
 //
 // What bounds it on an H100: instruction issue, and how much of it goes
 // to pairs outside the support. A list of the whole block admits many
@@ -30,7 +34,8 @@
 // Design: one thread block per list row, warp g = query subgroup g
 // (queries g*32 .. g*32+31, one a lane) against the row's shared list,
 // one 128-particle tile (4 slots) a round. Thread t copies particle t % 32
-// of slot t / 32 of the next tile with cp.async (the f8 pack's 32 bytes)
+// of slot t / 32 of the next tile (of slots g, g + R/32, ... at R < 128)
+// with cp.async (the f8 pack's 32 bytes)
 // into one of three shared buffers while the block sums the current one;
 // on arrival it rewrites its own candidate into force_walk.cuh's staged
 // layout (id, visc * mr formed once a candidate) and the box of each run
@@ -64,6 +69,7 @@ constexpr int kTileSlots = kRound / kSub;   // slots a tile
 constexpr int kTileRuns = kRound / kRun;    // culled runs a tile
 constexpr int kBufs = 3;                    // staged tiles in shared memory
 
+template <int kRows>
 __device__ __forceinline__ void write_accel(const sph::ForceSums& s,
                                             const sph::ForceConsts& k,
                                             const float* density,
@@ -71,7 +77,7 @@ __device__ __forceinline__ void write_accel(const sph::ForceSums& s,
                                             float* accel) {
   float a[3] = {0.f, 0.f, 0.f};
   if (real[i]) s.combine(k, density[i], a);
-  const long long o = (long long)blockIdx.x * kBlock + threadIdx.x;
+  const long long o = (long long)blockIdx.x * kRows + threadIdx.x;
   accel[3 * o] = a[0];
   accel[3 * o + 1] = a[1];
   accel[3 * o + 2] = a[2];
@@ -88,20 +94,27 @@ __device__ __forceinline__ float3 stage_layout(float4* c, int jid, float visc) {
   return make_float3(a.x, a.y, a.z);
 }
 
-__global__ void __launch_bounds__(kBlock)
-forces_q128_c32_kernel(const float4* __restrict__ f8,
+// kRows queries a list (128, 64 or 32), one a thread; each thread stages
+// particle `lane` of kPer = 4 / (kRows / 32) slots of every tile: slots
+// k0 + g + m * kWarps, at stage[.][t + m * kRows].
+template <int kRows>
+__global__ void __launch_bounds__(kRows)
+forces_rows_c32_kernel(const float4* __restrict__ f8,
                        const float* __restrict__ density,
                        const unsigned char* __restrict__ real,
                        const int* __restrict__ cand, const int* __restrict__ count,
                        const int* __restrict__ qblock, int cap, sph::ForceConsts k,
                        float* __restrict__ accel) {
+  constexpr int kWarps = kRows / 32;
+  constexpr int kPer = kTileSlots / kWarps;  // slots a thread stages a tile
+  static_assert(kPer * kWarps == kTileSlots, "32, 64 or 128 rows");
   __shared__ float4 stage[kBufs][kRound][3];
   __shared__ float4 run_box[2][kTileRuns][2];  // lo, hi of each run
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int g = t >> 5;
   const long long qb = qblock ? qblock[blockIdx.x] : blockIdx.x;
-  const long long i = qb * kBlock + t;
+  const long long i = qb * kRows + t;
   const float4 qa = f8[2 * i];      // x y z vx
   const float4 qv = f8[2 * i + 1];  // vy vz pm mr
   const int n = count[blockIdx.x];
@@ -110,39 +123,58 @@ forces_q128_c32_kernel(const float4* __restrict__ f8,
   sph::box_reduce<32>(qlo, qhi);
   const float reach2 = k.h2 * sph::kBoxMargin;
 
-  // thread t stages particle `lane` of slot k0 + g of each tile; the slot
-  // ids are loaded a tile ahead of their copies
-  int id0 = g < n ? list[g] : 0;
-  if (g < n) {
-    const float4* src = f8 + 2 * ((long long)id0 * kSub + lane);
-    sph::cp_async16(&stage[0][t][0], src);
-    sph::cp_async16(&stage[0][t][1], src + 1);
+  // the slot ids are loaded a tile ahead of their copies
+  int id0[kPer], id1[kPer];
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) {
+    const int slot = g + m * kWarps;
+    id0[m] = slot < n ? list[slot] : 0;
+    if (slot < n) {
+      const float4* src = f8 + 2 * ((long long)id0[m] * kSub + lane);
+      sph::cp_async16(&stage[0][t + m * kRows][0], src);
+      sph::cp_async16(&stage[0][t + m * kRows][1], src + 1);
+    }
   }
   sph::cp_async_commit();
-  int id1 = kTileSlots + g < n ? list[kTileSlots + g] : 0;
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) {
+    const int slot = kTileSlots + g + m * kWarps;
+    id1[m] = slot < n ? list[slot] : 0;
+  }
 
   sph::ForceSums s;
   for (int k0 = 0, u = 0; k0 < n; k0 += kTileSlots, ++u) {
-    const int slot1 = k0 + kTileSlots + g;
-    if (slot1 < n) {
-      float4* dst = stage[(u + 1) % kBufs][t];
-      const float4* src = f8 + 2 * ((long long)id1 * kSub + lane);
-      sph::cp_async16(&dst[0], src);
-      sph::cp_async16(&dst[1], src + 1);
+    int id2[kPer];
+#pragma unroll
+    for (int m = 0; m < kPer; ++m) {
+      const int slot1 = k0 + kTileSlots + g + m * kWarps;
+      if (slot1 < n) {
+        float4* dst = stage[(u + 1) % kBufs][t + m * kRows];
+        const float4* src = f8 + 2 * ((long long)id1[m] * kSub + lane);
+        sph::cp_async16(&dst[0], src);
+        sph::cp_async16(&dst[1], src + 1);
+      }
     }
     sph::cp_async_commit();
-    const int slot2 = slot1 + kTileSlots;
-    const int id2 = slot2 < n ? list[slot2] : 0;
+#pragma unroll
+    for (int m = 0; m < kPer; ++m) {
+      const int slot2 = k0 + 2 * kTileSlots + g + m * kWarps;
+      id2[m] = slot2 < n ? list[slot2] : 0;
+    }
     sph::cp_async_wait_prior();
     float4 (*cur)[3] = stage[u % kBufs];
-    // a dead slot's runs get an empty box at infinity: always culled
-    float3 lo = make_float3(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
-    if (k0 + g < n) lo = stage_layout(cur[t], id0 * kSub + lane, k.visc);
-    float3 hi = lo;
-    sph::box_reduce<kRun>(lo, hi);
-    if ((lane & (kRun - 1)) == 0) {
-      run_box[u & 1][t / kRun][0] = make_float4(lo.x, lo.y, lo.z, 0.f);
-      run_box[u & 1][t / kRun][1] = make_float4(hi.x, hi.y, hi.z, 0.f);
+#pragma unroll
+    for (int m = 0; m < kPer; ++m) {
+      const int p = t + m * kRows;  // particle `lane` of slot g + m * kWarps
+      // a dead slot's runs get an empty box at infinity: always culled
+      float3 lo = make_float3(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
+      if (k0 + g + m * kWarps < n) lo = stage_layout(cur[p], id0[m] * kSub + lane, k.visc);
+      float3 hi = lo;
+      sph::box_reduce<kRun>(lo, hi);
+      if ((lane & (kRun - 1)) == 0) {
+        run_box[u & 1][p / kRun][0] = make_float4(lo.x, lo.y, lo.z, 0.f);
+        run_box[u & 1][p / kRun][1] = make_float4(hi.x, hi.y, hi.z, 0.f);
+      }
     }
     __syncthreads();
     // bit r: run r of the tile may hold a pair of this subgroup inside
@@ -153,10 +185,26 @@ forces_q128_c32_kernel(const float4* __restrict__ f8,
                                                  run_box[u & 1][r][1]) < reach2) &
         ((1u << kTileRuns) - 1u);
     if (runs) sph::force_round<true>(k, qa, qv, (int)i, cur, runs, s);
-    id0 = id1;
-    id1 = id2;
+#pragma unroll
+    for (int m = 0; m < kPer; ++m) {
+      id0[m] = id1[m];
+      id1[m] = id2[m];
+    }
   }
-  write_accel(s, k, density, real, i, accel);
+  write_accel<kRows>(s, k, density, real, i, accel);
+}
+
+template <int kRows>
+int launch_rows(const void* f8, const void* density, const void* real,
+                const void* cand, const void* count, const void* qblock, int nq,
+                int cap, const sph::ForceConsts& k, void* accel, void* stream) {
+  if (nq > 0) {
+    forces_rows_c32_kernel<kRows><<<nq, kRows, 0, (cudaStream_t)stream>>>(
+        (const float4*)f8, (const float*)density, (const unsigned char*)real,
+        (const int*)cand, (const int*)count, (const int*)qblock, cap, k,
+        (float*)accel);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -170,13 +218,31 @@ extern "C" int forces_c32_launch(
     float h2, float eps2, float spiky, float visc, float pgrad, float lap7,
     float lap4, float mu, float st_threshold, float sigma, float gx, float gy,
     float gz, void* accel, void* stream) {
-  if (nq > 0) {
-    const sph::ForceConsts k{h,  h2,           eps2,  spiky, visc, pgrad, lap7,
-                             lap4, mu, st_threshold, sigma, gx,    gy,   gz};
-    forces_q128_c32_kernel<<<nq, kBlock, 0, (cudaStream_t)stream>>>(
-        (const float4*)f8, (const float*)density, (const unsigned char*)real,
-        (const int*)cand, (const int*)count, (const int*)qblock, cap, k,
-        (float*)accel);
+  const sph::ForceConsts k{h,  h2,           eps2,  spiky, visc, pgrad, lap7,
+                           lap4, mu, st_threshold, sigma, gx,    gy,   gz};
+  return launch_rows<kBlock>(f8, density, real, cand, count, qblock, nq, cap, k,
+                             accel, stream);
+}
+
+// Plain C entry point of the finer query blocks: ``rows`` (32 or 64) is
+// the queries a list row serves (qb*rows .. qb*rows + rows-1, written at
+// row b*rows + t); one block of ``rows`` threads per list row; otherwise
+// as forces_c32_launch (cudaErrorInvalidValue for another ``rows``).
+extern "C" int forces_c32_rows_launch(
+    const void* f8, const void* density, const void* real, const void* cand,
+    const void* count, const void* qblock, int nq, int cap, int rows, float h,
+    float h2, float eps2, float spiky, float visc, float pgrad, float lap7,
+    float lap4, float mu, float st_threshold, float sigma, float gx, float gy,
+    float gz, void* accel, void* stream) {
+  const sph::ForceConsts k{h,  h2,           eps2,  spiky, visc, pgrad, lap7,
+                           lap4, mu, st_threshold, sigma, gx,    gy,   gz};
+  if (rows == 64) {
+    return launch_rows<64>(f8, density, real, cand, count, qblock, nq, cap, k, accel,
+                           stream);
   }
-  return (int)cudaGetLastError();
+  if (rows == 32) {
+    return launch_rows<32>(f8, density, real, cand, count, qblock, nq, cap, k, accel,
+                           stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -143,9 +143,11 @@ def _roundup(x, m: int = 8) -> int:
 def pretune_config(state, params, config, probe_cap_sub: int | None = None):
     """Probe ``state`` and return (config with the updates applied, the
     probe statistics as host ints), or (config, None) off the shape the
-    probe sizes, the nl variant with hit compaction on the 16-granular
-    force tables (pretune.py:190-282): the q-granular tables, ``asm``,
-    the block-granular variants, ``tiles`` and ``exact`` pass through.
+    probe sizes, the nl variant at whole-block query rows
+    (``nl_query_rows >= block_size``) with hit compaction on the
+    16-granular force tables (pretune.py:190-282): the q-granular tables,
+    finer query blocks, ``asm``, the block-granular variants, ``tiles``
+    and ``exact`` pass through.
 
     * hit16 pressure: if the max per-subgroup 16-granular hit count
       exceeds HEADROOM x max_candidates_hit16, downgrade to the
@@ -159,6 +161,7 @@ def pretune_config(state, params, config, probe_cap_sub: int | None = None):
     """
     cfg = config
     if not (cfg.neighbor_impl == "pallas" and cfg.pallas_variant == "nl"
+            and cfg.q_rep == 1
             and cfg.hit_compact and cfg.force_query_rows == 32 and cfg.force_sub16):
         return cfg, None
 

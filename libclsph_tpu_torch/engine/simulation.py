@@ -13,6 +13,11 @@ state after a capacity or staleness flag.
   callbacks between substeps; it rebuilds the candidate tables every
   substep, because a callback may move particles.
 
+On both paths a ``device_view`` hook, if set, receives the
+device-resident state (no host fetch) on the initial frame and after
+every frame, as the JAX package's does; :class:`io.render.PointRenderer`'s
+``view`` is its intended target.
+
 Before the first frame, runs of 200k particles or more take the
 init-state capacity probe (:mod:`engine.pretune`), so deep-column
 scenes start on the q-granular tables instead of re-running a frame.
@@ -63,6 +68,10 @@ log = get_logger(__name__)
 #   post_frame(arrays: dict, params, is_full_frame) -> bool
 Callback = Callable[[dict, SimulationParameters, bool], bool]
 SaveCallback = Callable[[dict, SimulationParameters], None]
+# device-side view hook: device_view(state: ParticleState, params, True)
+# receives the device-resident state each frame (no host fetch), e.g.
+# io/render.PointRenderer.view, which copies only the image to the host
+DeviceView = Callable[[ParticleState, SimulationParameters, bool], None]
 
 
 def configure_device(device) -> torch.device:
@@ -104,6 +113,7 @@ class SPHSimulation:
         self.pre_frame: Optional[Callback] = None
         self.save_frame: Optional[SaveCallback] = None
         self.post_frame: Optional[Callback] = None
+        self.device_view: Optional[DeviceView] = None
         self.step_config = step_config or StepConfig()
         self.capacity_retries = 0
         self.checkpoint_path = ckpt_mod.DEFAULT_CHECKPOINT
@@ -158,9 +168,10 @@ class SPHSimulation:
 
         * the exact impl: cell_capacity x2, and nothing else;
         * block cap: max_candidates x2;
-        * subblock cap: on the nl variant the first overflow turns
-          two-tier routing on (tier2_frac 8) and later ones double
-          tier2_mult; on asm max_candidates_sub doubles;
+        * subblock cap: on the nl variant at whole-block query rows
+          (nl_query_rows >= block_size) the first overflow turns two-tier
+          routing on (tier2_frac 8) and later ones double tier2_mult;
+          elsewhere (asm, finer query blocks) max_candidates_sub doubles;
         * tier-2 pool: tier2_frac halves;
         * hit cap: max_candidates_hit8 +32 while below 160 (force_sub8);
           past that, or on the 16-wide force path's tables at once, the
@@ -183,10 +194,11 @@ class SPHSimulation:
         if flags & FLAG_CAPACITY:
             updates["max_candidates"] = cfg.max_candidates * 2
         if flags & FLAG_CAPACITY_SUB:
-            if cfg.tier2_frac > 0:
-                updates["tier2_mult"] = cfg.tier2_mult * 2
-            elif cfg.pallas_variant == "nl":
+            can_t2 = cfg.pallas_variant == "nl" and cfg.q_rep == 1
+            if can_t2 and cfg.tier2_frac == 0:
                 updates["tier2_frac"] = 8
+            elif cfg.tier2_frac > 0:
+                updates["tier2_mult"] = cfg.tier2_mult * 2
             else:
                 updates["max_candidates_sub"] = cfg.max_candidates_sub * 2
         if flags & FLAG_CAPACITY_T2:
@@ -275,6 +287,8 @@ class SPHSimulation:
         sim_time = 0.0
         current_frame = 2  # reference starts at 2 (sph_simulation.cpp:365)
 
+        if self.device_view:  # the initial frame, like the initial save
+            self.device_view(state, p, True)
         if self.save_frame:
             self._save(saver, state)
         fast_path = not self.write_intermediate_frames
@@ -292,6 +306,8 @@ class SPHSimulation:
                     state, dt = self._run_frame_per_substep(state, dt, saver)
                 sim_time += timeperframe
                 current_frame += 1
+                if self.device_view:
+                    self.device_view(state, p, True)
                 if fast_path and self.save_frame:
                     self._save(saver, state)
                 if fast_path and self.post_frame:

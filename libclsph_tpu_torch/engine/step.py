@@ -1,8 +1,11 @@
 """The SPH substep and the frame loop on one device.
 
-PyTorch counterpart of ``libclsph_tpu/engine/step.py`` at 128-particle
-Morton blocks and 128 query rows. Three neighbour impls, as in the JAX
-package (``StepConfig.neighbor_impl``):
+PyTorch counterpart of ``libclsph_tpu/engine/step.py``: Morton blocks of
+``block_size`` 64, 128 or 256 particles, candidate lists that serve query
+blocks of ``q_rows = min(nl_query_rows, block_size)`` rows (128, 64 or
+32; a Morton block holds ``q_rep = block_size / q_rows`` of them, each
+refined from its parent block's list). Three neighbour impls, as in the
+JAX package (``StepConfig.neighbor_impl``):
 
 * ``pallas``, the default: the hand kernels behind the block candidate
   machinery, in the variant of ``pallas_variant``:
@@ -30,11 +33,18 @@ package (``StepConfig.neighbor_impl``):
       ``hit_compact=False``, the whole-block pass over the full refined
       lists;
 
-    each with or without two-tier routing (``tier2_frac > 0``);
+    each with or without two-tier routing (``tier2_frac > 0``). At
+    ``q_rows`` below 128 (finer query blocks, and ``block_size`` 64)
+    the tables are 32-granular with one hit row a list, the lists are
+    compacted per list and the force pass runs over lists of ``q_rows``
+    rows; the refine is ``refine_mode`` "exact" (each candidate particle
+    against the query rows' split boxes) or "aabb" (subblock boxes
+    against the query boxes);
   - ``asm``: the nl variant with in-kernel assembly of the candidate
     subblocks on the TPU; on the card every candidate load is a gather
-    already, so it runs the q-granular whole-block route (32-wide tables,
-    one hit row a block, ``forces_q128_c32``), single tier, no reuse;
+    already, so it runs the q-granular whole-list route (32-wide tables,
+    one hit row a list, ``forces_q128_c32`` at the list's rows), single
+    tier, no reuse;
   - ``row``, ``fine``, ``asym``: the density and force sums over whole
     candidate blocks, no refine and no compaction
     (:mod:`ops.kernels.blocks`), rebuilt every substep;
@@ -45,8 +55,7 @@ package (``StepConfig.neighbor_impl``):
   by :func:`ops.grid.sort_by_cell` every substep (no block padding).
 
 Other values of the JAX package's ``StepConfig`` are refused, with the
-JAX package's reason where it refuses them too and with the ROADMAP item
-that will port them where it does not.
+JAX package's reason where it refuses them too.
 
 PyTorch runs eagerly, so the loops are Python loops: the dt retry
 condition, the frame's time left and the predictive staleness check
@@ -70,6 +79,7 @@ from ..ops import interactions as interactions_ops
 from ..ops import neighbors as neighbors_ops
 from ..ops import tiles as tiles_ops
 from ..ops import kernels
+from ..ops.kernels.blocks import BLOCK_SIZES
 
 # Bits of the substep's status flag (int32), as in the JAX package:
 FLAG_CAPACITY = 1  # block-level candidate capacity / the exact impl's cell capacity
@@ -83,8 +93,10 @@ FLAGS_ALL_CAPACITY = (
     FLAG_CAPACITY | FLAG_CAPACITY_SUB | FLAG_CAPACITY_HIT | FLAG_CAPACITY_T2
 )
 
-BLOCK = 128  # particles per Morton block (= density/force query rows)
-GROUPS = 4  # 32-row query subgroups per block
+BLOCK = 128  # rows of a whole query block (GROUPS subgroups of 32)
+GROUPS = 4  # 32-row query subgroups per whole query block
+QUERY_ROWS = (32, 64, 128)  # nl_query_rows
+REFINE_MODES = ("exact", "aabb")
 IMPLS = ("pallas", "tiles", "exact")
 VARIANTS = ("nl", "asm", "row", "fine", "asym")
 BLOCK_VARIANTS = ("row", "fine", "asym")  # sums over whole candidate blocks
@@ -103,6 +115,9 @@ class StepConfig:
     pallas_variant: str = "nl"
     block_size: int = 128
     nl_query_rows: int = 128
+    # the nl/asm refine test: candidate particles against the query rows'
+    # split boxes ("exact") or subblock boxes against query boxes ("aabb")
+    refine_mode: str = "exact"
     force_query_rows: int = 32
     density_sub16: bool = True
     force_sub16: bool = True
@@ -144,22 +159,11 @@ class StepConfig:
         if self.pallas_variant not in VARIANTS:
             raise ValueError(f"StepConfig.pallas_variant={self.pallas_variant!r}: "
                              f"use one of {VARIANTS}")
-        not_yet = {
-            "block_size": (128, "ROADMAP.md queue 1 item 4 (other block shapes)"),
-            "nl_query_rows": (128, "ROADMAP.md queue 1 item 4 (finer query blocks)"),
-        }
-        for name, (value, item) in not_yet.items():
-            if getattr(self, name) != value:
-                raise ValueError(
-                    f"StepConfig.{name}={getattr(self, name)!r} is not ported yet: "
-                    f"the port runs only {name}={value!r}; see {item}"
-                )
-        if self.force_query_rows not in (32, 128):
-            raise ValueError(
-                f"StepConfig.force_query_rows={self.force_query_rows!r}: the port runs "
-                f"32 and 128, as the JAX package does; other query granularities are "
-                f"ROADMAP.md queue 1 item 4"
-            )
+        for name, allowed in (("block_size", BLOCK_SIZES), ("nl_query_rows", QUERY_ROWS),
+                              ("refine_mode", REFINE_MODES), ("force_query_rows", (32, 128))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"StepConfig.{name}={getattr(self, name)!r}: use one of "
+                                 f"{allowed}")
         if self.sort_interval < 1 or self.cand_interval < 1:
             raise ValueError("sort_interval and cand_interval must be >= 1")
         if self.cand_interval > 1 and self.sort_interval % self.cand_interval:
@@ -176,7 +180,8 @@ class StepConfig:
             )
         if self.nl_kernels:
             asm = self.pallas_variant == "asm"
-            if self.density_sub16 and (asm or self.force_query_rows != 32
+            if self.density_sub16 and (asm or self.q_rep > 1 or self.q_rows != BLOCK
+                                       or self.force_query_rows != 32
                                        or not self.force_sub16 or not self.hit_compact):
                 raise ValueError(
                     "density_sub16 requires the nl variant at whole-128 query rows "
@@ -195,7 +200,7 @@ class StepConfig:
         if self.cand_interval > 1:
             if self.neighbor_impl != "pallas":
                 raise ValueError("cand_interval reuse requires the pallas impl")
-            if self.pallas_variant == "asm":
+            if self.nl_kernels and (self.pallas_variant == "asm" or self.q_rep > 1):
                 raise ValueError("cand_interval reuse requires the nl variant at "
                                  "whole-block query rows")
             if self.pallas_variant != "nl":
@@ -212,12 +217,30 @@ class StepConfig:
         return self.neighbor_impl == "pallas" and self.pallas_variant in ("nl", "asm")
 
     @property
+    def q_rows(self) -> int:
+        """Query rows a candidate list serves (step.py:386)."""
+        return min(self.nl_query_rows, self.block_size)
+
+    @property
+    def q_rep(self) -> int:
+        """Query blocks per Morton block, each refined from its parent
+        block's list (step.py:387)."""
+        return self.block_size // self.q_rows
+
+    @property
+    def two_tier(self) -> bool:
+        """Whether two-tier routing runs (step.py:391): tier2_frac on the
+        nl variant at whole-block query rows (elsewhere it is ignored, as
+        in the JAX package)."""
+        return self.tier2_frac > 0 and self.pallas_variant == "nl" and self.q_rep == 1
+
+    @property
     def force_q32(self) -> bool:
         """Whether the force pass runs per 32-row query subgroup
         (step.py:582-587): the nl variant with hit compaction at
-        force_query_rows=32."""
+        force_query_rows=32 and 128 query rows."""
         return (self.force_query_rows == 32 and self.hit_compact
-                and self.pallas_variant == "nl")
+                and self.pallas_variant == "nl" and self.q_rows == BLOCK)
 
     @property
     def subblock(self) -> int:
@@ -230,7 +253,7 @@ class StepConfig:
         """Whether reuse substeps run the gated density (step.py:424): on
         the 16-granular tables with candidate reuse and no tier 2."""
         return (self.density_gate and self.density_sub16 and self.cand_interval > 1
-                and not self.tier2_frac)
+                and not self.two_tier)
 
     def hit_width(self, groups: int) -> int:
         """Particles per force-list entry for hit rows of ``groups`` lists
@@ -245,27 +268,51 @@ class StepConfig:
 
 def build_candidates(state: ParticleState, real: torch.Tensor,
                      params: SimulationParameters, config: StepConfig):
-    """Block search and exact refine to candidate subblocks over the
-    padded, sorted state (step.py:434-495), at (1 + cand_slack) h when
-    the tables will be reused; with two-tier routing the table is built
-    at the tier-2 width tier2_mult * max_candidates_sub. Returns
-    (cand_sub (nb, cap) int32, count_sub (nb,) int32, flags)."""
-    nb = state.n // BLOCK
-    sub = BLOCK // config.subblock
+    """Block search and refine to candidate subblocks over the padded,
+    sorted state (step.py:424-495), at (1 + cand_slack) h when the tables
+    will be reused; with two-tier routing the table is built at the
+    tier-2 width tier2_mult * max_candidates_sub. At q_rep > 1 each of a
+    block's q_rep query blocks refines its parent's list against its own
+    rows' boxes. Returns (cand_sub (nb * q_rep, cap) int32, count_sub
+    (nb * q_rep,) int32, flags)."""
+    bsize, q_rows, q_rep = config.block_size, config.q_rows, config.q_rep
+    nb = state.n // bsize
+    sub = bsize // config.subblock
     reuse_on = config.cand_interval > 1
     h_search = params.h * (1.0 + config.cand_slack) if reuse_on else params.h
-    cap_sub = config.max_candidates_sub * (config.tier2_mult if config.tier2_frac else 1)
-    pos_b = state.position.reshape(nb, BLOCK, 3)
-    real_b = real.reshape(nb, BLOCK)
+    cap_sub = config.max_candidates_sub * (config.tier2_mult if config.two_tier else 1)
+    pos_b = state.position.reshape(nb, bsize, 3)
+    real_b = real.reshape(nb, bsize)
     bmin, bmax = tiles_ops.split_block_bounds(pos_b, real_b)
     cand, count, ovf = tiles_ops.candidate_blocks_auto(
         bmin, bmax, h_search, config.max_candidates
     )
-    self_lo = torch.arange(nb, dtype=torch.int32, device=state.device) * sub
-    cand_sub, count_sub, ovf2 = tiles_ops.refine_candidates_exact(
-        cand, count, bmin, bmax, pos_b, h_search, sub, cap_sub,
-        self_lo=self_lo, self_width=sub,
-    )
+    if q_rep > 1:  # each query block starts from its parent's list
+        cand = torch.repeat_interleave(cand, q_rep, dim=0)
+        count = torch.repeat_interleave(count, q_rep)
+    nb_q = nb * q_rep
+    self_lo = (torch.arange(nb_q, dtype=torch.int32, device=state.device) // q_rep) * sub
+    if config.refine_mode == "exact":
+        if q_rep > 1:  # the split boxes of each query block's rows
+            qlo, qhi = tiles_ops.split_block_bounds(state.position.reshape(nb_q, q_rows, 3),
+                                                    real.reshape(nb_q, q_rows))
+        else:
+            qlo, qhi = bmin, bmax
+        cand_sub, count_sub, ovf2 = tiles_ops.refine_candidates_exact(
+            cand, count, qlo, qhi, pos_b, h_search, sub, cap_sub,
+            self_lo=self_lo, self_width=sub,
+        )
+    else:
+        sub_lo, sub_hi = tiles_ops.subblock_bounds(pos_b, real_b, sub)
+        if q_rep > 1:  # one box of each query block's rows
+            qlo, qhi = tiles_ops.subblock_bounds(pos_b, real_b, q_rep)
+            qlo, qhi = qlo[:, None, :], qhi[:, None, :]
+        else:
+            qlo, qhi = bmin, bmax
+        cand_sub, count_sub, ovf2 = tiles_ops.refine_candidates(
+            cand, count, qlo, qhi, sub_lo, sub_hi, h_search, sub, cap_sub,
+            self_lo=self_lo, self_width=sub,
+        )
     flags = ovf.to(torch.int32) * FLAG_CAPACITY + ovf2.to(torch.int32) * FLAG_CAPACITY_SUB
     return cand_sub, count_sub, flags
 
@@ -286,15 +333,17 @@ def hit_lists(cand_sub: torch.Tensor, hits: torch.Tensor, config: StepConfig,
       max_candidates_hit // 2); one list per block: ``max_candidates_hit``.
 
     ``cap`` overrides the capacity (tier 2); ``qblock`` (nq,) names the
-    query block of each row (the self range), default the identity.
+    query block of each row, default the identity; the self range is its
+    parent Morton block's (qblock // q_rep).
     Returns (cand (nq*groups, cap) int32, count, flags)."""
     nq = cand_sub.shape[0]
-    sub = BLOCK // config.subblock
+    sub = config.block_size // config.subblock
     if qblock is None:
         qblock = torch.arange(nq, dtype=torch.int32, device=cand_sub.device)
     width = config.hit_width(groups)
     split = config.subblock // width
-    ids, self_lo, self_width = cand_sub, qblock * sub * split, sub * split
+    ids, self_width = cand_sub, sub * split
+    self_lo = torch.div(qblock, config.q_rep, rounding_mode="floor") * self_width
     if split > 1:
         sent = tiles_ops.REFINE_SENTINEL
         dead = (cand_sub == sent)[..., None]
@@ -322,33 +371,41 @@ def _hit_cap(config: StepConfig, width: int, groups: int) -> int:
 
 
 def _groups(config: StepConfig, tier: int) -> int:
-    """Hit rows per block of a tier's passes (step.py:614-622, :827-841):
-    4 query subgroups on the 16-granular tables (both tiers) and on
-    tier 1 of the 32-row force pass; one row per block at q128, for asm,
-    without hit compaction and on tier 2 of the 32-wide tables."""
+    """Hit rows per list of a tier's passes (step.py:614-622, :674-689,
+    :827-841): 4 query subgroups on the 16-granular tables (both tiers)
+    and on tier 1 of the 32-row force pass; one row per list at q128, on
+    finer query blocks, for asm and on tier 2 of the 32-wide tables; none
+    (densities only) without hit compaction."""
+    if not config.hit_compact:
+        return 0
     if config.density_sub16 or (tier == 1 and config.force_q32):
         return GROUPS
     return 1
 
 
 def _density_pass(pos4, cand, count, params, config, groups, qblock=None):
-    """The density kernel for ``groups`` hit rows a block, with hits at
-    the force width of those rows."""
+    """The density kernel for ``groups`` hit rows a list (0: densities
+    only), with hits at the force width of those rows, over lists of
+    ``config.q_rows`` queries."""
     cand, count = cand.contiguous(), count.contiguous()
     hit_sub = config.hit_width(groups)
     if config.density_sub16:
         return kernels.density_c16(pos4, cand, count, params, hit_sub=hit_sub,
                                    qblock=qblock)
     return kernels.density_c32(pos4, cand, count, params, groups=groups,
-                               hit_sub=hit_sub, qblock=qblock)
+                               hit_sub=hit_sub, qblock=qblock, rows=config.q_rows)
 
 
 def _force_pass(f8, density, real, cand_f, count_f, params, config, groups, qblock=None):
     fn = {8: kernels.forces_q32_c8, 16: kernels.forces_q32_c16}.get(
         config.hit_width(groups))
-    if fn is None:
-        fn = kernels.forces_q32_c32 if groups == GROUPS else kernels.forces_q128_c32
-    return fn(f8, density, real, cand_f, count_f, params, qblock=qblock)
+    if fn is not None:
+        return fn(f8, density, real, cand_f, count_f, params, qblock=qblock)
+    if groups == GROUPS:
+        return kernels.forces_q32_c32(f8, density, real, cand_f, count_f, params,
+                                      qblock=qblock)
+    return kernels.forces_q128_c32(f8, density, real, cand_f, count_f, params,
+                                   qblock=qblock, rows=config.q_rows)
 
 
 def _pressure_and_pack(state, real, density, params):
@@ -387,7 +444,7 @@ def _density_forces_nl(state: ParticleState, real: torch.Tensor,
         stale = 4.0 * d2max > (config.cand_slack * params.h) ** 2
         flags = stale.to(torch.int32) * FLAG_CAND_STALE
     pos4 = kernels.pos_pack(state.position, real)
-    if config.tier2_frac > 0:
+    if config.two_tier:
         # the carried table is the one built here, at the tier-2 width
         density, pressure, accel, flags = two_tier_passes(
             state, real, pos4, params, config, cand_sub, count_sub, flags
@@ -441,9 +498,11 @@ def two_tier_passes(state, real, pos4, params, config, cand_full, count_sub, fla
     count2 = torch.where(used, count_sub[idx.long()], 0).to(torch.int32)
     g1, g2 = _groups(config, 1), _groups(config, 2)
 
+    rows = config.q_rows  # = block_size: two-tier routing runs at q_rep 1
+
     def merge(a1, a2):
-        b1 = a1.reshape((nb, BLOCK) + a1.shape[1:])
-        b2 = a2.reshape((nb2, BLOCK) + a2.shape[1:])
+        b1 = a1.reshape((nb, rows) + a1.shape[1:])
+        b2 = a2.reshape((nb2, rows) + a2.shape[1:])
         mask = used.reshape((nb2,) + (1,) * (b2.dim() - 1))
         b2 = torch.where(mask, b2, b1[idx.long()])
         return b1.index_copy(0, idx.long(), b2).reshape(a1.shape)
@@ -476,16 +535,18 @@ def _density_forces_blocks(state: ParticleState, real: torch.Tensor,
     32-wide kernels over the block table split to 32-particle subblocks
     (:mod:`ops.kernels.blocks`). Rebuilt every substep: no refine, no
     compaction, no reuse. Returns (density, pressure, accel, flags)."""
-    nb = state.n // BLOCK
-    pos_b = state.position.reshape(nb, BLOCK, 3)
-    bmin, bmax = tiles_ops.split_block_bounds(pos_b, real.reshape(nb, BLOCK))
+    bsize = config.block_size
+    nb = state.n // bsize
+    pos_b = state.position.reshape(nb, bsize, 3)
+    bmin, bmax = tiles_ops.split_block_bounds(pos_b, real.reshape(nb, bsize))
     cand, count, overflow = tiles_ops.candidate_blocks_auto(
         bmin, bmax, params.h, config.max_candidates)
     pos4 = kernels.pos_pack(state.position, real)
-    density = kernels.density_blocks(pos4, cand, count, params)
+    density = kernels.density_blocks(pos4, cand, count, params, block=bsize)
     pressure, f8 = _pressure_and_pack(state, real, density, params)
     q_div = GROUPS if config.pallas_variant == "fine" else 1
-    accel = kernels.forces_blocks(f8, density, real, cand, count, params, q_div)
+    accel = kernels.forces_blocks(f8, density, real, cand, count, params, q_div,
+                                  block=bsize)
     return density, pressure, accel, overflow.to(torch.int32) * FLAG_CAPACITY
 
 
@@ -497,7 +558,7 @@ def _density_forces_tiles(state: ParticleState, real: torch.Tensor,
     with no Pallas kernel, so this is its port, not a fallback of a
     kernel. Returns (density, pressure, accel, flags)."""
     blocked = tiles_ops.make_blocked(state.position, state.velocity, state.density,
-                                     state.pressure, real, BLOCK)
+                                     state.pressure, real, config.block_size)
     bmin, bmax = tiles_ops.split_block_bounds(blocked.position, blocked.real)
     cand, count, overflow = tiles_ops.candidate_blocks_auto(
         bmin, bmax, params.h, config.max_candidates)
@@ -584,9 +645,9 @@ def _advect_collide(state: ParticleState, scene, dt, params: SimulationParameter
 
 
 def pad_and_sort(state: ParticleState, params: SimulationParameters, do_sort: bool,
-                 exact: bool = False):
-    """Grid bounds and Morton codes, sentinel padding to whole blocks
-    (and superblocks), and the stable sort by code when ``do_sort``
+                 exact: bool = False, block_size: int = BLOCK):
+    """Grid bounds and Morton codes, sentinel padding to whole blocks of
+    ``block_size`` (and superblocks), and the stable sort by code when ``do_sort``
     (step.py:1099-1168). With ``exact`` (the exact impl) there is no
     padding and the whole state is sorted by :func:`grid.sort_by_cell`
     (the exact impl's StepConfig sorts every substep). ``grid_bad`` also flags a grid
@@ -603,7 +664,7 @@ def pad_and_sort(state: ParticleState, params: SimulationParameters, do_sort: bo
         return state, torch.ones(n, dtype=torch.bool, device=dev), grid_bad
 
     # sentinels sit far away and sort last
-    npad = tiles_ops.padded_count(n, BLOCK)
+    npad = tiles_ops.padded_count(n, block_size)
     pad = npad - n
     if pad:
         far = grid.max_point + 1000.0 * params.h
@@ -656,7 +717,8 @@ def substep(state: ParticleState, dt: torch.Tensor, params: SimulationParameters
             "the carried ids index the sorted order"
         )
     state, real, grid_bad = pad_and_sort(state, params, do_sort,
-                                         exact=config.neighbor_impl == "exact")
+                                         exact=config.neighbor_impl == "exact",
+                                         block_size=config.block_size)
     density, pressure, accel, cap_flags, cand_out = _density_forces(
         state, real, params, config, cand_in=cand_in
     )

@@ -36,7 +36,7 @@ __all__ = ["to_numpy", "state_from_arrays", "state_to_numpy", "scene_from_arrays
 
 # JAX StepConfig fields the port has no knob for, with the value its one
 # path implies
-_JAX_ONLY = {"tile_mode": "direct", "refine_mode": "exact", "pair_r2": "vpu"}
+_JAX_ONLY = {"tile_mode": "direct", "pair_r2": "vpu"}
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

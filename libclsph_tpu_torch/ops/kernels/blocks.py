@@ -12,9 +12,11 @@ lanes, and how wide a skip panel is), and that does not exist on
 Hopper.
 
 A 128-particle block ``c`` is exactly the 32-particle subblocks ``4c ..
-4c+3``, contiguous in the sorted order, so :func:`expand_block_table`
-writes a block table at 32-particle granularity and the port's 32-wide
-kernels run it:
+4c+3``, contiguous in the sorted order (a block of B particles: ``c*B/32
+.. c*B/32 + B/32 - 1``), so :func:`expand_block_table` writes a block
+table at 32-particle granularity and the port's 32-wide kernels run it;
+at ``block_size`` 64 each list serves 64 query rows (the kernels'
+``rows``), at 256 each block's list serves its two 128-row halves:
 
 * density (every variant): :func:`density.density_c32` with no hit
   counts (``groups=0``, ``csrc/density_c32.cu``);
@@ -41,26 +43,44 @@ from ...core.params import SimulationParameters
 from ..tiles import REFINE_SENTINEL
 from . import density, forces
 
-SPLIT = 4  # 32-particle subblocks per 128-particle block
-GROUPS = 4  # 32-row query subgroups per block
+SUB = 32  # particles per subblock of the expanded table
+BLOCK = 128  # Morton block size of the defaults
+BLOCK_SIZES = (64, 128, 256)  # particles per Morton block
+GROUPS = 4  # query subgroups per block of fine (q_div 4)
 
 
-def expand_block_table(cand: torch.Tensor, count: torch.Tensor):
-    """Block ids (nb, M) -> 32-particle subblock ids (nb, 4L): slot k of
-    block id c becomes slots 4k .. 4k+3 with ids 4c .. 4c+3 (the split of
+def expand_block_table(cand: torch.Tensor, count: torch.Tensor, block: int = BLOCK):
+    """Block ids (nb, M) of ``block``-particle blocks -> 32-particle
+    subblock ids (nb, sL), s = block / 32: slot k of block id c becomes
+    slots sk .. sk+s-1 with ids sc .. sc+s-1 (the split of
     ``engine.step.hit_lists``); ``REFINE_SENTINEL`` stays a sentinel, and
-    the counts are multiplied by 4. L is the deepest live slot (at least
+    the counts are multiplied by s. L is the deepest live slot (at least
     1): the slots past every count hold nothing the passes read. Returns
     (ids int32, counts int32)."""
     if cand.device.type not in ("cpu", "cuda"):
         raise ValueError(f"expand_block_table: unsupported device {cand.device}")
+    if block not in BLOCK_SIZES:
+        raise ValueError(f"block must be one of {BLOCK_SIZES}, not {block}")
+    split = block // SUB
     live = max(1, int(count.max())) if count.numel() else 1
     cand = cand[:, :live]
     dead = cand == REFINE_SENTINEL
-    parts = torch.where(dead, 0, cand)[..., None] * SPLIT + torch.arange(
-        SPLIT, dtype=cand.dtype, device=cand.device)
+    parts = torch.where(dead, 0, cand)[..., None] * split + torch.arange(
+        split, dtype=cand.dtype, device=cand.device)
     ids = torch.where(dead[..., None], REFINE_SENTINEL, parts).reshape(cand.shape[0], -1)
-    return ids.to(torch.int32).contiguous(), (count * SPLIT).to(torch.int32).contiguous()
+    return ids.to(torch.int32).contiguous(), (count * split).to(torch.int32).contiguous()
+
+
+def _lists(cand, count, block):
+    """The expanded table as the kernels' lists and the rows each list
+    serves: a list a block of 64 or 128 rows; a 256-particle block's list
+    repeated for its two 128-row halves."""
+    ids, counts = expand_block_table(cand, count, block)
+    if block > BLOCK:
+        rep = block // BLOCK
+        ids = torch.repeat_interleave(ids, rep, dim=0)
+        counts = torch.repeat_interleave(counts, rep)
+    return ids, counts, min(block, BLOCK)
 
 
 def _check_q_div(q_div):
@@ -69,37 +89,38 @@ def _check_q_div(q_div):
 
 
 def density_blocks_torch(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
-                         params: SimulationParameters) -> torch.Tensor:
+                         params: SimulationParameters, block: int = BLOCK) -> torch.Tensor:
     """Plain PyTorch version of :func:`density_blocks`."""
-    ids, counts = expand_block_table(cand, count)
-    return density.density_c32_torch(pos4, ids, counts, params, groups=0)[0]
+    ids, counts, rows = _lists(cand, count, block)
+    return density.density_c32_torch(pos4, ids, counts, params, groups=0, rows=rows)[0]
 
 
 def density_blocks(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
-                   params: SimulationParameters) -> torch.Tensor:
+                   params: SimulationParameters, block: int = BLOCK) -> torch.Tensor:
     """Density (np,) of every query against its block's live candidate
-    blocks (``cand`` (nb, M) block ids, ``count`` (nb,)); rest density on
-    padding queries. CPU tensors take the plain version; CUDA tensors
-    launch ``density_c32`` or raise."""
-    ids, counts = expand_block_table(cand, count)
-    return density.density_c32(pos4, ids, counts, params, groups=0)[0]
+    blocks (``cand`` (nb, M) ids of ``block``-particle blocks, ``count``
+    (nb,)); rest density on padding queries. CPU tensors take the plain
+    version; CUDA tensors launch ``density_c32`` or raise."""
+    ids, counts, rows = _lists(cand, count, block)
+    return density.density_c32(pos4, ids, counts, params, groups=0, rows=rows)[0]
 
 
 def forces_blocks_torch(f8, density_, real, cand, count, params: SimulationParameters,
-                        q_div: int = 1) -> torch.Tensor:
+                        q_div: int = 1, block: int = BLOCK) -> torch.Tensor:
     """Plain PyTorch version of :func:`forces_blocks`."""
     _check_q_div(q_div)
-    ids, counts = expand_block_table(cand, count)
-    return forces.forces_q128_c32_torch(f8, density_, real, ids, counts, params)
+    ids, counts, rows = _lists(cand, count, block)
+    return forces.forces_q128_c32_torch(f8, density_, real, ids, counts, params, rows=rows)
 
 
 def forces_blocks(f8, density_, real, cand, count, params: SimulationParameters,
-                  q_div: int = 1) -> torch.Tensor:
+                  q_div: int = 1, block: int = BLOCK) -> torch.Tensor:
     """Accelerations (np, 3) over the block's live candidate blocks, 0 on
     padding queries: the whole block shares one list (``q_div`` 1: row,
-    asym) or each 32-row subgroup runs it (``q_div`` 4: fine); both are
-    one function, and one kernel runs it. CPU tensors take the plain
-    version; CUDA tensors launch ``forces_q128_c32`` or raise."""
+    asym) or each of its ``q_div`` query subgroups runs it (``q_div`` 4:
+    fine); both are one function, and one kernel runs it. CPU tensors
+    take the plain version; CUDA tensors launch ``forces_q128_c32`` or
+    raise."""
     _check_q_div(q_div)
-    ids, counts = expand_block_table(cand, count)
-    return forces.forces_q128_c32(f8, density_, real, ids, counts, params)
+    ids, counts, rows = _lists(cand, count, block)
+    return forces.forces_q128_c32(f8, density_, real, ids, counts, params, rows=rows)

@@ -37,9 +37,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     "density_c16_launch": [_P] * 4 + [_I] * 3 + [_F] * 5 + [_P] * 4,
     "density_c32_launch": [_P] * 4 + [_I] * 4 + [_F] * 4 + [_P] * 3,
+    "density_c32_rows_launch": [_P] * 4 + [_I] * 4 + [_F] * 4 + [_P] * 3,
     "density_gated16_launch": [_P] * 4 + [_I] * 3 + [_F] * 4 + [_P] * 3,
     "forces_q32_launch": [_P] * 6 + [_I] * 3 + [_F] * 14 + [_P, _P],
     "forces_c32_launch": [_P] * 6 + [_I] * 2 + [_F] * 14 + [_P, _P],
+    "forces_c32_rows_launch": [_P] * 6 + [_I] * 3 + [_F] * 14 + [_P, _P],
     "radix_sort_launch": [_P] * 2 + [_I] * 4 + [_P] * 7,
 }
 

@@ -11,12 +11,16 @@ Three kernels replace ``libclsph_tpu/ops/pallas/neighbor_nl.py``
   q-granular path, its tier 2 and the asm variant), at 4 groups with
   ``hit_sub`` 16 (the 16-wide force pass over 32-wide tables), and with
   no hit counts (``groups=0``: the densities of the row, fine and asym
-  variants, ``ops/kernels/blocks.py``); ``csrc/density_c32.cu``;
+  variants, ``ops/kernels/blocks.py``); at 1 or 0 groups also on finer
+  query blocks, lists that serve ``rows`` = 64 or 32 queries
+  (``nl_query_rows`` 64 or 32, ``block_size`` 64, asm at 32 rows);
+  ``csrc/density_c32.cu``;
 * :func:`density_gated16`, the reuse substep's c16 density at hit_sub 16
   over the (subgroup, tile) panels that a mask from
   :func:`pack_tile_nibbles` flags; ``csrc/density_gated16.cu``.
 
-Inputs, for ``np`` particles in ``np / 128`` Morton blocks:
+Inputs, for ``np`` particles in ``np / R`` query blocks of the R rows a
+list serves (R = 128 but for ``density_c32``'s ``rows``):
 
 * ``pos4`` (np, 4) float32: x, y, z and the real mask (1.0 / 0.0), from
   :func:`pos_pack`;
@@ -25,9 +29,9 @@ Inputs, for ``np`` particles in ``np / 128`` Morton blocks:
 * ``count`` (nq,) int32;
 * ``qblock`` (nq,) int32 or None: the query block of each list row (the
   two-tier path runs gathered heavy blocks against the full ``pos4``);
-  None is the identity, nq = np / 128.
+  None is the identity, nq = np / R.
 
-Outputs: ``density`` (nq*128,) float32 for the rows' queries (rest
+Outputs: ``density`` (nq*R,) float32 for the rows' queries (rest
 density on padding queries) and ``hits`` int32. At 4 groups: (nq*4,
 cap * sub / hit_sub), the pairs with r < h between query subgroup g
 (rows g*32 .. g*32+31, row b*4 + g) and run e of ``hit_sub`` particles
@@ -53,6 +57,7 @@ GROUPS = 4  # query subgroups of 32 rows
 TILE = 8  # candidate slots per tile of the dilated counts and the gate
 TILES_PER_WORD = 32 // GROUPS  # tiles packed into one int32 mask word
 DENSITY_ONLY = "densities only"  # density_c32's launch variant at groups=0
+FINE_ROWS = (32, 64)  # the queries a list serves on finer query blocks
 # pair elements per chunk of the plain versions
 CHUNK_PAIRS = 1 << 24
 
@@ -77,27 +82,28 @@ def _consts(params: SimulationParameters):
 
 
 def _density_torch(pos4, cand, count, params, qblock, sub: int, hit_sub: int,
-                   groups: int, hit2_h=None, panels=None):
-    """Plain density over ``sub``-particle candidate subblocks with hit
-    counts per (query subgroup of 128/groups rows, run of ``hit_sub``
-    candidate particles); at groups=1 the count is of the run's particles
-    that some query hits, at groups=0 there is none. ``hit2_h`` adds the
-    dilated per-(subgroup, tile) pair counts; ``panels`` (nq, 4, cap) bool
-    restricts the sums and counts to the flagged (subgroup, slot) panels.
-    Chunked over list rows."""
+                   groups: int, hit2_h=None, panels=None, qrows: int = BLOCK):
+    """Plain density over ``sub``-particle candidate subblocks for lists
+    that serve ``qrows`` queries each, with hit counts per (query subgroup
+    of qrows/groups rows, run of ``hit_sub`` candidate particles); at
+    groups=1 the count is of the run's particles that some query hits, at
+    groups=0 there is none. ``hit2_h`` adds the dilated per-(subgroup,
+    tile) pair counts; ``panels`` (nq, 4, cap) bool restricts the sums and
+    counts to the flagged (subgroup, slot) panels. Chunked over list
+    rows."""
     c = _consts(params)
     nq, cap = cand.shape
     dev = pos4.device
     runs = sub // hit_sub
-    density = torch.empty(nq * BLOCK, dtype=torch.float32, device=dev)
+    density = torch.empty(nq * qrows, dtype=torch.float32, device=dev)
     hits = torch.zeros((nq * groups, cap * runs), dtype=torch.int32, device=dev)
     ntiles = -(-cap // TILE)
     tiles = (None if hit2_h is None else
              torch.zeros((nq * GROUPS, ntiles), dtype=torch.int32, device=dev))
     slot = torch.arange(cap, device=dev)
     lane = torch.arange(sub, device=dev)
-    qlane = torch.arange(BLOCK, device=dev)
-    rows = max(1, CHUNK_PAIRS // (BLOCK * cap * sub))
+    qlane = torch.arange(qrows, device=dev)
+    rows = max(1, CHUNK_PAIRS // (qrows * cap * sub))
     for b0 in range(0, nq, rows):
         b1 = min(nq, b0 + rows)
         r = b1 - b0
@@ -106,21 +112,21 @@ def _density_torch(pos4, cand, count, params, qblock, sub: int, hit_sub: int,
         cp = pos4[ids]  # (r, cap, sub, 4)
         qb = (torch.arange(b0, b1, device=dev) if qblock is None
               else qblock[b0:b1].to(torch.int64))
-        q = pos4[qb[:, None] * BLOCK + qlane].reshape(r, BLOCK, 1, 1, 4)
+        q = pos4[qb[:, None] * qrows + qlane].reshape(r, qrows, 1, 1, 4)
         cq = cp[:, None]
         dx = q[..., 0] - cq[..., 0]
         dy = q[..., 1] - cq[..., 1]
         dz = q[..., 2] - cq[..., 2]
-        r2 = (dx * dx + dy * dy) + dz * dz  # (r, 128, cap, sub)
+        r2 = (dx * dx + dy * dy) + dz * dz  # (r, qrows, cap, sub)
         live4 = live[:, None, :, None]
         if panels is not None:
-            rows_on = panels[b0:b1, :, None, :].expand(r, GROUPS, BLOCK // GROUPS, cap)
-            live4 = live4 & rows_on.reshape(r, BLOCK, cap, 1)
+            rows_on = panels[b0:b1, :, None, :].expand(r, GROUPS, qrows // GROUPS, cap)
+            live4 = live4 & rows_on.reshape(r, qrows, cap, 1)
         t = torch.clamp(c["h2"] - r2, min=0.0)
         w = (c["poly6"] * cq[..., 3]) * (t * t * t)
         wsum = torch.where(live4, w, 0.0).sum(dim=(2, 3))
         real_q = q[:, :, 0, 0, 3] > 0
-        density[b0 * BLOCK : b1 * BLOCK] = torch.where(
+        density[b0 * qrows : b1 * qrows] = torch.where(
             real_q, c["mass"] * wsum, c["fluid_density"]
         ).reshape(-1)
         incl = (r2 < c["h2"]) & live4
@@ -129,12 +135,12 @@ def _density_torch(pos4, cand, count, params, qblock, sub: int, hit_sub: int,
                 dim=-1, dtype=torch.int32)
             hits[b0:b1] = cnt.reshape(r, cap * runs)
         elif groups:
-            cnt = incl.reshape(r, groups, BLOCK // groups, cap, runs, hit_sub).sum(
+            cnt = incl.reshape(r, groups, qrows // groups, cap, runs, hit_sub).sum(
                 dim=(2, 5), dtype=torch.int32)
             hits[b0 * groups : b1 * groups] = cnt.reshape(r * groups, cap * runs)
         if tiles is not None:
             near = (r2 < _f32(hit2_h * hit2_h)) & live4
-            per_slot = near.reshape(r, GROUPS, BLOCK // GROUPS, cap, sub).sum(
+            per_slot = near.reshape(r, GROUPS, qrows // GROUPS, cap, sub).sum(
                 dim=(2, 4), dtype=torch.int32)
             padded = torch.zeros((r, GROUPS, ntiles * TILE), dtype=torch.int32,
                                  device=dev)
@@ -156,9 +162,10 @@ def density_c16_torch(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tenso
 
 def density_c32_torch(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
                       params: SimulationParameters, groups: int = GROUPS,
-                      hit_sub: int = 32, qblock=None):
+                      hit_sub: int = 32, qblock=None, rows: int = BLOCK):
     """Plain PyTorch version of :func:`density_c32`."""
-    return _density_torch(pos4, cand, count, params, qblock, 32, hit_sub, groups)
+    return _density_torch(pos4, cand, count, params, qblock, 32, hit_sub, groups,
+                          qrows=rows)
 
 
 def pack_tile_nibbles(tiles: torch.Tensor) -> torch.Tensor:
@@ -198,18 +205,18 @@ def density_gated16_torch(pos4: torch.Tensor, cand: torch.Tensor, count: torch.T
                           panels=mask_panels(mask, cand.shape[1]))
 
 
-def _check(pos4, cand, count, qblock, extra=()):
+def _check(pos4, cand, count, qblock, extra=(), rows: int = BLOCK):
     if pos4.dtype != torch.float32 or pos4.dim() != 2 or pos4.shape[1] != 4:
         raise ValueError("pos4 must be (np, 4) float32")
-    if pos4.shape[0] % BLOCK:
-        raise ValueError(f"particle count {pos4.shape[0]} is not a multiple of {BLOCK}")
-    nb = pos4.shape[0] // BLOCK
+    if pos4.shape[0] % rows:
+        raise ValueError(f"particle count {pos4.shape[0]} is not a multiple of {rows}")
+    nb = pos4.shape[0] // rows
     if cand.dtype != torch.int32 or cand.dim() != 2:
         raise ValueError("cand must be (nq, cap) int32")
     nq = cand.shape[0]
     if qblock is None:
         if nq != nb:
-            raise ValueError("cand must have np/128 rows without a qblock map")
+            raise ValueError(f"cand must have np/{rows} rows without a qblock map")
     elif qblock.dtype != torch.int32 or qblock.shape != (nq,):
         raise ValueError("qblock must be (nq,) int32")
     if count.dtype != torch.int32 or count.shape != (nq,):
@@ -236,13 +243,14 @@ def _count(fn, variant: str) -> None:
     fn.variants[variant] = fn.variants.get(variant, 0) + 1
 
 
-def _launch(entry, pos4, cand, count, table, mode, consts, hit_shape, tile_shape=None):
+def _launch(entry, pos4, cand, count, table, mode, consts, hit_shape, tile_shape=None,
+            rows: int = BLOCK):
     """Launch C entry point ``entry`` on (pos4, cand, count, ``table``: the
     qblock map or the gate mask) with its integer ``mode`` arguments and
-    float ``consts``; density_c16's entry also takes the tile counts
-    (a null pointer without ``tile_shape``)."""
+    float ``consts`` for lists of ``rows`` queries; density_c16's entry
+    also takes the tile counts (a null pointer without ``tile_shape``)."""
     nq, cap = cand.shape
-    density = torch.empty(nq * BLOCK, dtype=torch.float32, device=pos4.device)
+    density = torch.empty(nq * rows, dtype=torch.float32, device=pos4.device)
     hits = torch.zeros(hit_shape, dtype=torch.int32, device=pos4.device)
     tiles = (None if tile_shape is None else
              torch.zeros(tile_shape, dtype=torch.int32, device=pos4.device))
@@ -289,22 +297,34 @@ def density_c16(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
 
 def density_c32(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
                 params: SimulationParameters, groups: int = GROUPS, hit_sub: int = 32,
-                qblock=None):
+                qblock=None, rows: int = BLOCK):
     """Density and hit counts over 32-wide lists, hits per query subgroup
     (``groups=4``, at ``hit_sub`` 32 or 16), per block (``groups=1``,
     hit_sub 32) or none (``groups=0``, hit_sub 32: the hits are (0, cap)).
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (building it at first use) or raise."""
-    _check(pos4, cand, count, qblock)
+    ``rows``: the queries a list row serves, 128, or 64 and 32 on finer
+    query blocks (groups 1 or 0 there; ``qblock`` counts blocks of
+    ``rows``). CPU tensors take the plain version; CUDA tensors launch
+    the kernel (building it at first use) or raise."""
+    _check(pos4, cand, count, qblock, rows=rows)
     if (groups, hit_sub) not in ((GROUPS, 32), (1, 32), (GROUPS, 16), (0, 32)):
         raise ValueError(f"density_c32: groups must be 0, 1 or {GROUPS} and hit_sub 32, "
                          f"or groups {GROUPS} at hit_sub 16; not ({groups}, {hit_sub})")
+    if rows not in FINE_ROWS + (BLOCK,) or (rows != BLOCK and groups not in (0, 1)):
+        raise ValueError(f"density_c32: rows must be {BLOCK}, or {FINE_ROWS} at groups 0 "
+                         f"or 1; not rows {rows} at groups {groups}")
     if _device("density_c32", pos4):
-        return density_c32_torch(pos4, cand, count, params, groups, hit_sub, qblock)
+        return density_c32_torch(pos4, cand, count, params, groups, hit_sub, qblock, rows)
     nq, cap = cand.shape
-    out = _launch("density_c32", pos4, cand, count, qblock, (groups, hit_sub),
-                  _kernel_consts(params), (nq * groups, cap * 32 // hit_sub))
-    _count(density_c32, f"groups {groups}, hit_sub {hit_sub}" if groups else DENSITY_ONLY)
+    if rows == BLOCK:
+        out = _launch("density_c32", pos4, cand, count, qblock, (groups, hit_sub),
+                      _kernel_consts(params), (nq * groups, cap * 32 // hit_sub))
+        _count(density_c32, f"groups {groups}, hit_sub {hit_sub}" if groups
+               else DENSITY_ONLY)
+    else:
+        out = _launch("density_c32_rows", pos4, cand, count, qblock, (groups, rows),
+                      _kernel_consts(params), (nq * groups, cap), rows=rows)
+        _count(density_c32, (f"groups 1, rows {rows}" if groups
+                             else f"{DENSITY_ONLY}, rows {rows}"))
     return out
 
 

@@ -12,22 +12,25 @@ force kernel together with its ``_combine_forces``:
   ``csrc/forces_q32.cu``;
 * :func:`forces_q128_c32`: ``fused_forces_nl``, 32-particle subblocks
   per 128-row query block (the q128 path and the tier 2 of the 32-wide
-  tables); ``csrc/forces_c32.cu``.
+  tables), and at ``rows`` 64 or 32 per query block of those rows (finer
+  query blocks: ``nl_query_rows`` 64 or 32, ``block_size`` 64, and
+  ``fused_forces_asm`` at 32 rows); ``csrc/forces_c32.cu``.
 
-Inputs, for ``np`` particles in ``np / 128`` Morton blocks:
+Inputs, for ``np`` particles in ``np / R`` query blocks of R = 128 rows
+(``forces_q128_c32``'s ``rows`` otherwise):
 
 * ``f8`` (np, 8) float32 [x, y, z, vx, vy, vz, pm, mr] from
   :func:`force_pack`, pm = m p / rho^2 and mr = m / rho (rho guarded to
   1 where it is 0; both 0 on padding particles);
 * ``density`` (np,) float32 and ``real`` (np,) bool;
 * ``cand`` (nq*L, cap) int32: candidate ids per list, L = 4 lists of 32
-  query rows (row b*4 + g) or L = 1 list of 128 rows per row block,
+  query rows (row b*4 + g) or L = 1 list of R rows per row block,
   dead slots after ``count`` (nq*L,) int32;
 * ``qblock`` (nq,) int32 or None: the query block of each row block
   (the two-tier path runs gathered heavy blocks against the full
-  arrays); None is the identity, nq = np / 128.
+  arrays); None is the identity, nq = np / R.
 
-Output: the acceleration (nq*128, 3) float32 of the row blocks' queries,
+Output: the acceleration (nq*R, 3) float32 of the row blocks' queries,
 0 on padding queries.
 """
 
@@ -39,6 +42,7 @@ import torch
 from ...core import smoothing
 from ...core.params import SimulationParameters
 from . import build
+from .density import FINE_ROWS
 
 BLOCK = 128  # queries per block
 GROUPS = 4  # query subgroups per block
@@ -92,23 +96,25 @@ def combine(press, visc, normal, lap, density, real, c: dict) -> torch.Tensor:
     return torch.where(real[:, None], total / rho + g, 0.0)
 
 
-def _forces_torch(f8, density, real, cand, count, params, qblock, qrows: int, sub: int):
+def _forces_torch(f8, density, real, cand, count, params, qblock, qrows: int, sub: int,
+                  block: int = BLOCK):
     """Plain force pass over ``sub``-particle candidate lists shared by
-    ``qrows`` query rows, chunked over lists."""
+    ``qrows`` query rows, ``block // qrows`` lists to a query block of
+    ``block`` rows (the unit of ``qblock``), chunked over lists."""
     c = _consts(params)
     nrows, cap = cand.shape
-    lists = BLOCK // qrows  # lists per row block
+    lists = block // qrows  # lists per row block
     nq = nrows // lists
     dev = f8.device
-    press = torch.empty((nq * BLOCK, 3), dtype=torch.float32, device=dev)
-    visc = torch.empty((nq * BLOCK, 3), dtype=torch.float32, device=dev)
-    normal = torch.empty((nq * BLOCK, 3), dtype=torch.float32, device=dev)
-    lap = torch.empty(nq * BLOCK, dtype=torch.float32, device=dev)
+    press = torch.empty((nq * block, 3), dtype=torch.float32, device=dev)
+    visc = torch.empty((nq * block, 3), dtype=torch.float32, device=dev)
+    normal = torch.empty((nq * block, 3), dtype=torch.float32, device=dev)
+    lap = torch.empty(nq * block, dtype=torch.float32, device=dev)
     slot = torch.arange(cap, device=dev)
     lane = torch.arange(sub, device=dev)
-    qlane = torch.arange(BLOCK, device=dev)
+    qlane = torch.arange(block, device=dev)
     qb_all = (torch.arange(nq, device=dev) if qblock is None else qblock.to(torch.int64))
-    qids = (qb_all[:, None] * BLOCK + qlane).reshape(nrows, qrows)  # per list
+    qids = (qb_all[:, None] * block + qlane).reshape(nrows, qrows)  # per list
     rows = max(1, CHUNK_PAIRS // (qrows * cap * sub))
     for r0 in range(0, nrows, rows):
         r1 = min(nrows, r0 + rows)
@@ -174,17 +180,18 @@ def forces_q32_c32_torch(f8, density, real, cand, count, params: SimulationParam
 
 
 def forces_q128_c32_torch(f8, density, real, cand, count, params: SimulationParameters,
-                          qblock=None):
+                          qblock=None, rows: int = BLOCK):
     """Plain PyTorch version of :func:`forces_q128_c32`."""
-    return _forces_torch(f8, density, real, cand, count, params, qblock, 128, 32)
+    return _forces_torch(f8, density, real, cand, count, params, qblock, rows, 32,
+                         block=rows)
 
 
-def _check(f8, density, real, cand, count, qblock, lists: int):
+def _check(f8, density, real, cand, count, qblock, lists: int, block: int = BLOCK):
     if f8.dtype != torch.float32 or f8.dim() != 2 or f8.shape[1] != 8:
         raise ValueError("f8 must be (np, 8) float32")
     npart = f8.shape[0]
-    if npart % BLOCK:
-        raise ValueError(f"particle count {npart} is not a multiple of {BLOCK}")
+    if npart % block:
+        raise ValueError(f"particle count {npart} is not a multiple of {block}")
     if density.dtype != torch.float32 or density.shape != (npart,):
         raise ValueError("density must be (np,) float32")
     if real.dtype != torch.bool or real.shape != (npart,):
@@ -193,8 +200,8 @@ def _check(f8, density, real, cand, count, qblock, lists: int):
         raise ValueError(f"cand must be (nq*{lists}, cap) int32")
     nq = cand.shape[0] // lists
     if qblock is None:
-        if nq != npart // BLOCK:
-            raise ValueError(f"cand must have np/128*{lists} rows without a qblock map")
+        if nq != npart // block:
+            raise ValueError(f"cand must have np/{block}*{lists} rows without a qblock map")
     elif qblock.dtype != torch.int32 or qblock.shape != (nq,):
         raise ValueError("qblock must be (nq,) int32")
     if count.dtype != torch.int32 or count.shape != (cand.shape[0],):
@@ -208,10 +215,11 @@ def _check(f8, density, real, cand, count, qblock, lists: int):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(name, f8, density, real, cand, count, qblock, params, lists, *extra):
+def _launch(name, f8, density, real, cand, count, qblock, params, lists, *extra,
+            block: int = BLOCK):
     c = _consts(params)
     nq = cand.shape[0] // lists
-    accel = torch.empty((nq * BLOCK, 3), dtype=torch.float32, device=f8.device)
+    accel = torch.empty((nq * block, 3), dtype=torch.float32, device=f8.device)
     stream = torch.cuda.current_stream(f8.device).cuda_stream
     status = getattr(build.load_library(), name + "_launch")(
         f8.data_ptr(), density.data_ptr(), real.data_ptr(), cand.data_ptr(),
@@ -226,17 +234,21 @@ def _launch(name, f8, density, real, cand, count, qblock, params, lists, *extra)
 
 
 def _dispatch(fn, plain, entry, f8, density, real, cand, count, params, qblock,
-              qrows, *extra):
+              qrows, *extra, block: int = BLOCK, variant=None):
     """Check the inputs, then run the plain version on CPU tensors or
-    launch C entry point ``entry`` (counting the launch on ``fn``)."""
-    lists = BLOCK // qrows
-    _check(f8, density, real, cand, count, qblock, lists)
+    launch C entry point ``entry`` (counting the launch on ``fn``, and on
+    ``fn.variants[variant]`` where a variant is named)."""
+    lists = block // qrows
+    _check(f8, density, real, cand, count, qblock, lists, block)
     if f8.device.type == "cpu":
         return plain(f8, density, real, cand, count, params, qblock)
     if f8.device.type != "cuda":
         raise ValueError(f"{fn.__name__}: unsupported device {f8.device}")
-    accel = _launch(entry, f8, density, real, cand, count, qblock, params, lists, *extra)
+    accel = _launch(entry, f8, density, real, cand, count, qblock, params, lists, *extra,
+                    block=block)
     fn.launches += 1
+    if variant is not None:
+        fn.variants[variant] = fn.variants.get(variant, 0) + 1
     return accel
 
 
@@ -268,13 +280,26 @@ def forces_q32_c32(f8, density, real, cand, count, params: SimulationParameters,
 
 
 def forces_q128_c32(f8, density, real, cand, count, params: SimulationParameters,
-                    qblock=None):
-    """Accelerations over 32-particle subblocks per 128-row block (lists
-    (nq, cap)). CPU tensors take the plain version; CUDA tensors launch
-    the kernel (building it at first use) or raise."""
-    return _dispatch(forces_q128_c32, forces_q128_c32_torch, "forces_c32", f8, density,
-                     real, cand, count, params, qblock, 128)
+                    qblock=None, rows: int = BLOCK):
+    """Accelerations over 32-particle subblocks per query block of
+    ``rows`` rows (lists (nq, cap)): 128, or 64 and 32 on finer query
+    blocks (``qblock`` counts blocks of ``rows``). CPU tensors take the
+    plain version; CUDA tensors launch the kernel (building it at first
+    use) or raise."""
+    if rows not in FINE_ROWS + (BLOCK,):
+        raise ValueError(f"forces_q128_c32: rows must be {BLOCK} or one of {FINE_ROWS}, "
+                         f"not {rows}")
+
+    def plain(*args):
+        return forces_q128_c32_torch(*args, rows=rows)
+
+    if rows == BLOCK:
+        return _dispatch(forces_q128_c32, plain, "forces_c32", f8, density, real, cand,
+                         count, params, qblock, BLOCK, variant=f"rows {rows}")
+    return _dispatch(forces_q128_c32, plain, "forces_c32_rows", f8, density, real, cand,
+                     count, params, qblock, rows, rows, block=rows, variant=f"rows {rows}")
 
 
 for _fn in (forces_q32_c8, forces_q32_c16, forces_q32_c32, forces_q128_c32):
     _fn.launches = 0
+forces_q128_c32.variants = {}

@@ -16,6 +16,7 @@ import bench_torch
 from libclsph_tpu_torch.core.state import ParticleState
 from libclsph_tpu_torch.engine import step
 from libclsph_tpu_torch.engine.simulation import SPHSimulation
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 BENCH_DETAIL = {"n", "steps", "elapsed_s", "ms_per_step", "impl", "scene", "platform",
                 "final_dt", "timed_flags"}
@@ -62,8 +63,8 @@ def test_off_the_nl_shape_rebuilds_every_substep():
     (("--exchange", "ring"), "ROADMAP.md queue 1 item 5"),
     (("--halo-hops", "2"), "ROADMAP.md queue 1 item 5"),
     (("--tile-mode", "mxu"), "ROADMAP.md queue 2 C"),
-    (("--block-size", "64"), "ROADMAP.md queue 1 item 4"),
-    (("--nl-query-rows", "32"), "ROADMAP.md queue 1 item 4"),
+    (("--block-size", "96"), "StepConfig.block_size=96: use one of (64, 128, 256)"),
+    (("--nl-query-rows", "16"), "StepConfig.nl_query_rows=16: use one of (32, 64, 128)"),
 ], ids=["cand-interval", "mesh", "exchange", "halo", "mxu", "block-size", "nl-query-rows"])
 def test_refusals(argv, message):
     with pytest.raises(SystemExit) as e:

@@ -24,6 +24,7 @@ from libclsph_tpu.scene.scene import Scene as JScene
 from libclsph_tpu_torch import interop
 from libclsph_tpu_torch.engine.simulation import SPHSimulation
 from test_torch_step import JAX_MAIN_PATH
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 N = 4096
 WARMUP, STEPS = 3, 4

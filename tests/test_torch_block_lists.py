@@ -26,6 +26,7 @@ from libclsph_tpu_torch.engine import step
 from libclsph_tpu_torch.ops import tiles
 from libclsph_tpu_torch.ops.interactions import tait_pressure
 from libclsph_tpu_torch.ops.kernels import blocks, density, forces
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 WATER = dict(fluid_density=998.29, dynamic_viscosity=3.5, restitution=0, k=100,
              surface_tension_threshold=7.065, surface_tension=0.0728,

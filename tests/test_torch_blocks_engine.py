@@ -22,6 +22,7 @@ from test_torch_qpath import assert_passes_match, clustered_state, jax_substep, 
 from test_torch_step import JAX_MAIN_PATH
 from test_torch_tier2 import N as TIER2_N
 from test_torch_tier2 import two_tier_config
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def test_no_hit_compact_two_tier_substep_matches_jax():

@@ -7,6 +7,7 @@ on the JAX side, so they have a file of their own).
 import pytest
 
 from test_torch_blocks import assert_substep_matches_jax
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.mark.parametrize("name", ["asm", "no_hit_compact"])

@@ -38,6 +38,7 @@ from libclsph_tpu_torch.ops import grid as tgrid
 from libclsph_tpu_torch.ops import integrate as tintegrate
 from libclsph_tpu_torch.ops import interactions as tinter
 from libclsph_tpu_torch.scene.scene import Scene as TScene
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ULP2 = 2.4e-7  # two float32 ulps, relative

@@ -49,6 +49,7 @@ from libclsph_tpu_torch.ops.interactions import tait_pressure
 from libclsph_tpu_torch.ops import radix_sort
 from libclsph_tpu_torch.ops import tiles as tiles_ops
 from libclsph_tpu_torch.ops.kernels import blocks, density, forces, radix
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 WATER = dict(fluid_density=998.29, dynamic_viscosity=3.5, restitution=0, k=100,
              surface_tension_threshold=7.065, surface_tension=0.0728,
@@ -977,3 +978,246 @@ def test_fine_route_equals_forces_q32_c32_bitwise(block_tables, cuda):
                                 ids.repeat_interleave(4, dim=0).contiguous(),
                                 counts.repeat_interleave(4).contiguous(), p)
     assert torch.equal(a, a32)
+
+
+# Finer query blocks: density_c32 at 1 or 0 groups and forces_q128_c32 on
+# lists that serve 64 or 32 query rows (nl_query_rows 64 or 32,
+# block_size 64, asm at 32 rows), templated instantiations of the 128-row
+# kernels.
+ROWS = [64, 32]
+ROWS_CASES = ["identity", "qblock", "ragged", "count0", "np64"]
+
+
+@pytest.fixture(scope="module")
+def rows_tables(tables):
+    """The port's own 32-wide tables at nl_query_rows 64 and 32 on the
+    clumped cloud: refined lists (nb * 128/R rows), the plain density's
+    block hit counts and the compacted force lists."""
+    params = tables["params"]
+    out = {}
+    for rows in ROWS:
+        cfg = step.StepConfig(**Q_PATH, nl_query_rows=rows, cand_interval=1)
+        st, real, _ = step.pad_and_sort(_clumped_state(params, 12), params, True)
+        cand_sub, count_sub, flags = step.build_candidates(st, real, params, cfg)
+        assert int(flags) == 0 and cand_sub.shape[0] == st.n // rows
+        pos4 = density.pos_pack(st.position, real)
+        dens, hits = density.density_c32_torch(pos4, cand_sub, count_sub, params, groups=1,
+                                               rows=rows)
+        cand_f, count_f, hflags = step.hit_lists(cand_sub, hits, cfg, 1)
+        assert int(hflags) == 0
+        pres = torch.where(real, tait_pressure(dens, params), 0.0)
+        f8 = forces.force_pack(st.position, st.velocity, dens, pres, real,
+                               params.particle_mass)
+        out[rows] = dict(params=params, pos4=pos4, cand_sub=cand_sub, count_sub=count_sub,
+                         dens=dens, real=real, f8=f8, cand_f=cand_f, count_f=count_f)
+    return out
+
+
+def _drop_tail(cand, count, limit):
+    """The lists with every id at or past ``limit`` removed (live ids
+    kept in order)."""
+    sent = tiles_ops.REFINE_SENTINEL
+    live = (torch.arange(cand.shape[1])[None, :] < count[:, None]) & (cand < limit)
+    keys = torch.where(live, cand, sent)
+    order = torch.sort((~live).to(torch.int8), dim=1, stable=True).indices
+    return (torch.gather(keys, 1, order).contiguous(),
+            live.sum(dim=1, dtype=torch.int32).contiguous())
+
+
+def _rows_inputs(t, rows, case, cand_key, count_key):
+    """(particle pack, cand, count, qblock, np) of a finer-rows case on
+    the CPU: "np64" cuts the particles to a multiple of 64 that is not
+    one of 128 (its last 64 particles and every list entry into them
+    dropped)."""
+    cand, count, qblock = t[cand_key], t[count_key], None
+    npart = t["pos4"].shape[0]
+    if case == "qblock":
+        qblock = _pool(cand.shape[0], "cpu")
+        cand, count = cand[qblock.long()].contiguous(), count[qblock.long()].contiguous()
+    elif case == "ragged":
+        count = torch.minimum(count, 1 + torch.arange(count.shape[0], dtype=torch.int32) % 7)
+    elif case == "count0":
+        count = torch.zeros_like(count)
+        count[::3] = t[count_key][::3]
+    elif case == "np64":
+        npart -= 64
+        keep = npart // rows
+        cand, count = _drop_tail(cand[:keep], count[:keep], npart // 32)
+        assert npart % 128 == 64 and int(count.sum()) > 0
+    return npart, cand, count.contiguous(), qblock
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ROWS_CASES)
+@pytest.mark.parametrize("groups", [1, 0])
+@pytest.mark.parametrize("rows", ROWS)
+def test_density_c32_rows_match_plain(rows_tables, cuda, rows, groups, case):
+    t = rows_tables[rows]
+    npart, cand, count, qblock = _rows_inputs(t, rows, case, "cand_sub", "count_sub")
+    pos4, cand, count, qblock = _on(cuda, t["pos4"][:npart].contiguous(), cand, count, qblock)
+    kw = dict(groups=groups, qblock=qblock, rows=rows)
+    before = density.density_c32.variants.get(
+        f"groups 1, rows {rows}" if groups else f"densities only, rows {rows}", 0)
+    d, hits = density.density_c32(pos4, cand, count, t["params"], **kw)
+    torch.cuda.synchronize()
+    assert density.density_c32.variants[
+        f"groups 1, rows {rows}" if groups else f"densities only, rows {rows}"] == before + 1
+    d0, hits0 = density.density_c32_torch(pos4, cand, count, t["params"], **kw)
+    np.testing.assert_allclose(d.cpu().numpy(), d0.cpu().numpy(), rtol=1e-5)
+    assert torch.equal(hits, hits0)
+    assert hits.shape == (cand.shape[0] * groups, cand.shape[1])
+    assert int(hits0.sum()) > 0 or groups == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ROWS_CASES)
+@pytest.mark.parametrize("rows", ROWS)
+def test_forces_rows_match_plain(rows_tables, cuda, rows, case):
+    """forces_q128_c32 at 64 and 32 rows against its plain version, and,
+    where the lists are unmapped, bit for bit against forces_q32_c32 over
+    each list repeated for its 32-row subgroups (each query adds its
+    in-support candidates in ascending order)."""
+    t = rows_tables[rows]
+    npart, cand, count, qblock = _rows_inputs(t, rows, case, "cand_f", "count_f")
+    f8, dens, real = (x[:npart].contiguous() for x in (t["f8"], t["dens"], t["real"]))
+    f8, dens, real, cand, count, qblock = _on(cuda, f8, dens, real, cand, count, qblock)
+    p = t["params"]
+    before = forces.forces_q128_c32.variants.get(f"rows {rows}", 0)
+    a = forces.forces_q128_c32(f8, dens, real, cand, count, p, qblock=qblock, rows=rows)
+    torch.cuda.synchronize()
+    assert forces.forces_q128_c32.variants[f"rows {rows}"] == before + 1
+    a0 = forces.forces_q128_c32_torch(f8, dens, real, cand, count, p, qblock=qblock,
+                                      rows=rows).cpu().numpy()
+    assert a.shape == (cand.shape[0] * rows, 3)
+    np.testing.assert_allclose(a.cpu().numpy(), a0, atol=1e-5 * np.abs(a0).max())
+    if qblock is None and npart % 128 == 0:
+        sub = rows // 32
+        a32 = forces.forces_q32_c32(f8, dens, real, cand.repeat_interleave(sub, dim=0),
+                                    count.repeat_interleave(sub), p)
+        assert torch.equal(a, a32)
+
+
+def _small_force_pack(pos4, params, seed):
+    real = pos4[:, 3] > 0
+    cand = torch.arange(pos4.shape[0] // 32, dtype=torch.int32)
+    dens = density.density_c32_torch(pos4, cand.repeat(pos4.shape[0] // 128, 1).contiguous(),
+                                     torch.full((pos4.shape[0] // 128,), cand.shape[0],
+                                                dtype=torch.int32), params, groups=0)[0]
+    vel = torch.as_tensor(np.random.default_rng(seed).normal(
+        size=(pos4.shape[0], 3)).astype(np.float32))
+    return forces.force_pack(pos4[:, :3].contiguous(), vel, dens,
+                             tait_pressure(dens, params), real, params.particle_mass), dens, real
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ROWS)
+def test_rows_margin_pair_beside_culled_run(tables, cuda, rows):
+    """The margin cloud at 64 and 32 rows: a pair just inside h beside a
+    run the box test culls, and a run within the test's margin; density,
+    block counts and forces against their plain versions, the forces bit
+    for bit against forces_q32_c32."""
+    p = tables["params"]
+    m = _margin_tables(p)
+    pos4 = m["pos4"]
+    nq = pos4.shape[0] // rows
+    cand = torch.arange(8, dtype=torch.int32).repeat(nq, 1).contiguous()
+    count = torch.full((nq,), 8, dtype=torch.int32)
+    f8, dens, real = _small_force_pack(pos4, p, 25)
+    pos4, cand, count, f8, dens, real = _on(cuda, pos4, cand, count, f8, dens, real)
+    d, hits = density.density_c32(pos4, cand, count, p, groups=1, rows=rows)
+    d0, hits0 = density.density_c32_torch(pos4, cand, count, p, groups=1, rows=rows)
+    np.testing.assert_allclose(d.cpu().numpy(), d0.cpu().numpy(), rtol=1e-5)
+    assert torch.equal(hits, hits0)
+    # subgroup 0 (rows 0-31, in list 0) has the pair just inside h in
+    # slot 4, half 0 (its 8 particles) and the 0.5 h run in half 1
+    assert int(hits[0, 4]) == 16
+    a = forces.forces_q128_c32(f8, dens, real, cand, count, p, rows=rows)
+    a0 = forces.forces_q128_c32_torch(f8, dens, real, cand, count, p, rows=rows)
+    np.testing.assert_allclose(a.cpu().numpy(), a0.cpu().numpy(),
+                               atol=1e-5 * float(a0.abs().max()))
+    a32 = forces.forces_q32_c32(f8, dens, real, cand.repeat_interleave(rows // 32, dim=0),
+                                count.repeat_interleave(rows // 32), p)
+    assert torch.equal(a, a32)
+
+
+@pytest.mark.cuda
+def test_rows32_self_exclusion(q_tables, cuda):
+    """forces_q128_c32 at 32 rows on pairs at r = 0 and below the spiky
+    guard: each query excludes only itself (by id), bit for bit with
+    forces_q32_c32 over the same lists."""
+    p = q_tables["params"]
+    f8, dens, real, cand, count = _near_eps_tables(p)
+    cand = torch.arange(8, dtype=torch.int32).repeat(8, 1).contiguous()
+    count = torch.full((8,), 8, dtype=torch.int32)
+    f8, dens, real, cand, count = _on(cuda, f8, dens, real, cand, count)
+    a = forces.forces_q128_c32(f8, dens, real, cand, count, p, rows=32)
+    a0 = forces.forces_q128_c32_torch(f8, dens, real, cand, count, p, rows=32)
+    assert float(a0.abs().max()) > 0
+    np.testing.assert_allclose(a.cpu().numpy(), a0.cpu().numpy(),
+                               atol=1e-5 * float(a0.abs().max()))
+    assert torch.equal(a, forces.forces_q32_c32(f8, dens, real, cand, count, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [64, 256])
+@pytest.mark.parametrize("variant", ["row", "fine", "asym"])
+def test_block_passes_at_other_block_sizes_match_plain(tables, cuda, block, variant):
+    """density_blocks and forces_blocks at block_size 64 (64-row lists)
+    and 256 (each block's list for its two 128-row halves)."""
+    p = tables["params"]
+    cfg = step.StepConfig(pallas_variant=variant, block_size=block, cand_interval=1,
+                          max_candidates=256)
+    st, real, _ = step.pad_and_sort(_clumped_state(p, 18), p, True, block_size=block)
+    nb = st.n // block
+    bmin, bmax = tiles_ops.split_block_bounds(st.position.reshape(nb, block, 3),
+                                              real.reshape(nb, block))
+    cand, count, ovf = tiles_ops.candidate_blocks_auto(bmin, bmax, p.h, cfg.max_candidates)
+    assert not bool(ovf)
+    pos4 = density.pos_pack(st.position, real)
+    d0 = blocks.density_blocks_torch(pos4, cand, count, p, block=block)
+    f8 = forces.force_pack(st.position, st.velocity, d0,
+                           torch.where(real, tait_pressure(d0, p), 0.0), real,
+                           p.particle_mass)
+    q_div = 4 if variant == "fine" else 1
+    a0 = blocks.forces_blocks_torch(f8, d0, real, cand, count, p, q_div, block=block)
+    pos4, cand, count, f8, d0c, realc = _on(cuda, pos4, cand, count, f8, d0, real)
+    d = blocks.density_blocks(pos4, cand, count, p, block=block)
+    a = blocks.forces_blocks(f8, d0c, realc, cand, count, p, q_div, block=block)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(d.cpu().numpy(), d0.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(a.cpu().numpy(), a0.numpy(), atol=1e-5 * float(a0.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [
+    dict(Q_PATH, nl_query_rows=64, cand_interval=1),
+    dict(Q_PATH, nl_query_rows=32, cand_interval=1),
+    dict(Q_PATH, nl_query_rows=64, hit_compact=False, cand_interval=1,
+         max_candidates_sub=512),
+    dict(pallas_variant="asm", nl_query_rows=32, cand_interval=1, density_sub16=False,
+         force_sub8=False, max_candidates_sub=512, max_candidates_hit=256),
+    dict(Q_PATH, block_size=64, max_candidates_sub=60, tier2_frac=2, tier2_mult=4),
+    dict(Q_PATH, block_size=256, cand_interval=1, max_candidates=256,
+         max_candidates_sub=512),
+    dict(Q_PATH, block_size=256, nl_query_rows=32, cand_interval=1, max_candidates=256),
+    dict(refine_mode="aabb", force_sub8=False, max_candidates_sub=400,
+         max_candidates_hit16=256),
+    dict(Q_PATH, refine_mode="aabb", nl_query_rows=32, cand_interval=1,
+         max_candidates_sub=400),
+], ids=["nl-q64", "nl-q32", "nl-q64-no-hit-compact", "asm-q32", "b64-tier2", "b256",
+        "b256-q32", "aabb", "aabb-q32"])
+def test_shape_substeps_on_gpu_match_cpu(tables, cuda, over):
+    """Whole substeps of the finer query blocks, the other block sizes and
+    the aabb refine on the card (kernels) against the CPU (plain
+    versions), on the clumped cloud."""
+    p = tables["params"]
+    st = _clumped_state(p, 13)
+    dt = torch.tensor(p.max_dt, dtype=torch.float32)
+    cfg = step.StepConfig(**over)
+    c1, _, cf, _ = step.substep(st, dt, p, None, cfg)
+    g1, _, gf, _ = step.substep(st.map(lambda a: a.to(cuda)), dt.to(cuda), p, None, cfg)
+    assert int(cf) == int(gf) == 0
+    torch.testing.assert_close(g1.grid_index.cpu(), c1.grid_index)
+    np.testing.assert_allclose(g1.density.cpu().numpy(), c1.density.numpy(), rtol=1e-5)
+    a = c1.acceleration.numpy()
+    np.testing.assert_allclose(g1.acceleration.cpu().numpy(), a, atol=1e-5 * np.abs(a).max())

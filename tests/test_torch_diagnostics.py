@@ -12,6 +12,7 @@ from conftest import WATER, make_params
 from libclsph_tpu.utils import diagnostics as jdiag
 from libclsph_tpu_torch import interop
 from libclsph_tpu_torch.utils import diagnostics
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 N = 1000
 

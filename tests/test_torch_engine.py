@@ -30,6 +30,7 @@ from libclsph_tpu_torch.engine import simulation as tsim
 from libclsph_tpu_torch.engine import step as tstep
 from libclsph_tpu_torch.ops import interactions as tinter
 from test_torch_step import assert_states_match, random_state, run_pair
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 2048

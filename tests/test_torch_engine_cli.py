@@ -15,6 +15,7 @@ from libclsph_tpu_torch import cli, interop
 from libclsph_tpu_torch.engine import simulation as tsim
 from libclsph_tpu_torch.engine import step as tstep
 from test_torch_engine import _root
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def test_cli_writes_frames_resumes_and_refuses_stale_checkpoint(tmp_path, monkeypatch):

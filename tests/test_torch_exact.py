@@ -44,6 +44,7 @@ from libclsph_tpu_torch.ops.kernels import radix as tradix_kernels
 from test_torch_engine import _root
 from test_torch_qpath import jax_substep, port_substep
 from test_torch_step import JAX_MAIN_PATH, assert_states_match, random_state
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 EXACT = dict(neighbor_impl="exact", sort_interval=1, cand_interval=1, cell_capacity=96)
 

@@ -14,6 +14,7 @@ import torch
 import bench_torch
 from libclsph_tpu_torch.core.state import init_state
 from libclsph_tpu_torch.engine.simulation import SPHSimulation
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 sys.path.insert(0, os.path.join(bench_torch.ROOT, "experiments"))
 import torch_fidelity_64k as free  # noqa: E402

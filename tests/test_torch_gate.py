@@ -36,6 +36,7 @@ from libclsph_tpu_torch.engine import step as tstep
 from libclsph_tpu_torch.ops.kernels import density
 from test_torch_step import random_state
 from test_torch_sub16 import SHAPES, jax_blocks, sorted_cloud
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 N = 2000
 B = 128

@@ -7,6 +7,7 @@ Tolerances as in test_torch_sub16.py.
 from conftest import WATER, make_params
 from test_torch_gate import TTF
 from test_torch_step import assert_pair_matches, random_state, run_pair
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def test_gated_substep_pair_matches_jax():

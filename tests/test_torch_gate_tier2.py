@@ -8,6 +8,7 @@ from conftest import WATER, make_params
 from test_torch_gate import TTF
 from test_torch_step import assert_pair_matches, random_state, run_pair
 from test_torch_tier2 import two_tier_config
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def test_two_tier_substep_pair_matches_jax():

@@ -12,6 +12,7 @@ import pytest
 
 from libclsph_tpu.io import geo_format as jgeo
 from libclsph_tpu_torch.io import geo_format, native
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def seeded_frame(n=500):

@@ -27,6 +27,7 @@ from libclsph_tpu.ops.pallas import neighbor_nl as nl
 from libclsph_tpu_torch import interop
 from libclsph_tpu_torch.ops import interactions as tinter
 from libclsph_tpu_torch.ops.kernels import build, density, forces
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 N = 2000
 B = 128

@@ -32,6 +32,7 @@ from libclsph_tpu_torch.engine import simulation as tsim
 from libclsph_tpu_torch.engine import step as tstep
 from libclsph_tpu_torch.models import presets as tpresets
 from test_torch_step import jax_config
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def blob_positions(n, params, seed=1234):

@@ -11,6 +11,7 @@ import torch
 
 from libclsph_tpu.utils import profiling as jprofiling
 from libclsph_tpu_torch.utils import profiling
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.mark.parametrize("value", [lambda i: torch.tensor(float(i)), float],

@@ -30,6 +30,7 @@ from libclsph_tpu_torch.ops import tiles as ttiles
 from libclsph_tpu_torch.ops.kernels import density, forces
 from test_torch_step import JAX_MAIN_PATH, random_state
 from test_torch_tiles import assert_tables_equal
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 N = 2000
 B = 128

@@ -31,6 +31,7 @@ from libclsph_tpu_torch import interop
 from libclsph_tpu_torch.ops import radix_sort
 from libclsph_tpu_torch.ops.kernels import blocks, density, radix
 from test_torch_exact import _keys, np_
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 B = 128
 

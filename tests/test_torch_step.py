@@ -23,6 +23,7 @@ from libclsph_tpu.core.state import ParticleState as JState
 from libclsph_tpu.engine import step as jstep
 from libclsph_tpu_torch import interop
 from libclsph_tpu_torch.engine import step as tstep
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 N = 2048
 
@@ -190,8 +191,21 @@ def test_stale_reuse_is_flagged():
         ("tier2_frac", 8, {"force_sub8": False}, None),
         ("density_gate", True, {}, "force_sub8 is incompatible with density_gate"),
         ("force_query_rows", 128, {}, "density_sub16 requires .* force_query_rows=32"),
-        ("nl_query_rows", 32, {}, "ROADMAP.md"),
-        ("block_size", 256, {}, "ROADMAP.md"),
+        # finer query blocks and other block shapes take JAX's rules:
+        # the 16-granular tables need 128 query rows, reuse needs
+        # whole-block query rows (step.py:386-416)
+        ("nl_query_rows", 32, {}, "density_sub16 requires the nl variant at whole-128"),
+        ("block_size", 256, {}, "density_sub16 requires the nl variant at whole-128"),
+        ("nl_query_rows", 64, {"density_sub16": False, "force_sub8": False},
+         "cand_interval reuse requires the nl variant at whole-block query rows"),
+        ("nl_query_rows", 32, {"density_sub16": False, "force_sub8": False,
+                               "cand_interval": 1}, None),
+        ("block_size", 64, {"density_sub16": False, "force_sub8": False}, None),
+        ("block_size", 256, {"density_sub16": False, "force_sub8": False,
+                             "cand_interval": 1}, None),
+        ("block_size", 256, {"density_sub16": False, "force_sub8": False},
+         "cand_interval reuse requires the nl variant at whole-block query rows"),
+        ("refine_mode", "aabb", {}, None),
     ]
 ])
 def test_step_config_refuses_unported_variants(field, value, others, refusal):

@@ -35,6 +35,7 @@ from libclsph_tpu_torch.engine import step as tstep
 from libclsph_tpu_torch.ops.kernels import density, forces
 from test_torch_pretune import FLAGS, lattice_positions, sheet_positions, states
 from test_torch_step import assert_pair_matches, jax_config, random_state, run_pair
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 N = 2000
 B = 128

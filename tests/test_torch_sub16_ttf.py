@@ -8,6 +8,7 @@ file of their own, so that no file sets the length of a parallel run.
 import pytest
 
 from test_torch_sub16 import assert_substep_pair_matches_jax
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.mark.parametrize("width", [16], ids=["TTF"])

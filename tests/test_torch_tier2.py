@@ -30,6 +30,7 @@ from libclsph_tpu_torch.engine import step as tstep
 from libclsph_tpu_torch.ops import tiles as ttiles
 from test_torch_qpath import Q_PATH, assert_passes_match, clustered_state, port_substep
 from test_torch_step import JAX_MAIN_PATH
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 N = 4096
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

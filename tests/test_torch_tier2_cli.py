@@ -7,6 +7,7 @@ import os
 
 from libclsph_tpu_torch import cli
 from test_torch_tier2 import _tiny_root
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def test_cli_refuses_unported_tables_with_the_message(capsys, tmp_path, monkeypatch):

@@ -9,6 +9,7 @@ import pytest
 from libclsph_tpu_torch.engine import simulation as tsim
 from libclsph_tpu_torch.engine import step as tstep
 from test_torch_tier2 import _tiny_root
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.mark.parametrize("tables", [(True, True, False), (False, True, False)])

@@ -10,6 +10,7 @@ from conftest import WATER, make_params
 from libclsph_tpu_torch.engine import step as tstep
 from test_torch_qpath import assert_passes_match, clustered_state, port_substep
 from test_torch_tier2 import CONFIGS, N, assert_two_tier_substep_matches_jax, two_tier_config
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,7 @@ from libclsph_tpu.core import state as jstate
 from libclsph_tpu.ops import grid as jgrid
 from libclsph_tpu.ops import tiles as jtiles
 from libclsph_tpu_torch.ops import tiles as ttiles
+from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 B = 128
 
