@@ -32,8 +32,16 @@ Prints ONE JSON line with bench.py's keys; the number stands only with
 * ``detail`` adds ``card`` (``nvidia-smi`` name and power limit),
   ``host_cpu`` and ``config`` (the grown ``StepConfig``); ``platform`` is
   ``cuda`` or ``cpu``;
-* ``--mesh``, ``--exchange`` and ``--halo-*`` are refused (the port has no
-  ``parallel/`` yet), and so is ``--tile-mode mxu`` (a TPU-only layout).
+* ``--tile-mode mxu`` is refused (a TPU-only layout).
+
+``--mesh N`` (with ``--exchange``, ``--halo-max``, ``--halo-hops``) times
+the sharded frame loop over N ranks instead (bench.py's ``bench_mesh``;
+:mod:`libclsph_tpu_torch.parallel.bench` on each rank): the same warm-up,
+rehearsal and window of the frame loop on every rank, and bench.py's
+mesh JSON line with the collectives and their bytes per substep (those
+staged through host buffers apart) and whether the ranks shared a card.
+As in bench.py, the 8-wide force pass is off under the mesh. Ranks that
+share a card measure no multi-GPU scaling.
 
 Without a GPU it refuses to run unless ``--device cpu`` is given.
 """
@@ -53,12 +61,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # particles a run holds by default, on the card and on the CPU (bench.py)
 N_CARD = 1_000_000
 N_CPU = 32_768
-MESH_REFUSAL = ("bench_torch: --mesh, --exchange and --halo-* need the port's parallel/, "
-                "which is not written yet (ROADMAP.md queue 1 item 5)")
 MXU_REFUSAL = ("bench_torch: --tile-mode mxu is a TPU-only layout that the port does not "
                "run (ROADMAP.md queue 2 C); the port runs --tile-mode direct")
-# bench.py's values of the multi-chip flags, which a single-chip run keeps
-MESH_DEFAULTS = dict(mesh=0, exchange="all_gather", halo_max=0, halo_hops=1)
 
 
 def build_params(n: int, fluid_name: str = "water"):
@@ -123,25 +127,33 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--density-gate", action=argparse.BooleanOptionalAction,
                     default=d.density_gate)
     ap.add_argument("--json-only", action="store_true")
-    ap.add_argument("--mesh", type=int, default=MESH_DEFAULTS["mesh"], metavar="N",
-                    help="refused: the port has no sharded frame loop yet")
-    ap.add_argument("--exchange", default=MESH_DEFAULTS["exchange"],
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="time the sharded frame loop over N ranks, one process each")
+    ap.add_argument("--exchange", default="all_gather",
                     choices=["all_gather", "halo", "ring"])
-    ap.add_argument("--halo-max", type=int, default=MESH_DEFAULTS["halo_max"])
-    ap.add_argument("--halo-hops", type=int, default=MESH_DEFAULTS["halo_hops"])
+    ap.add_argument("--halo-max", type=int, default=0,
+                    help="surface blocks a rank sends under halo and ring (0: all)")
+    ap.add_argument("--halo-hops", type=int, default=1,
+                    help="ring hops a direction (the warm-up doubles them on "
+                    "FLAG_EXCHANGE, up to (N + 1) // 2)")
     return ap
 
 
 def config_from_args(args):
     """The ``StepConfig`` of a parsed command line (bench.py:254-295).
-    Exits with a message on the multi-chip flags, ``--tile-mode mxu``, a
-    ``--cand-interval`` that does not divide ``--sort-interval`` and any
-    combination ``StepConfig`` refuses; off the nl shape the candidate
-    tables are rebuilt every substep, as in bench.py."""
+    Exits with a message on ``--tile-mode mxu``, a negative ``--mesh`` or
+    ``--halo-max``, ``--halo-hops`` below 1, the exchange flags without
+    ``--mesh`` (they would do nothing), a ``--cand-interval`` that does not divide
+    ``--sort-interval`` and any combination ``StepConfig`` refuses; off
+    the nl shape the candidate tables are rebuilt every substep, as in
+    bench.py, and under ``--mesh`` the 8-wide force pass is off."""
     from libclsph_tpu_torch.engine.step import StepConfig
 
-    if any(getattr(args, k) != v for k, v in MESH_DEFAULTS.items()):
-        sys.exit(MESH_REFUSAL)
+    if min(args.mesh, args.halo_max) < 0 or args.halo_hops < 1:
+        sys.exit("bench_torch: --mesh and --halo-max must be >= 0, --halo-hops >= 1")
+    if not args.mesh and (args.exchange != "all_gather" or args.halo_max
+                          or args.halo_hops != 1):
+        sys.exit("bench_torch: --exchange, --halo-max and --halo-hops need --mesh N")
     if args.tile_mode != "direct":
         sys.exit(MXU_REFUSAL)
     if args.cand_interval > 1 and args.sort_interval % args.cand_interval:
@@ -160,7 +172,7 @@ def config_from_args(args):
         force_sub16=args.force_sub16,
         max_candidates_hit16=args.max_candidates_hit16,
         density_sub16=args.density_sub16,
-        force_sub8=args.force_sub8,
+        force_sub8=args.force_sub8 and not args.mesh,
         max_candidates_hit8=args.max_candidates_hit8,
         tier2_frac=args.tier2_frac,
         tier2_mult=args.tier2_mult,
@@ -339,6 +351,62 @@ def bench_result(n, steps, elapsed, flags, final_dt, fluid, impl, scene, device,
     }
 
 
+def bench_mesh(n, steps, warmup, fluid, scene, device, cfg, world, exchange="all_gather",
+               halo_max=0, halo_hops=1, log=print) -> tuple[dict, list]:
+    """``--mesh``: bench.py's ``bench_mesh`` over ``world`` ranks (each
+    :func:`libclsph_tpu_torch.parallel.bench.bench_rank`). Returns
+    (bench.py's mesh JSON record, the ranks' results)."""
+    import torch
+
+    from libclsph_tpu_torch.parallel import bench, mesh
+
+    params = build_params(n, fluid)
+    scene_file = None if scene == "none" else os.path.join(ROOT, "scenes", scene + ".obj")
+    ranks = mesh.launch(bench.bench_rank, world, device=str(device), log=log, args=(
+        params, cfg, scene_file, exchange, halo_max, halo_hops, warmup, steps))
+    cuda = torch.device(device).type == "cuda"
+    card = card_line() if cuda else None
+    return bench_mesh_record(ranks, n, steps, world, exchange, cuda, card), ranks
+
+
+def bench_mesh_record(ranks, n, steps, world, exchange, cuda, card) -> dict:
+    """bench.py's mesh JSON record (bench.py:152-169) from the ranks'
+    :func:`bench_rank` results: the slowest rank's window, the flags OR'd
+    over the ranks, rank 0's collectives per substep."""
+    import torch
+
+    elapsed = max(r["elapsed_s"] for r in ranks)
+    flags = 0
+    for r in ranks:
+        flags |= r["timed_flags"]
+    stats = ranks[0]["stats"]
+    psteps = n * steps / elapsed
+    return {
+        "metric": (f"sharded particle-steps/sec @ {n} x {world} ranks "
+                   f"({'cuda' if cuda else 'cpu'}, exchange={exchange})"),
+        "value": round(psteps, 1),
+        "unit": "particle-steps/s",
+        "vs_baseline": None,
+        "detail": {
+            "n": n, "mesh": world, "exchange": exchange, "halo_hops": ranks[0]["halo_hops"],
+            "halo_max": ranks[0]["halo_max"], "steps": steps,
+            "elapsed_s": round(elapsed, 4),
+            "ms_per_step": round(1000 * elapsed / steps, 3),
+            "platform": "cuda" if cuda else "cpu",
+            "timed_flags": flags,
+            # rank 0's collectives per substep: calls, bytes arriving on
+            # the rank, and bytes staged through host buffers
+            "collectives_per_substep": {k: v / steps for k, v in stats["calls"].items()},
+            "collective_bytes_per_substep": {k: v / steps for k, v in stats["bytes"].items()},
+            "staged_bytes_per_substep": stats["staged_bytes"] / steps,
+            "ranks_share_card": cuda and world > torch.cuda.device_count(),
+            "card": card,
+            "host_cpu": host_cpu(),
+            "config": ranks[0]["config"],
+        },
+    }
+
+
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
     cfg = config_from_args(args)
@@ -358,6 +426,16 @@ def main(argv=None) -> int:
             print(msg, file=sys.stderr, flush=True)
 
     n = args.n or (N_CARD if dev.type == "cuda" else N_CPU)
+    if args.mesh:
+        record, ranks = bench_mesh(n, args.steps, args.warmup, args.fluid, args.scene, dev,
+                                   cfg, args.mesh, args.exchange, args.halo_max,
+                                   args.halo_hops, log=log)
+        if record["detail"]["timed_flags"]:
+            log(f"WARNING: flags {record['detail']['timed_flags']} raised during the "
+                "timed run")
+        log(f"warm-up: {ranks[0]['warm_s']:.1f}s on rank 0")
+        print(json.dumps(record))
+        return 0
     params = build_params(n, args.fluid)
     scene = None
     if args.scene != "none":

@@ -145,7 +145,8 @@ import sys
 import tempfile
 import time
 
-from bench_torch import bench_result, card_line, run_substeps, sync, timed_window, warm_up
+from bench_torch import (bench_mesh_record, bench_result, card_line, run_substeps, sync,
+                         timed_window, warm_up)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EXPERIMENTS = os.path.join(ROOT, "experiments")
@@ -177,24 +178,24 @@ KERNELS = {
     "density_c16": ("density_c16", "hit_sub 8", CSRC + "density_c16.cu", NL + ":394",
                     NL_PATHS),
     "density_c16 hit_sub 16": ("density_c16", "hit_sub 16", CSRC + "density_c16.cu",
-                               NL + ":394", NL_PATHS),
+                               NL + ":394", NL_PATHS + ("mesh",)),
     "density_c16 hit_sub 16, hit2_h": ("density_c16", "hit_sub 16, hit2_h",
                                        CSRC + "density_c16.cu", NL + ":394", NL_PATHS),
     "density_gated16": ("density_gated16", None, CSRC + "density_gated16.cu", NL + ":612",
                         NL_PATHS),
     "density_c32": ("density_c32", "groups 4, hit_sub 32", CSRC + "density_c32.cu",
-                    NL + ":394", NL_PATHS),
+                    NL + ":394", NL_PATHS + ("mesh",)),
     "density_c32 groups 1": ("density_c32", "groups 1, hit_sub 32", CSRC + "density_c32.cu",
-                             NL + ":394", NL_PATHS),
+                             NL + ":394", NL_PATHS + ("mesh",)),
     "density_c32 hit_sub 16": ("density_c32", "groups 4, hit_sub 16",
                                CSRC + "density_c32.cu", NL + ":394", NL_PATHS),
     "forces_q32_c8": ("forces_q32_c8", None, CSRC + "forces_q32.cu", NL + ":1768", NL_PATHS),
     "forces_q32_c16": ("forces_q32_c16", None, CSRC + "forces_q32.cu", NL + ":1471",
-                       NL_PATHS),
+                       NL_PATHS + ("mesh",)),
     "forces_q32_c32": ("forces_q32_c32", None, CSRC + "forces_q32.cu", NL + ":1083",
-                       NL_PATHS),
+                       NL_PATHS + ("mesh",)),
     "forces_q128_c32": ("forces_q128_c32", None, CSRC + "forces_c32.cu", NL + ":730",
-                        NL_PATHS),
+                        NL_PATHS + ("mesh",)),
     # the asm variant: the 32-wide kernels at whole-block query rows
     "density_c32 groups 1 (asm)": ("density_c32", "groups 1, hit_sub 32",
                                    CSRC + "density_c32.cu", NL + ":2048", ("asm",)),
@@ -238,7 +239,7 @@ KERNELS = {
                            ("asym",)),
     # the whole sort; its count is of passes
     "radix_sort": ("radix_sort", None, CSRC + "radix_sort.cu",
-                   "libclsph_tpu/ops/radix_sort.py:87", ("exact",)),
+                   "libclsph_tpu/ops/radix_sort.py:87", ("exact", "mesh")),
 }
 BENCH_TAG = "1M lattice"  # the phase-2 tables whose times and bounds are recorded
 # one NVIDIA H100 SXM (data sheet): fp32 outside the tensor cores, HBM3
@@ -267,6 +268,20 @@ FEW_STEPS = 8  # timed substeps of the fine and asym variants (phase 7)
 N_EXACT = 64_000
 VIEW_FRAMES = 3  # frames of the rendered 1M cube (phase 10)
 EMITTER_FRAMES = 5  # frames of the 256k emitter (phase 11)
+MESH_RANKS = 4  # phase 12: ranks that share the one card
+MESH_STEPS = 10  # timed substeps of phase 12c
+MESH_FRAMES = 2  # frames of the mesh CLI run (phase 12d)
+# phase 12a: (label, exchange, halo_hops, StepConfig fields) of each
+# sharded substep held against the single-chip substep; ring at 2 hops
+# covers 4 ranks
+MESH_CASES = (
+    ("all_gather", "all_gather", 1, {}),
+    ("halo", "halo", 1, {}),
+    ("ring, 2 hops", "ring", 2, {}),
+    ("all_gather, q-granular tables", "all_gather", 1, Q_PATH),
+    ("halo, q-granular tables at 128 force rows", "halo", 1,
+     dict(Q_PATH, force_query_rows=128)),
+)
 
 
 def log(msg: str) -> None:
@@ -439,37 +454,31 @@ def kernel_fn(name):
 
 
 def reset_launches() -> None:
-    for fn_name, *_ in KERNELS.values():
-        fn = kernel_fn(fn_name)
-        fn.launches = 0
-        if hasattr(fn, "variants"):
-            fn.variants = {}
+    from libclsph_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
 
 
 def read_launches() -> dict:
-    out = {}
-    for rec, (fn_name, variant, *_) in KERNELS.items():
-        fn = kernel_fn(fn_name)
-        out[rec] = fn.launches if variant is None else fn.variants.get(variant, 0)
-    return out
+    from libclsph_tpu_torch.ops import kernels
+
+    return records_from_raw(kernels.launch_counts())
 
 
-def restore_launches(saved_fns) -> None:
-    for fn_name, (launches, variants) in saved_fns.items():
+def restore_launches(saved) -> None:
+    for fn_name, (launches, variants) in saved.items():
         fn = kernel_fn(fn_name)
         fn.launches = launches
-        if variants is not None:
+        if hasattr(fn, "variants"):
             fn.variants = variants
 
 
 def save_launches() -> dict:
     """The raw counters, for runs made only to compare (they do not
     count)."""
-    saved = {}
-    for fn_name, *_ in KERNELS.values():
-        fn = kernel_fn(fn_name)
-        saved[fn_name] = (fn.launches, dict(fn.variants) if hasattr(fn, "variants") else None)
-    return saved
+    from libclsph_tpu_torch.ops import kernels
+
+    return kernels.launch_counts()
 
 
 def record_err(stats, name, err) -> None:
@@ -1440,9 +1449,9 @@ def phase6_river(tmp, dev, frames):
     return launches
 
 
-def phase3_cli(tmp, phase="3", flags=()):
+def phase3_cli(tmp, phase="3", flags=(), frames=3):
     """sph-torch water default cube <tmp>/out_ [flags] at 64,000
-    particles."""
+    particles for ``frames`` frames."""
     import numpy as np
 
     from libclsph_tpu_torch import cli
@@ -1455,7 +1464,6 @@ def phase3_cli(tmp, phase="3", flags=()):
                 os.path.join(root, "fluid_properties"))
     shutil.copy(os.path.join(ROOT, "scenes", "cube.obj"), os.path.join(root, "scenes"))
     sim = json.load(open(os.path.join(ROOT, "simulation_properties", "default.json")))
-    frames = 3
     sim["simulation_time"] = frames / sim["target_fps"]
     sim["serialize"] = True  # the checkpoint carries the densities checked below
     json.dump(sim, open(os.path.join(root, "simulation_properties", "default.json"), "w"))
@@ -1490,7 +1498,7 @@ def phase3_cli(tmp, phase="3", flags=()):
         raise RuntimeError("non-finite state after the CLI run")
     # the fluid starts as a lattice cube of side cbrt(V) centred in x/z
     # above scenes/cube.obj (x, z in [-0.5, 0.5], y in [-1.5, -0.5]);
-    # in 3 frames nothing may leave that column by more than 5 cm or
+    # in 2-3 frames nothing may leave that column by more than 5 cm or
     # fall through the obstacle's bottom (the |x|,|z| < 0.7 bound of the
     # 2048-particle check does not hold for the 64k lattice, whose
     # half-width is 0.735 at t = 0)
@@ -1503,7 +1511,7 @@ def phase3_cli(tmp, phase="3", flags=()):
         raise RuntimeError(f"densities off: median {med}, max {float(dens.max())}")
     log(f"phase {phase} cli {' '.join(flags)}: {len(names)} frames of 64000 points in "
         f"{seconds:.2f} s "
-        f"(scene bake, 3 frames and native .geo export included); min y {ymin:.4f}, "
+        f"(scene bake, {frames} frames and native .geo export included); min y {ymin:.4f}, "
         f"max |x|,|z| {xzmax:.4f} (bound {half + 0.05:.4f}); "
         f"density median {med:.2f} max {float(dens.max()):.2f}")
     return seconds, {k: ck[k] for k in ck.files}
@@ -1836,6 +1844,238 @@ def phase3_legacy(tmp, arrays, shift=0.3):
         f"centroid x {dx:+.4f} from phase 3's checkpoint (moved {shift:+.1f})")
 
 
+# ---- phase 12: the mesh -------------------------------------------------------
+
+def mesh_config(over=None):
+    """The sharded path's StepConfig: the defaults without the 8-wide
+    force pass (off under the mesh, as in the JAX CLI)."""
+    from libclsph_tpu_torch.engine import step
+
+    return step.StepConfig(**dict(over or {}, force_sub8=False))
+
+
+def raw_delta(after, before):
+    return {k: (after[k][0] - before[k][0],
+                {v: n - before[k][1].get(v, 0) for v, n in after[k][1].items()})
+            for k in after}
+
+
+def raw_sum(a, b):
+    return {k: (a[k][0] + b[k][0],
+                {v: a[k][1].get(v, 0) + b[k][1].get(v, 0) for v in {*a[k][1], *b[k][1]}})
+            for k in a}
+
+
+def records_from_raw(raw) -> dict:
+    """KERNELS' launch counts from raw wrapper counters
+    (``ops.kernels.launch_counts``)."""
+    return {rec: raw[fn][0] if variant is None else raw[fn][1].get(variant, 0)
+            for rec, (fn, variant, *_) in KERNELS.items()}
+
+
+def phase12_rank(mesh, arrays64, p64, dt64, p1m, cases):
+    """Phase 12a-c on one rank (spawned by parallel.mesh.launch; the
+    script's own functions run in the ranks, which import no JAX).
+    Returns host arrays and numbers for the parent to check."""
+    import numpy as np
+    import torch
+
+    from bench_torch import sync
+    from libclsph_tpu_torch.core.state import init_state
+    from libclsph_tpu_torch.io import checkpoint
+    from libclsph_tpu_torch.ops import kernels
+    from libclsph_tpu_torch.ops.kernels import density, forces
+    from libclsph_tpu_torch.parallel import bench, sharded_step as ss
+
+    dev, world = mesh.device, mesh.world
+    out = dict(a={}, b={}, c={})
+    # 12a: one sharded substep per case from the settled 64k cube
+    scene64 = cube_scene(p64, dev)
+    local = ss.local_rows(ss.pad_for_mesh(checkpoint.arrays_to_state(arrays64, dev), p64,
+                                          world, mesh_config()), mesh.rank, world)
+    dt = torch.tensor(dt64, dtype=torch.float32, device=dev)
+    kernels.reset_launch_counts()
+    for label, exchange, hops, over in cases:
+        cfg = mesh_config(dict(over, cand_interval=1))
+        halo_max = 0 if exchange == "all_gather" else ss.default_halo_max(
+            p64.particles_count, world, cfg.block_size)
+        before = kernels.launch_counts()
+        mesh.barrier()
+        t0 = time.perf_counter()
+        st, dt_o, flags, _ = ss.local_substep(mesh, local, dt, p64, scene64, cfg, exchange,
+                                              halo_max, hops)
+        flags = int(flags)
+        sync(dev)
+        ms = 1000.0 * (time.perf_counter() - t0)
+        out["a"][label] = dict(state=checkpoint.state_to_arrays(st), dt=float(dt_o),
+                               flags=flags, ms=ms,
+                               launches=raw_delta(kernels.launch_counts(), before))
+    mesh_raw = kernels.launch_counts()
+
+    # 12b: the 16-wide pair on this rank's exchanged tables at 1M
+    st1m = ss.local_rows(ss.pad_for_mesh(init_state(p1m, dev), p1m, world, mesh_config()),
+                         mesh.rank, world)
+    dt1m = torch.tensor(p1m.max_dt, dtype=torch.float32, device=dev)
+    for exchange in ("all_gather", "halo"):
+        halo_max = 0 if exchange == "all_gather" else ss.default_halo_max(
+            p1m.particles_count, world, 128)
+        rec = {}
+        ss.local_substep(mesh, st1m, dt1m, p1m, None, mesh_config(dict(cand_interval=1)),
+                         exchange, halo_max, 1, record=rec)
+        q = rec["qblock"]
+        dargs = (rec["pos4"], rec["cand_sub"].contiguous(), rec["count_sub"].contiguous(), p1m)
+        d, hits = density.density_c16(*dargs, hit_sub=16, qblock=q)
+        d0, hits0 = density.density_c16_torch(*dargs, hit_sub=16, qblock=q)
+        fargs = (rec["f8"], rec["density_c"], rec["real_c"], rec["cand_f"], rec["count_f"], p1m)
+        a = forces.forces_q32_c16(*fargs, qblock=q)
+        a0 = forces.forces_q32_c16_torch(*fargs, qblock=q)
+        pos4 = rec["pos4"].cpu().numpy()
+        live = pos4[:, 3] > 0
+        out["b"][exchange] = dict(
+            density_rel=float(((d - d0).abs() / d0.abs()).max()),
+            hits_equal=bool(torch.equal(hits, hits0)),
+            accel_err=float((a - a0).abs().max() / a0.abs().max()),
+            max_abs_err=max(float((d - d0).abs().max()), float((a - a0).abs().max())),
+            rows=pos4.shape[0], queries=int(q.numel()) * 128, qoff=int(q[0]) * 128,
+            identity=bool(torch.equal(q.cpu(), torch.arange(q.numel(), dtype=torch.int32))),
+            live=int(live.sum()),
+            once=bool(np.unique(pos4[live, :3], axis=0).shape[0] == int(live.sum())),
+            pairs=int(hits0.sum()))
+    kernels.reset_launch_counts()
+
+    # 12c: bench_torch's --mesh function at 1M, halo and all_gather
+    scene_file = os.path.join(ROOT, "scenes", "cube.obj")
+    for exchange in ("halo", "all_gather"):
+        r = bench.bench_rank(mesh, p1m, mesh_config(), scene_file, exchange, 0, 1,
+                             WARMUP_STEPS, MESH_STEPS)
+        mesh_raw = raw_sum(mesh_raw, r["launches"])
+        out["c"][exchange] = r
+    out["launches"] = mesh_raw
+    return out
+
+
+def compare_sharded(tag, parts, ref, atol_pos=1e-5, rtol_dens=1e-5, atol_acc=5e-4):
+    """The ranks' real rows against the single-chip substep's, matched by
+    nearest position (the two runs order rows differently): positions
+    atol 1e-5, density rtol 1e-5, acceleration atol 5e-4 * max|a| (JAX's
+    test_parallel.py tolerances)."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    pos = np.concatenate([p["position"] for p in parts])
+    real = np.abs(pos).max(axis=1) < 1e30
+    pos = pos[real]
+    dens = np.concatenate([p["density"] for p in parts])[real]
+    acc = np.concatenate([p["acceleration"] for p in parts])[real]
+    p1, d1, a1 = (ref[k] for k in ("position", "density", "acceleration"))
+    if pos.shape[0] != p1.shape[0]:
+        raise RuntimeError(f"phase 12a {tag}: {pos.shape[0]} real rows, not {p1.shape[0]}")
+    dist, idx = cKDTree(pos).query(p1)
+    if np.unique(idx).shape[0] != idx.shape[0]:
+        raise RuntimeError(f"phase 12a {tag}: rows do not match one to one")
+    errs = dict(pos=float(dist.max()),
+                dens=float(np.abs(dens[idx] / d1 - 1.0).max()),
+                acc=float(np.abs(acc[idx] - a1).max() / np.abs(a1).max()))
+    if errs["pos"] > atol_pos or errs["dens"] > rtol_dens or errs["acc"] > atol_acc:
+        raise RuntimeError(f"phase 12a {tag}: sharded substep differs from the single-chip "
+                           f"one: {errs}")
+    return errs
+
+
+def phase12_mesh(dev, card, ms_main, paths, stats, tmp):
+    """Phase 12: 4 ranks on the one card (gloo, staged through host
+    buffers; on a machine with 4 cards, one card a rank over NCCL), one
+    launch for a-c, the CLI's own for d."""
+    import torch
+
+    from libclsph_tpu_torch.core.state import init_state
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.engine.simulation import SPHSimulation
+    from libclsph_tpu_torch.io import checkpoint
+    from libclsph_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    p64 = water_params(65536)
+    scene64 = cube_scene(p64, dev)
+    s64, dt64 = warm_up(init_state(p64, dev), p64, scene64,
+                        SPHSimulation(step.StepConfig(), device=dev, pretune=False), 10)
+    refs = {}
+    saved = save_launches()
+    for label, _, _, over in MESH_CASES:
+        st, dt_r, flags, _ = step.substep(s64, dt64, p64, scene64,
+                                          mesh_config(dict(over, cand_interval=1)))
+        if int(flags):
+            raise RuntimeError(f"phase 12a {label}: the single-chip substep raised {int(flags)}")
+        refs[label] = dict(checkpoint.state_to_arrays(st), dt=float(dt_r))
+    restore_launches(saved)
+    p1m = water_params(N_BENCH)
+    ranks = mesh.launch(phase12_rank, MESH_RANKS, device="cuda", log=log, args=(
+        checkpoint.state_to_arrays(s64), p64, float(dt64), p1m, MESH_CASES))
+    del s64
+    torch.cuda.empty_cache()
+    for label, _, _, _ in MESH_CASES:
+        got = [r["a"][label] for r in ranks]
+        errs = compare_sharded(label, [g["state"] for g in got], refs[label])
+        dts = {g["dt"] for g in got}
+        flags = [g["flags"] for g in got]
+        if len(dts) != 1 or abs(dts.pop() / refs[label]["dt"] - 1.0) > 1e-5 or any(flags):
+            raise RuntimeError(f"phase 12a {label}: dt {[g['dt'] for g in got]} against "
+                               f"{refs[label]['dt']}, flags {flags}")
+        runs = [records_from_raw(g["launches"]) for g in got]
+        pair = (("density_c16 hit_sub 16", "forces_q32_c16") if "q-granular" not in label
+                else ("density_c32", "forces_q32_c32") if "128" not in label
+                else ("density_c32 groups 1", "forces_q128_c32"))
+        if any(run[k] <= 0 for run in runs for k in pair):
+            raise RuntimeError(f"phase 12a {label}: {pair} did not launch in every rank: "
+                               f"{[{k: run[k] for k in pair} for run in runs]}")
+        log(f"phase 12a {label}: {MESH_RANKS} ranks, one substep from the settled 64k cube "
+            f"against the single-chip substep: position err {errs['pos']:.3g}, density rel "
+            f"err {errs['dens']:.3g}, accel err {errs['acc']:.3g} of max|a|, dt equal to "
+            f"1e-5, flags 0; {pair} launched in every rank; rank substep ms "
+            f"{[round(g['ms'], 2) for g in got]}")
+    for exchange in ("all_gather", "halo"):
+        rows = [r["b"][exchange] for r in ranks]
+        for r, b in enumerate(rows):
+            if (b["density_rel"] > 1e-5 or not b["hits_equal"] or b["accel_err"] > 1e-5
+                    or not b["once"]):
+                raise RuntimeError(f"phase 12b {exchange} rank {r}: {b}")
+            for rec in ("density_c16 hit_sub 16", "forces_q32_c16"):
+                record_err(stats, rec, b["max_abs_err"])
+        log(f"phase 12b {exchange}: on each rank's exchanged tables at 1M, density_c16 "
+            f"hit_sub 16 and forces_q32_c16 against their plain versions: density rel err "
+            f"{max(b['density_rel'] for b in rows):.3g}, hits equal, accel err "
+            f"{max(b['accel_err'] for b in rows):.3g} of max|a|; combined rows "
+            f"{[b['rows'] for b in rows]}, queries at row {[b['qoff'] for b in rows]} "
+            f"(qblock the identity: {[b['identity'] for b in rows]}), each live particle "
+            f"once; pairs {[b['pairs'] for b in rows]}")
+    for exchange in ("halo", "all_gather"):
+        res = [r["c"][exchange] for r in ranks]
+        record = bench_mesh_record(res, N_BENCH, MESH_STEPS, MESH_RANKS, exchange, True,
+                                   card)
+        d = record["detail"]
+        if d["timed_flags"] or not all(x["finite"] for x in res):
+            raise RuntimeError(f"phase 12c {exchange}: flags {d['timed_flags']}, finite "
+                               f"{[x['finite'] for x in res]}")
+        where = ("sharing one card, gloo" if d["ranks_share_card"]
+                 else "one card each, nccl")
+        log(f"phase 12c {exchange} ({MESH_RANKS} ranks {where}): {N_BENCH} particles, "
+            f"{MESH_STEPS} timed substeps, {d['ms_per_step']:.3f} ms/substep, "
+            f"{record['value']:.6g} particle-steps/s (phase 4, one rank: {ms_main:.3f} "
+            f"ms/substep); per substep on rank 0: collectives {d['collectives_per_substep']}, "
+            f"bytes {d['collective_bytes_per_substep']}, staged through host "
+            f"{d['staged_bytes_per_substep']:.6g} B; warm-up {res[0]['warm_s']:.2f} s; "
+            f"config {d['config']}; card {card}")
+        log(f"phase 12c bench_torch --mesh {MESH_RANKS} --exchange {exchange}: "
+            f"{json.dumps(record)}")
+    raw = ranks[0]["launches"]
+    for r in ranks[1:]:
+        raw = raw_sum(raw, r["launches"])
+    paths["mesh"] = records_from_raw(raw)
+    log(f"phase 12 a-c: {time.perf_counter() - t0:.2f} s")
+    phase3_cli(tmp, "12d", ("--mesh", str(MESH_RANKS), "--exchange", "halo"),
+               frames=MESH_FRAMES)
+
+
 class Walls:
     """Wall time of each phase (host clock) and the total."""
 
@@ -1902,9 +2142,9 @@ def main(argv=None) -> int:
     log(f"phase 1 native .geo writer: {'compiled' if fresh else 'found'} "
         f"{os.path.relpath(native.library_path(), ROOT)} in {time.perf_counter() - t0:.2f} s")
     walls.mark("0-1")
+    stats = {name: {} for name in KERNELS}
 
     # phase 2
-    stats = {name: {} for name in KERNELS}
     engines = {}
 
     def engine_for(tag, over):
@@ -2025,6 +2265,11 @@ def main(argv=None) -> int:
     walls.mark("10")
     phase11_emitter(dev, card, EMITTER_FRAMES)
     walls.mark("11")
+    # phase 12 drives the mesh path: 4 ranks on the card, each with its
+    # counts set to 0 before and read after
+    with tempfile.TemporaryDirectory() as tmp:
+        phase12_mesh(dev, card, ms_main, paths, stats, tmp)
+    walls.mark("12")
 
     launches = {rec: sum(paths[path][rec] for path in spec[4])
                 for rec, spec in KERNELS.items()}
@@ -2044,7 +2289,9 @@ def main(argv=None) -> int:
                 "asm32": ("density_c32 groups 1, rows 32 (asm)",
                           "forces_q128_c32 rows 32 (asm)"),
                 "b64-row": ("density_blocks row, block 64", "forces_blocks row, block 64"),
-                "q32-full": ("density_c32 densities only, rows 32", "forces_q128_c32 rows 32")}
+                "q32-full": ("density_c32 densities only, rows 32", "forces_q128_c32 rows 32"),
+                "mesh": ("density_c16 hit_sub 16", "forces_q32_c16", "density_c32",
+                         "density_c32 groups 1", "forces_q32_c32", "forces_q128_c32")}
     for path, recs in required.items():
         missing = [rec for rec in recs if paths[path][rec] <= 0]
         if missing:

@@ -15,6 +15,13 @@ port does not run exits -1 with ``StepConfig``'s message. As in the JAX
 CLI, there is no flag for ``density_gate``: it is a ``StepConfig`` field.
 ``--import-legacy LAST_FRAME_BIN`` converts a reference-format
 ``last_frame.bin`` into the checkpoint the run then resumes from.
+``--mesh N`` runs the simulation sharded over N ranks
+(:mod:`parallel.mesh`), one process each, with ``--exchange``,
+``--halo-max`` and ``--halo-hops`` (JAX's ``cli.py:113-127``): on the
+card, rank r takes ``cuda:(r % cards)`` (ranks that share a card run
+over gloo); with ``--device cpu`` the ranks run over gloo on the CPU. As
+in the JAX CLI, the 8-wide force pass is off under the mesh. Rank 0
+prints and writes the frames and the checkpoint.
 Exit codes: 0 done, -1 bad configuration or scene, 1 refused checkpoint
 or failed run.
 """
@@ -27,7 +34,7 @@ import math
 import os
 import sys
 
-from .engine.simulation import SPHSimulation
+from .engine.simulation import SPHSimulation, configure_device
 from .engine.step import BLOCK_SIZES, IMPLS, QUERY_ROWS, VARIANTS, StepConfig
 from .io.houdini import HoudiniFileSaver
 
@@ -114,25 +121,31 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="ask for confirmation before simulating (reference behaviour)")
     ap.add_argument("--import-legacy", metavar="LAST_FRAME_BIN", default=None,
                     help="resume from a reference-format last_frame.bin checkpoint")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="run sharded over N ranks, one process each (0: one device)")
+    ap.add_argument("--exchange", choices=["all_gather", "halo", "ring"],
+                    default="all_gather", help="neighbour exchange between ranks (--mesh)")
+    ap.add_argument("--halo-max", type=int, default=0,
+                    help="surface blocks a rank sends under halo and ring (0: all)")
+    ap.add_argument("--halo-hops", type=int, default=1,
+                    help="ring exchange: hops a direction")
     ap.add_argument("--root", default=".",
                     help="directory holding fluid_properties/ etc.")
     return ap
 
 
-def main(argv=None) -> int:
-    args = build_arg_parser().parse_args(argv)
+def config_from_args(args) -> StepConfig:
+    """The run's ``StepConfig`` after the JAX CLI's quiet clamps
+    (cli.py:161, :178-211); raises ValueError on a refused combination."""
     fields = {f.name for f in dataclasses.fields(StepConfig)}
     values = {k: v for k, v in vars(args).items() if k in fields}
-    # the JAX CLI's quiet clamps and refusals (cli.py:178-211); the rest
-    # of its refusals are StepConfig's
     ci, si = values["cand_interval"], values["sort_interval"]
     if ci > 1 and si % ci and args.cand_interval == _DEFAULTS.cand_interval:
         # a pinned --sort-interval with the default --cand-interval: the
         # default comes down to a divisor
         ci = values["cand_interval"] = math.gcd(ci, si)
     if ci > 1 and si % ci:
-        print("--cand-interval must divide --sort-interval", file=sys.stderr)
-        return -1
+        raise ValueError("--cand-interval must divide --sort-interval")
     if (values["neighbor_impl"] != "pallas" or values["pallas_variant"] != "nl"
             or values["nl_query_rows"] < values["block_size"]):
         # reuse is a feature of the nl variant at whole-block query rows
@@ -141,18 +154,59 @@ def main(argv=None) -> int:
             or min(values["block_size"], values["nl_query_rows"]) < 128):
         # the 16-granular tables need the pallas nl shape at 128 query rows
         values["density_sub16"] = False
-    if not values["density_sub16"]:
-        values["force_sub8"] = False  # the 8-wide pass rides the 16-granular tables
+    if not values["density_sub16"] or args.mesh:
+        # the 8-wide pass rides the 16-granular tables, on one device
+        values["force_sub8"] = False
+    return StepConfig(**values)
+
+
+def main(argv=None) -> int:
+    args = build_arg_parser().parse_args(argv)
     try:
-        cfg = StepConfig(**values)
-        simulation = SPHSimulation(
-            step_config=cfg, device=args.device,
-            pretune={"auto": "auto", "on": True, "off": False}[args.pretune],
-        )
+        cfg = config_from_args(args)
+        if args.mesh:
+            if args.mesh < 1:
+                raise ValueError("--mesh must be >= 1")
+            device = configure_device(args.device)
+        else:
+            simulation = SPHSimulation(
+                step_config=cfg, device=args.device,
+                pretune={"auto": "auto", "on": True, "off": False}[args.pretune],
+            )
     except (ValueError, RuntimeError) as ex:
         print(ex, file=sys.stderr)
         return -1
-    saver = HoudiniFileSaver(args.out_prefix, use_partio=args.partio)
+    if args.mesh:
+        from .parallel.mesh import launch
+
+        argv = sys.argv[1:] if argv is None else list(argv)
+        try:
+            # no time limit on the whole run: a hung collective still
+            # fails its rank after mesh.COLLECTIVE_TIMEOUT_S
+            return launch(_rank_main, args.mesh, args=(argv,), device=device.type,
+                          timeout=None)[0]
+        except (RuntimeError, TimeoutError) as ex:  # a rank failed: its traceback
+            print(ex, file=sys.stderr)
+            return 1
+    return _run(args, simulation)
+
+
+def _rank_main(mesh, argv) -> int:
+    """A rank of ``sph-torch --mesh N``: the same run on ``mesh``; rank 0
+    prints and writes."""
+    args = build_arg_parser().parse_args(argv)
+    simulation = SPHSimulation(step_config=config_from_args(args), mesh=mesh,
+                               exchange=args.exchange, halo_max=args.halo_max,
+                               halo_hops=args.halo_hops, pretune=False)
+    return _run(args, simulation, mesh.rank == 0)
+
+
+def _run(args, simulation, root: bool = True) -> int:
+    """Load the settings and the scene, print the table, simulate; with
+    ``root`` False (a rank other than 0) print and write nothing."""
+    def say(*lines):
+        if root:
+            print(*lines)
 
     try:
         simulation.load_settings(
@@ -163,13 +217,16 @@ def main(argv=None) -> int:
         print(ex, file=sys.stderr)
         return -1
 
-    def save_frame(arrays, params):
-        saver.write_frame_to_file(arrays, params)
+    if root:
+        saver = HoudiniFileSaver(args.out_prefix, use_partio=args.partio)
 
-    simulation.save_frame = save_frame
+        def save_frame(arrays, params):
+            saver.write_frame_to_file(arrays, params)
+
+        simulation.save_frame = save_frame
 
     p = simulation.parameters
-    print(
+    say(
         f"""
 Loaded parameters
 -----------------
@@ -213,10 +270,13 @@ Saving to folder:          {args.out_prefix}frames/"""
         except (OSError, ValueError) as ex:
             print(ex, file=sys.stderr)
             return 1
-        save_checkpoint(simulation.checkpoint_path, arrays, p)
-        print(f"Imported legacy checkpoint {args.import_legacy}")
+        if root:
+            save_checkpoint(simulation.checkpoint_path, arrays, p)
+        if simulation.mesh is not None:
+            simulation.mesh.barrier()  # every rank resumes from the imported file
+        say(f"Imported legacy checkpoint {args.import_legacy}")
 
-    if args.confirm:
+    if args.confirm and simulation.mesh is None:
         print(
             "\nRevise simulation parameters. Press q to quit, any other "
             "key to proceed with simulation"
@@ -231,7 +291,7 @@ Saving to folder:          {args.out_prefix}frames/"""
         # last_frame.bin, particles.cpp:89-92)
         print(ex, file=sys.stderr)
         return 1
-    print(f"Duration : {duration:g}")
+    say(f"Duration : {duration:g}")
     return 0
 
 

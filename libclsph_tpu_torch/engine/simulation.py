@@ -18,6 +18,18 @@ device-resident state (no host fetch) on the initial frame and after
 every frame, as the JAX package's does; :class:`io.render.PointRenderer`'s
 ``view`` is its intended target.
 
+With a ``mesh`` (:class:`parallel.mesh.Mesh`, one per rank; every rank
+runs the same simulation) the state is Morton-partitioned over the ranks
+and each substep runs :mod:`parallel.sharded_step` (JAX's
+``_simulate_sharded``): both paths, the capacity autotune (every rank
+takes the same decision from the flags OR'd over the ranks) and the
+``halo_hops`` growth on ``FLAG_EXCHANGE``. Rank 0 runs the callbacks, the
+view hook and the checkpoint on the real rows gathered from every rank;
+a state that a callback changed is re-partitioned on rank 0 and handed
+out again. After :meth:`simulate`, ``state`` holds the real rows of the
+whole simulation on every rank, as on one device. No pretune under the
+mesh, as in JAX.
+
 Before the first frame, runs of 200k particles or more take the
 init-state capacity probe (:mod:`engine.pretune`), so deep-column
 scenes start on the q-granular tables instead of re-running a frame.
@@ -48,6 +60,7 @@ from .step import (
     FLAG_CAPACITY_HIT,
     FLAG_CAPACITY_SUB,
     FLAG_CAPACITY_T2,
+    FLAG_EXCHANGE,
     FLAG_GRID_DIM,
     FLAGS_ALL_CAPACITY,
     StepConfig,
@@ -56,6 +69,7 @@ from .step import (
 )
 
 MAX_CAPACITY_RETRIES = 6
+_HOOKS = ("pre_frame", "save_frame", "post_frame", "device_view")
 # ``pretune="auto"`` probes runs of at least this many particles
 # (simulation.py:524-527)
 PRETUNE_AUTO_MIN = 200_000
@@ -93,17 +107,36 @@ def configure_device(device) -> torch.device:
 
 class SPHSimulation:
     def __init__(self, step_config: Optional[StepConfig] = None, device="cuda",
-                 pretune: bool | str = "auto"):
+                 pretune: bool | str = "auto", mesh=None, exchange: str = "all_gather",
+                 halo_max: int = 0, halo_hops: int = 1):
         """``device``: 'cuda' (default) or 'cpu'; 'cuda' without a GPU
         raises. ``pretune``: run the init-state capacity probe
         (:func:`engine.pretune.pretune_config`) before the first frame;
         ``"auto"`` (default) probes runs of PRETUNE_AUTO_MIN particles or
-        more, True/False force it."""
+        more, True/False force it. ``mesh``: this rank's
+        :class:`parallel.mesh.Mesh` to run sharded (its device replaces
+        ``device``); ``exchange`` ('all_gather', 'halo' or 'ring'),
+        ``halo_max`` (0: every local block) and ``halo_hops`` pick the
+        exchange (:mod:`parallel.sharded_step`)."""
         if not (pretune is True or pretune is False or pretune == "auto"):
             raise ValueError(f"pretune must be True, False or 'auto', not {pretune!r}")
         self.pretune = pretune
         self.pretune_stats: Optional[dict] = None
-        self.device = configure_device(device)
+        self.mesh = mesh
+        self.device = configure_device(mesh.device if mesh is not None else device)
+        self.step_config = step_config or StepConfig()
+        if mesh is not None:
+            from ..parallel.sharded_step import EXCHANGES
+
+            if exchange not in EXCHANGES:
+                raise ValueError(f"exchange must be one of {EXCHANGES}, not {exchange!r}")
+            if self.step_config.cand_interval > 1 and (
+                    self.step_config.neighbor_impl != "pallas"):
+                raise ValueError("sharded cand_interval > 1 requires the pallas impl (the "
+                                 "carried refined lists are an nl-kernel feature)")
+        self.exchange = exchange
+        self.halo_max = halo_max
+        self.halo_hops = halo_hops
         self.parameters: Optional[SimulationParameters] = None
         self.precomputed_terms: Optional[PrecomputedKernelValues] = None
         self.initial_volume: float = 0.0
@@ -114,7 +147,6 @@ class SPHSimulation:
         self.save_frame: Optional[SaveCallback] = None
         self.post_frame: Optional[Callback] = None
         self.device_view: Optional[DeviceView] = None
-        self.step_config = step_config or StepConfig()
         self.capacity_retries = 0
         self.checkpoint_path = ckpt_mod.DEFAULT_CHECKPOINT
         self.state: Optional[ParticleState] = None
@@ -226,6 +258,18 @@ class SPHSimulation:
                 "sph_simulation.cpp:722-724); check dt / fluid stiffness"
             )
         rerun = False
+        if f & FLAG_EXCHANGE:
+            # the ring's reach is a capacity like the others: double the
+            # hops up to full coverage, (S + 1) // 2 a direction
+            # (simulation.py:286-309), where the reach check cannot fire
+            max_hops = (self.mesh.world + 1) // 2 if self.mesh is not None else 1
+            if self.halo_hops >= max_hops:
+                raise RuntimeError("ring halo exchange out of reach at full ring coverage: "
+                                   "an exchange bug, not a capacity shortfall")
+            self.halo_hops = min(max_hops, max(self.halo_hops * 2, 1))
+            log.warning("ring exchange under-reach - growing halo_hops to %d and "
+                        "re-running frame", self.halo_hops)
+            rerun = True
         if f & FLAGS_ALL_CAPACITY:
             self._grow_capacity(f)
             rerun = True
@@ -245,13 +289,83 @@ class SPHSimulation:
             rerun = True
         return rerun
 
+    # ---- what differs between one device and a mesh ----------------------
+    def _frame(self, state, dt, timeleft):
+        if self.mesh is None:
+            return frame(state, dt, timeleft, self.parameters, self.device_scene,
+                         self.step_config)
+        from ..parallel import sharded_step
+
+        return sharded_step.local_frame(
+            self.mesh, state, dt, timeleft, self.parameters, self.device_scene,
+            self.step_config, self.exchange, self.halo_max, self.halo_hops)
+
+    def _substep(self, state, dt):
+        """(new_state, dt, flags) of one substep that rebuilds its tables."""
+        if self.mesh is None:
+            return substep(state, dt, self.parameters, self.device_scene,
+                           self.step_config)[:3]
+        from ..parallel import sharded_step
+
+        return sharded_step.make_sharded_substep(
+            self.mesh, self.parameters, self.device_scene, self.step_config,
+            self.exchange, self.halo_max, self.halo_hops)(state, dt)
+
+    def _root(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _gathered(self, state) -> ParticleState:
+        """The real rows of the whole state (on a mesh: gathered from every
+        rank, which must all call this)."""
+        if self.mesh is None:
+            return state
+        from ..parallel import sharded_step
+
+        return sharded_step.gather_real(self.mesh, state)
+
+    def _hooks(self) -> dict:
+        """Which hooks run: on a mesh, rank 0's, agreed by every rank (each
+        hook gathers the state, a collective)."""
+        have = [getattr(self, k) is not None for k in _HOOKS]
+        if self.mesh is not None:
+            have = self.mesh.broadcast(torch.tensor(have, dtype=torch.float32,
+                                                    device=self.device)).tolist()
+        return {k: bool(v) for k, v in zip(_HOOKS, have)}
+
+    def _callback(self, cb, state, is_full_frame: bool):
+        """pre_frame / post_frame on the host arrays of the whole state; a
+        True return uploads them back (re-partitioned over a mesh)."""
+        p = self.parameters
+        real = self._gathered(state)
+        arrays = self._fetch(real) if self._root() else None
+        if self.mesh is None:
+            return self._upload(arrays) if cb(arrays, p, is_full_frame) else state
+        write = torch.zeros(1, dtype=torch.float32, device=self.device)
+        if self._root():
+            write[0] = float(bool(cb(arrays, p, is_full_frame)))
+        if not bool(self.mesh.broadcast(write)[0]):
+            return state
+        from ..parallel import sharded_step
+
+        return sharded_step.scatter_state(self.mesh, self._upload(arrays) if self._root()
+                                          else None, p, self.step_config, p.particles_count)
+
+    def _view(self, state):
+        real = self._gathered(state)
+        if self._root():
+            self.device_view(real, self.parameters, True)
+
     def _save(self, saver: AsyncSaver, state: ParticleState):
         """Hand a host snapshot of ``state`` to the save thread (the copy
-        is taken here: the loop may go on replacing tensors)."""
+        is taken here: the loop may go on replacing tensors); on a mesh,
+        rank 0 saves the gathered real rows."""
+        real = self._gathered(state)
+        if not self._root():
+            return
         p = self.parameters
         save_cb = self.save_frame
         ckpt = self.checkpoint_path if self.serialize else None
-        arrays = self._fetch(state)
+        arrays = self._fetch(real)
 
         def run():
             save_cb(arrays, p)
@@ -272,7 +386,16 @@ class SPHSimulation:
         t_start = _time.perf_counter()
         self.device_scene = collisions_ops.build_device_scene(self.current_scene, dev)
         state = self.init_particles()
-        if self.pretune is True or (
+        if self.mesh is not None:
+            from ..parallel import sharded_step
+
+            world, cfg = self.mesh.world, self.step_config
+            if self.exchange in ("halo", "ring") and not self.halo_max:
+                self.halo_max = sharded_step.default_halo_max(p.particles_count, world,
+                                                              cfg.block_size)
+            state = sharded_step.local_rows(sharded_step.pad_for_mesh(state, p, world, cfg),
+                                            self.mesh.rank, world)
+        elif self.pretune is True or (
             self.pretune == "auto" and p.particles_count >= PRETUNE_AUTO_MIN
         ):
             from . import pretune as pretune_mod
@@ -280,6 +403,7 @@ class SPHSimulation:
             self.step_config, self.pretune_stats = pretune_mod.pretune_config(
                 state, p, self.step_config
             )
+        hooks = self._hooks()
         saver = AsyncSaver()
 
         timeperframe = p.frame_time
@@ -287,42 +411,40 @@ class SPHSimulation:
         sim_time = 0.0
         current_frame = 2  # reference starts at 2 (sph_simulation.cpp:365)
 
-        if self.device_view:  # the initial frame, like the initial save
-            self.device_view(state, p, True)
-        if self.save_frame:
+        if hooks["device_view"]:  # the initial frame, like the initial save
+            self._view(state)
+        if hooks["save_frame"]:
             self._save(saver, state)
         fast_path = not self.write_intermediate_frames
 
         try:
             while sim_time < p.simulation_time:
-                log.info("Simulating frame %d (%gs)", current_frame, sim_time)
+                if self._root():
+                    log.info("Simulating frame %d (%gs)", current_frame, sim_time)
                 if fast_path:
-                    if self.pre_frame:
-                        arrays = self._fetch(state)
-                        if self.pre_frame(arrays, p, True):
-                            state = self._upload(arrays)
+                    if hooks["pre_frame"]:
+                        state = self._callback(self.pre_frame, state, True)
                     state, dt = self._run_frame(state, dt)
                 else:
-                    state, dt = self._run_frame_per_substep(state, dt, saver)
+                    state, dt = self._run_frame_per_substep(state, dt, saver, hooks)
                 sim_time += timeperframe
                 current_frame += 1
-                if self.device_view:
-                    self.device_view(state, p, True)
-                if fast_path and self.save_frame:
+                if hooks["device_view"]:
+                    self._view(state)
+                if fast_path and hooks["save_frame"]:
                     self._save(saver, state)
-                if fast_path and self.post_frame:
-                    arrays = self._fetch(state)
-                    if self.post_frame(arrays, p, True):
-                        state = self._upload(arrays)
+                if fast_path and hooks["post_frame"]:
+                    state = self._callback(self.post_frame, state, True)
         finally:
             saver.close()
-        self.state = state
+        # on a mesh every rank gets the whole simulation, not its shard
+        self.state = self._gathered(state)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return _time.perf_counter() - t_start
 
     def _run_frame(self, state, dt):
-        """One frame through :func:`frame`; on a flag, grow and re-run the
+        """One frame through the frame loop; on a flag, grow and re-run the
         frame from ``state`` (the step never modifies its input)."""
         p = self.parameters
         while True:
@@ -330,28 +452,22 @@ class SPHSimulation:
             timeleft = torch.tensor(p.frame_time, dtype=torch.float32, device=self.device)
             rerun = False
             while bool(timeleft > 0.0):
-                st_try, dt_try, timeleft, flags = frame(
-                    st_try, dt_try, timeleft, p, self.device_scene, self.step_config
-                )
+                st_try, dt_try, timeleft, flags = self._frame(st_try, dt_try, timeleft)
                 if self._needs_rerun(flags):
                     rerun = True
                     break
             if not rerun:
                 return st_try, dt_try
 
-    def _run_frame_per_substep(self, state, dt, saver):
+    def _run_frame_per_substep(self, state, dt, saver, hooks):
         """One frame substep by substep, with the callbacks in between."""
         p = self.parameters
         timeleft = p.frame_time
         while timeleft > 0.0:
-            if self.pre_frame:
-                arrays = self._fetch(state)
-                if self.pre_frame(arrays, p, False):
-                    state = self._upload(arrays)
+            if hooks["pre_frame"]:
+                state = self._callback(self.pre_frame, state, False)
             while True:
-                new_state, dt_dev, flags, _ = substep(
-                    state, dt, p, self.device_scene, self.step_config
-                )
+                new_state, dt_dev, flags = self._substep(state, dt)
                 if not self._needs_rerun(flags):
                     state = new_state
                     break
@@ -359,10 +475,8 @@ class SPHSimulation:
             timeleft -= dt_f
             dt = torch.tensor(min(dt_f, timeleft) if timeleft < dt_f else dt_f,
                               dtype=torch.float32, device=self.device)
-            if self.save_frame:
+            if hooks["save_frame"]:
                 self._save(saver, state)
-            if self.post_frame:
-                arrays = self._fetch(state)
-                if self.post_frame(arrays, p, False):
-                    state = self._upload(arrays)
+            if hooks["post_frame"]:
+                state = self._callback(self.post_frame, state, False)
         return state, dt

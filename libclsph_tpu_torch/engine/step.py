@@ -476,7 +476,8 @@ def _density_forces_nl(state: ParticleState, real: torch.Tensor,
     return density, pressure, accel, flags, cand_out
 
 
-def two_tier_passes(state, real, pos4, params, config, cand_full, count_sub, flags):
+def two_tier_passes(state, real, pos4, params, config, cand_full, count_sub, flags,
+                    qblock=None, force_fields=None):
     """Two-tier density/force passes (step.py:738-1025). ``cand_full``
     (nb, c2) is the refined table at the tier-2 width; rows whose count
     exceeds c1 = max_candidates_sub go to nb2 = ceil(nb / tier2_frac)
@@ -487,7 +488,11 @@ def two_tier_passes(state, real, pos4, params, config, cand_full, count_sub, fla
     results merge by scatter over the distinct routed rows; unused pool
     slots keep tier 1's value. Both tiers run each block's candidates in
     the same order, so the split only changes which launch a block's
-    sums happen in. Returns (density, pressure, accel, flags)."""
+    sums happen in. A sharded substep runs it over its exchanged table:
+    ``qblock`` (nb,) places its query blocks in ``pos4`` (tier 2 takes
+    ``qblock[idx]``), and ``force_fields(density)`` returns the force
+    kernels' (pressure, f8, density, real) over that table (default: the
+    local pack). Returns (density, pressure, accel, flags)."""
     nb = cand_full.shape[0]
     c1 = config.max_candidates_sub
     nb2 = -(-nb // config.tier2_frac)
@@ -497,6 +502,10 @@ def two_tier_passes(state, real, pos4, params, config, cand_full, count_sub, fla
     cand2 = cand_full[idx.long()]
     count2 = torch.where(used, count_sub[idx.long()], 0).to(torch.int32)
     g1, g2 = _groups(config, 1), _groups(config, 2)
+    q2 = idx if qblock is None else qblock[idx.long()].contiguous()
+    if force_fields is None:
+        def force_fields(density):
+            return _pressure_and_pack(state, real, density, params) + (density, real)
 
     rows = config.q_rows  # = block_size: two-tier routing runs at q_rep 1
 
@@ -507,22 +516,23 @@ def two_tier_passes(state, real, pos4, params, config, cand_full, count_sub, fla
         b2 = torch.where(mask, b2, b1[idx.long()])
         return b1.index_copy(0, idx.long(), b2).reshape(a1.shape)
 
-    density1, hits1 = _density_pass(pos4, cand1, count1, params, config, g1)
-    density2, hits2 = _density_pass(pos4, cand2, count2, params, config, g2, qblock=idx)
+    density1, hits1 = _density_pass(pos4, cand1, count1, params, config, g1, qblock=qblock)
+    density2, hits2 = _density_pass(pos4, cand2, count2, params, config, g2, qblock=q2)
     density = merge(density1, density2)
-    pressure, f8 = _pressure_and_pack(state, real, density, params)
+    pressure, f8, dens_f, real_f = force_fields(density)
 
     if config.hit_compact:
-        cand_f1, count_f1, ovf3 = hit_lists(cand1, hits1, config, g1)
+        cand_f1, count_f1, ovf3 = hit_lists(cand1, hits1, config, g1, qblock=qblock)
         cap2 = _hit_cap(config, config.hit_width(g2), g2) * config.tier2_mult
-        cand_f2, count_f2, ovf4 = hit_lists(cand2, hits2, config, g2, cap=cap2, qblock=idx)
+        cand_f2, count_f2, ovf4 = hit_lists(cand2, hits2, config, g2, cap=cap2, qblock=q2)
     else:  # both tiers over their full lists (step.py:842-850)
         cand_f1, count_f1 = cand1.contiguous(), count1
         cand_f2, count_f2 = cand2.contiguous(), count2
         ovf3 = ovf4 = torch.zeros((), dtype=torch.int32, device=cand1.device)
-    accel1 = _force_pass(f8, density, real, cand_f1, count_f1, params, config, g1)
-    accel2 = _force_pass(f8, density, real, cand_f2, count_f2, params, config, g2,
-                         qblock=idx)
+    accel1 = _force_pass(f8, dens_f, real_f, cand_f1, count_f1, params, config, g1,
+                         qblock=qblock)
+    accel2 = _force_pass(f8, dens_f, real_f, cand_f2, count_f2, params, config, g2,
+                         qblock=q2)
     accel = merge(accel1, accel2)
     return density, pressure, accel, flags + (ovf3 | ovf4)
 

@@ -12,6 +12,10 @@ nor ``libclsph_tpu``: JAX-side objects are read by field name with
   uint32, as the JAX package holds it) and :func:`to_numpy`.
 * :func:`step_config_from_jax`: a JAX ``StepConfig`` -> the port's, over
   the fields both have, so one configuration drives both packages.
+* :func:`split_for_mesh`: a JAX state padded and Morton-partitioned by
+  ``pad_for_mesh`` -> the host arrays of each rank's rows, which
+  :func:`parallel.mesh.launch` hands to the port's ranks, so both
+  packages run the same rows on the same shards.
 
 The state conversions are the checkpoint's, whose file format is the
 JAX package's.
@@ -32,7 +36,7 @@ from .io.checkpoint import state_to_arrays as state_to_numpy
 from .ops.collisions import DeviceScene
 
 __all__ = ["to_numpy", "state_from_arrays", "state_to_numpy", "scene_from_arrays",
-           "params_from", "step_config_from_jax"]
+           "params_from", "step_config_from_jax", "split_for_mesh"]
 
 # JAX StepConfig fields the port has no knob for, with the value its one
 # path implies
@@ -84,3 +88,18 @@ def step_config_from_jax(cfg) -> StepConfig:
         f.name: getattr(cfg, f.name)
         for f in dataclasses.fields(StepConfig) if hasattr(cfg, f.name)
     })
+
+
+def split_for_mesh(state, n_shards: int) -> list:
+    """A state already padded and partitioned over ``n_shards`` (JAX's
+    ``pad_for_mesh``, or the port's) -> per rank, the host arrays of its
+    contiguous rows (``io.checkpoint``'s layout, ``grid_index`` uint32)."""
+    if not isinstance(state, dict):
+        state = {k: getattr(state, k) for k in FIELDS}
+    arrays = {k: np.asarray(state[k]) for k in FIELDS}
+    n = arrays["position"].shape[0]
+    if n % n_shards:
+        raise ValueError(f"{n} rows do not split over {n_shards} shards")
+    rows = n // n_shards
+    return [{k: np.array(v[r * rows:(r + 1) * rows]) for k, v in arrays.items()}
+            for r in range(n_shards)]

@@ -31,7 +31,27 @@ from .blocks import (
     forces_blocks_torch,
 )
 
+WRAPPERS = (density_c16, density_c32, density_gated16, forces_q32_c8, forces_q32_c16,
+            forces_q32_c32, forces_q128_c32, radix_sort)
+
+
+def launch_counts() -> dict:
+    """Each wrapper's launches (and its launches by variant, where it
+    counts them) since the last :func:`reset_launch_counts`."""
+    return {fn.__name__: (fn.launches, dict(getattr(fn, "variants", {})))
+            for fn in WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+        if hasattr(fn, "variants"):
+            fn.variants = {}
+
+
 __all__ = [
+    "launch_counts",
+    "reset_launch_counts",
     "radix_sort",
     "radix_sort_torch",
     "rank_hist_torch",

@@ -7,12 +7,16 @@ that is loaded with ``ctypes``. The build happens at the first CUDA
 launch (or an explicit :func:`load_library` call), never at import,
 into ``build/libclsph_tpu_torch/`` beside the package; the file name
 carries a hash of the sources and flags, so a changed source rebuilds
-and an unchanged one loads the existing library.
+and an unchanged one loads the existing library. A file lock beside the
+library serialises builds across processes (the ranks of a mesh, which
+the launcher builds for once before it starts them), so no two
+processes compile the same hash at once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -88,6 +92,14 @@ def build(src_dir: Path = CSRC_DIR, out_dir: Path = BUILD_DIR) -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # another process may be building it
+        if not out.exists():
+            _compile(src_dir, out)
+    return out
+
+
+def _compile(src_dir: Path, out: Path) -> None:
     nvcc = _nvcc()
     work = Path(tempfile.mkdtemp(dir=out.parent))
     try:
@@ -112,7 +124,6 @@ def build(src_dir: Path = CSRC_DIR, out_dir: Path = BUILD_DIR) -> Path:
         os.replace(tmp, out)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return out
 
 
 def open_library(path: Path) -> ctypes.CDLL:

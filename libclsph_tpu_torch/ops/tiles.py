@@ -151,17 +151,41 @@ def _compact_with_self(others: torch.Tensor, self_index: torch.Tensor, cap: int)
 
 
 def candidate_blocks(bmin: torch.Tensor, bmax: torch.Tensor, h: float,
-                     max_candidates: int):
+                     max_candidates: int, cand_bmin=None, cand_bmax=None,
+                     self_index=None):
     """Padded candidate-block lists from dilated split-AABB overlap
-    (tiles.py:138-195). The own block always sits in slot 0.
+    (tiles.py:138-195). The candidate side defaults to the query set; a
+    sharded substep passes its exchanged table as ``cand_bmin`` /
+    ``cand_bmax`` (nc, S, 3) and each query block's own index in it as
+    ``self_index`` (nb,) (the identity by default). The own block always
+    sits in slot 0, so a truncated list never drops a self-interaction.
     Returns (cand (nb, M) int32, count (nb,) int32, overflowed () bool)."""
-    nb = bmin.shape[0]
-    overlap = _box_overlap(bmin - h, bmax + h, bmin, bmax)
-    eye = torch.eye(nb, dtype=torch.bool, device=bmin.device)
-    self_index = torch.arange(nb, dtype=torch.int32, device=bmin.device)
-    cand, count, row_count = _compact_with_self(overlap & ~eye, self_index,
+    if cand_bmin is None:
+        cand_bmin, cand_bmax = bmin, bmax
+    nb, nc = bmin.shape[0], cand_bmin.shape[0]
+    if self_index is None:
+        self_index = torch.arange(nb, dtype=torch.int32, device=bmin.device)
+    overlap = _box_overlap(bmin - h, bmax + h, cand_bmin, cand_bmax)
+    cols = torch.arange(nc, device=bmin.device)
+    is_self = cols[None, :] == self_index[:, None]
+    cand, count, row_count = _compact_with_self(overlap & ~is_self, self_index,
                                                 max_candidates)
     return cand, count, torch.any(row_count > max_candidates)
+
+
+def compact_mask(mask: torch.Tensor, cap: int):
+    """Indices of the True entries of ``mask`` (n,), in order, in ``cap``
+    slots (0 past the last; sharded_step.py:62-77, the halo and ring
+    exchanges' surface sets). Returns (idx (cap,) int32, valid (cap,)
+    bool, overflowed () bool)."""
+    pos = torch.cumsum(mask.to(torch.int32), dim=0) - 1
+    total = pos[-1] + 1
+    slot = torch.where(mask & (pos < cap), pos, cap).to(torch.int64)
+    idx = torch.zeros(cap + 1, dtype=torch.int32, device=mask.device)
+    idx.scatter_(0, slot, torch.arange(mask.shape[0], dtype=torch.int32,
+                                       device=mask.device))
+    valid = torch.arange(cap, device=mask.device) < total
+    return idx[:cap], valid, total > cap
 
 
 def candidate_blocks_hierarchical(bmin: torch.Tensor, bmax: torch.Tensor, h: float,
@@ -394,12 +418,14 @@ class BlockedFields(NamedTuple):
 
 
 def make_blocked(position, velocity, density, pressure, real,
-                 block_size: int) -> BlockedFields:
+                 block_size: int, gid_offset: int = 0) -> BlockedFields:
     """The fields cut into blocks of ``block_size`` sorted particles;
-    ``gid`` is the sorted index (tiles.py:718-735)."""
+    ``gid`` is the sorted index plus ``gid_offset`` (tiles.py:718-735): a
+    sharded substep passes the offset of its queries in the exchanged
+    table, so that the self test holds against that table."""
     n = position.shape[0]
     nb = n // block_size
-    gid = torch.arange(n, dtype=torch.int32, device=position.device)
+    gid = torch.arange(n, dtype=torch.int32, device=position.device) + gid_offset
 
     def rs(a):
         return a.reshape((nb, block_size) + tuple(a.shape[1:]))
@@ -423,46 +449,51 @@ def _tile_chunks(cand: torch.Tensor, count: torch.Tensor, b: int):
             yield slice(r0, r0 + rows), slice(m0, min(live, m0 + slots))
 
 
-def _chunk_ids(blocked: BlockedFields, cand, count, sl, ms):
-    """The chunk's candidate block ids (r, S), clamped so that a dead
-    slot's REFINE_SENTINEL gathers a real block (a NaN row would poison the
-    sums even masked), and its live mask (r, S)."""
-    last = blocked.position.shape[0] - 1
+def _chunk_ids(cf: BlockedFields, cand, count, sl, ms):
+    """The chunk's candidate block ids (r, S) into ``cf``, clamped so that
+    a dead slot's REFINE_SENTINEL gathers a real block (a NaN row would
+    poison the sums even masked), and its live mask (r, S)."""
+    last = cf.position.shape[0] - 1
     c = torch.clamp(cand[sl, ms], max=last).to(torch.int64)
     slot = torch.arange(ms.start, ms.stop, device=cand.device)
     return c, slot[None, :] < count[sl, None]
 
 
 def density_pass(blocked: BlockedFields, cand: torch.Tensor, count: torch.Tensor,
-                 params: SimulationParameters) -> torch.Tensor:
+                 params: SimulationParameters, cand_fields=None) -> torch.Tensor:
     """Poly6 density of every query against all particles of its live
     candidate blocks (tiles.py:760-803; forces.cl:14-42), one (B, B) tile
-    per candidate slot. Returns (n,) over the sorted order, rest density
-    on padding rows."""
+    per candidate slot. ``cand_fields``: the block table the candidate
+    ids index (default ``blocked``; a sharded substep's exchanged table,
+    of which only position and real are read). Returns (n,) over the
+    sorted order, rest density on padding rows."""
+    cf = blocked if cand_fields is None else cand_fields
     terms = params.precomputed()
     h = float(params.h)
     nb, b = blocked.real.shape
     acc = torch.zeros((nb, b), dtype=torch.float32, device=cand.device)
     for sl, ms in _tile_chunks(cand, count, b):
-        c, live = _chunk_ids(blocked, cand, count, sl, ms)
-        rvec = blocked.position[sl][:, None, :, None, :] - blocked.position[c][:, :, None]
+        c, live = _chunk_ids(cf, cand, count, sl, ms)
+        rvec = blocked.position[sl][:, None, :, None, :] - cf.position[c][:, :, None]
         r = torch.sqrt(torch.sum(rvec * rvec, dim=-1))  # (r, S, B, B)
         w = smoothing.poly_6(r, h, terms)
-        ok = live[:, :, None, None] & blocked.real[c][:, :, None, :]
+        ok = live[:, :, None, None] & cf.real[c][:, :, None, :]
         acc[sl] += torch.sum(torch.where(ok, w, 0.0), dim=(1, 3))
     density = torch.where(blocked.real, params.particle_mass * acc, params.fluid_density)
     return density.reshape(-1)
 
 
 def force_pass(blocked: BlockedFields, cand: torch.Tensor, count: torch.Tensor,
-               params: SimulationParameters) -> torch.Tensor:
+               params: SimulationParameters, cand_fields=None) -> torch.Tensor:
     """Internal forces and gravity over whole candidate blocks
     (tiles.py:806-922; forces.cl:44-126): the symmetrised spiky pressure
     with its r -> 0 branch, viscosity, and the colour field, self
-    excluded from the first two by id. The direction sums are taken
+    excluded from the first two by ``gid``. The direction sums are taken
     directly as sum_j a_ij (x_i - x_j), as the port's kernels take them,
-    so no block centring is needed. Returns (n, 3) over the sorted order
-    (padding rows included; the caller drops them)."""
+    so no block centring is needed. ``cand_fields`` as in
+    :func:`density_pass`, every field read. Returns (n, 3) over the
+    sorted order (padding rows included; the caller drops them)."""
+    cf = blocked if cand_fields is None else cand_fields
     terms = params.precomputed()
     h = float(params.h)
     mass = float(params.particle_mass)
@@ -475,27 +506,27 @@ def force_pass(blocked: BlockedFields, cand: torch.Tensor, count: torch.Tensor,
     self_coeff = blocked.pressure / blocked.density ** 2  # p_i / rho_i^2
     pair_sum = (1, 3)  # over (slot, candidate particle) of (r, S, B, B, ...)
     for sl, ms in _tile_chunks(cand, count, b):
-        c, live = _chunk_ids(blocked, cand, count, sl, ms)
+        c, live = _chunk_ids(cf, cand, count, sl, ms)
 
         def q(a):  # query side, (r, 1, B, 1, ...)
             return a[sl][:, None, :, None]
 
-        def k(a):  # candidate side, (r, S, 1, B, ...)
-            return a[c][:, :, None, :]
+        def k(name):  # candidate side, (r, S, 1, B, ...)
+            return getattr(cf, name)[c][:, :, None, :]
 
-        rvec = q(blocked.position) - k(blocked.position)  # (r, S, B, B, 3)
+        rvec = q(blocked.position) - k("position")  # (r, S, B, B, 3)
         r2 = torch.sum(rvec * rvec, dim=-1)
         r = torch.sqrt(r2)
-        ok = live[:, :, None, None] & k(blocked.real)
-        not_self = ok & (q(blocked.gid) != k(blocked.gid))
+        ok = live[:, :, None, None] & k("real")
+        not_self = ok & (q(blocked.gid) != k("gid"))
         cut = smoothing.support_mask(r, h)
         near0 = r < smoothing.EPSILON
         safe_r = torch.where(near0, 1.0, r)
-        crho = k(blocked.density)
+        crho = k("density")
         mr = mass / crho
         # pressure (Kelager 4.11, forces.cl:69-76) and its coincident
         # pair branch (smoothing.cl:23-25) on every component
-        p_coeff = mass * (k(blocked.pressure) / crho ** 2 + q(self_coeff))
+        p_coeff = mass * (k("pressure") / crho ** 2 + q(self_coeff))
         a = torch.where(not_self & ~near0,
                         p_coeff * (cut * terms.spiky * (h - r) ** 2 / safe_r), 0.0)
         sing = torch.where(not_self & near0, p_coeff * terms.spiky, 0.0)
@@ -503,7 +534,7 @@ def force_pass(blocked: BlockedFields, cand: torch.Tensor, count: torch.Tensor,
                       + torch.sum(sing, dim=pair_sum)[..., None])
         # viscosity (forces.cl:78-84)
         bm = torch.where(not_self, mr * cut * terms.viscosity * (h - r), 0.0)
-        visc[sl] += torch.sum(bm[..., None] * (k(blocked.velocity) - q(blocked.velocity)),
+        visc[sl] += torch.sum(bm[..., None] * (k("velocity") - q(blocked.velocity)),
                               dim=pair_sum)
         # colour field normal and Laplacian, self included (forces.cl:87-96)
         t = h * h - r2

@@ -59,13 +59,16 @@ def test_off_the_nl_shape_rebuilds_every_substep():
 
 @pytest.mark.parametrize("argv,message", [
     (("--cand-interval", "3"), "--cand-interval must divide --sort-interval"),
-    (("--mesh", "4"), "ROADMAP.md queue 1 item 5"),
-    (("--exchange", "ring"), "ROADMAP.md queue 1 item 5"),
-    (("--halo-hops", "2"), "ROADMAP.md queue 1 item 5"),
+    (("--mesh", "-1"), "--mesh and --halo-max must be >= 0, --halo-hops >= 1"),
+    (("--mesh", "2", "--halo-hops", "0"),
+     "--mesh and --halo-max must be >= 0, --halo-hops >= 1"),
+    (("--exchange", "ring"), "--exchange, --halo-max and --halo-hops need --mesh N"),
+    (("--halo-hops", "2"), "--exchange, --halo-max and --halo-hops need --mesh N"),
     (("--tile-mode", "mxu"), "ROADMAP.md queue 2 C"),
     (("--block-size", "96"), "StepConfig.block_size=96: use one of (64, 128, 256)"),
     (("--nl-query-rows", "16"), "StepConfig.nl_query_rows=16: use one of (32, 64, 128)"),
-], ids=["cand-interval", "mesh", "exchange", "halo", "mxu", "block-size", "nl-query-rows"])
+], ids=["cand-interval", "mesh", "halo-hops-0", "exchange", "halo", "mxu", "block-size",
+        "nl-query-rows"])
 def test_refusals(argv, message):
     with pytest.raises(SystemExit) as e:
         bench_torch.config_from_args(parse(*argv))

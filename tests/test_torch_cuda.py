@@ -24,6 +24,9 @@ word with counts crossing a word, empty lists) and of
 spiky guard, self-exclusion under the query-block map, padding queries,
 empty lists), each also bit for bit against ``forces_q32_c32`` over the
 list repeated per subgroup, which is the ``fine`` route's old kernel.
+The mesh: two ranks that share the card (gloo, staged through host
+buffers), their collectives and one sharded substep against two CPU
+ranks.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -1221,3 +1224,48 @@ def test_shape_substeps_on_gpu_match_cpu(tables, cuda, over):
     np.testing.assert_allclose(g1.density.cpu().numpy(), c1.density.numpy(), rtol=1e-5)
     a = c1.acceleration.numpy()
     np.testing.assert_allclose(g1.acceleration.cpu().numpy(), a, atol=1e-5 * np.abs(a).max())
+
+
+@pytest.mark.cuda
+def test_mesh_collectives_staged_on_the_card(cuda):
+    """Two ranks that share the card run over gloo, every collective
+    staged through pinned host buffers: the values arrive as on the CPU,
+    and the staged bytes are counted."""
+    from libclsph_tpu_torch.parallel import mesh
+
+    res = mesh.launch(mesh.check_collectives, 2, device="cuda", backend="gloo", timeout=300)
+    for r, out in enumerate(res):
+        np.testing.assert_array_equal(out["max"], [1.0, 0.0])
+        np.testing.assert_array_equal(out["gather"], [[0.0] * 3] * 2 + [[1.0] * 3] * 2)
+        assert [h[0] for h in out["ring"]] == [1 - r]
+        np.testing.assert_array_equal(out["broadcast"], [1.0, 1.0])
+        assert out["stats"]["staged_bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_sharded_substep_on_card_ranks_matches_cpu_ranks(tables, cuda):
+    """Two ranks on the card (the kernels, queries at a qblock offset in
+    the exchanged table) against two ranks on the CPU (plain versions), one
+    halo substep from the same shards: tables equal, density rtol 1e-5,
+    acceleration atol 1e-5 * max|a|."""
+    from libclsph_tpu_torch.core.state import init_state
+    from libclsph_tpu_torch.io import checkpoint
+    from libclsph_tpu_torch.parallel import mesh, sharded_step
+
+    p = tables["params"]
+    cfg = step.StepConfig(force_sub8=False, cand_interval=1)
+    padded = sharded_step.pad_for_mesh(init_state(p, "cpu"), p, 2, cfg)
+    shards = [checkpoint.state_to_arrays(sharded_step.local_rows(padded, r, 2))
+              for r in range(2)]
+    args = (shards, p, cfg, "halo", sharded_step.default_halo_max(N, 2, 128), 1, None, True)
+    gpu = mesh.launch(sharded_step.run_shards, 2, args=args, device="cuda", backend="gloo",
+                      timeout=300)
+    cpu = mesh.launch(sharded_step.run_shards, 2, args=args, device="cpu", timeout=300)
+    for g, c in zip(gpu, cpu):
+        assert g["flags"] == c["flags"] == 0
+        for k in ("cand", "count", "cand_sub", "count_sub", "cand_f", "count_f"):
+            np.testing.assert_array_equal(g["tables"][k], c["tables"][k], err_msg=k)
+        np.testing.assert_allclose(g["state"]["density"], c["state"]["density"], rtol=1e-5)
+        a = c["state"]["acceleration"]
+        np.testing.assert_allclose(g["state"]["acceleration"], a, atol=1e-5 * np.abs(a).max())
+        assert g["stats"]["staged_bytes"] > 0 and c["stats"]["staged_bytes"] == 0
