@@ -21,11 +21,18 @@ the timed window, which is not re-run.
 Prints ONE JSON line with bench.py's keys; the number stands only with
 ``detail.timed_flags == 0``. Where it differs from bench.py:
 
-* the warm-up grows capacity through the engine's rule, which stops the
-  8-wide hit capacity at 160 and then moves to the q-granular tables, and
-  grows ``cand_slack`` on a stale-reuse flag (bench.py adds 32 to the
-  hit capacity without a ceiling and never grows the slack), and it
-  rehearses the timed window (bench.py warms up on its W substeps
+* the warm-up grows capacity through the engine's rule
+  (``SPHSimulation._grow_capacity``), not bench.py:359-381's. Both double
+  ``max_candidates`` on a block overflow, turn two-tier routing on at the
+  first subblock overflow and double ``tier2_mult`` after it, halve
+  ``tier2_frac`` on a pool overflow, double ``max_candidates_hit`` on the
+  q-granular tables and double ``cand_slack`` on a stale-reuse flag
+  (bench.py:380-381). They differ on a hit overflow: the engine adds 32
+  to the 8-wide hit capacity only up to 160 and then moves to the
+  q-granular tables, and on the 16-wide force path's tables it moves to
+  them at once, where bench.py adds 32 without a ceiling (bench.py:
+  371-375) and doubles ``max_candidates_hit16`` (:376-377). The warm-up
+  also rehearses the timed window (bench.py warms up on its W substeps
   only);
 * ``vs_baseline`` is null: bench.py's north star is a TPU v5e-8 target,
   and the port has no H100 baseline yet;
@@ -37,11 +44,15 @@ Prints ONE JSON line with bench.py's keys; the number stands only with
 ``--mesh N`` (with ``--exchange``, ``--halo-max``, ``--halo-hops``) times
 the sharded frame loop over N ranks instead (bench.py's ``bench_mesh``;
 :mod:`libclsph_tpu_torch.parallel.bench` on each rank): the same warm-up,
-rehearsal and window of the frame loop on every rank, and bench.py's
-mesh JSON line with the collectives and their bytes per substep (those
-staged through host buffers apart) and whether the ranks shared a card.
-As in bench.py, the 8-wide force pass is off under the mesh. Ranks that
-share a card measure no multi-GPU scaling.
+rehearsal and window of the frame loop on every rank, grown by
+bench.py's mesh rule (bench.py:115-140: the flagged capacities and the
+slack doubled in place, so the 16-wide tables stay; plus the engine's
+``halo_hops`` growth on ``FLAG_EXCHANGE``), and bench.py's mesh JSON
+line with the collectives and their bytes per substep (those staged
+through host buffers apart), whether the ranks shared a card and, in
+``detail.tables``, the grown table shape. As in bench.py, the 8-wide
+force pass is off under the mesh. Ranks that share a card measure no
+multi-GPU scaling.
 
 Without a GPU it refuses to run unless ``--device cpu`` is given.
 """
@@ -218,40 +229,54 @@ def run_substep(state, dt, i, tables, params, scene, cfg):
     return step.substep(state, dt, params, scene, cfg, do_sort=False, cand_in=tables)
 
 
-def run_substeps(state, dt, params, scene, cfg, steps):
+def run_substeps(state, dt, params, scene, cfg, steps, on_substep=None):
     """``steps`` substeps of bench.py's schedule from ``state`` (substep 0
-    rebuilds). Returns (state, dt, flags ORed over the substeps)."""
+    rebuilds). ``on_substep(i, before, after, dt, flags, cfg)``, where
+    given, sees each substep's input and output state (a substep changes
+    no tensor of its input). Returns (state, dt, flags ORed over the
+    substeps)."""
     import torch
 
     flags = torch.zeros((), dtype=torch.int32, device=state.device)
     tables = None
     for i in range(steps):
+        before = state
         state, dt, f, tables = run_substep(state, dt, i, tables, params, scene, cfg)
         flags = flags | f
+        if on_substep is not None:
+            on_substep(i, before, state, dt, f, cfg)
     return state, dt, flags
 
 
-def warm_up(state, params, scene, engine, steps, dt=None, window=0):
+def warm_up(state, params, scene, engine, steps, dt=None, window=0, on_substep=None,
+            on_rerun=None):
     """``steps`` substeps from ``state`` at ``dt`` (a 0-d tensor; max_dt
     when None), re-run from the start with the engine's capacity growth
     (``engine._needs_rerun``) until no flag is raised. Then, with
     ``window``, that many substeps once more from the warm state, grown
     the same way and discarded: the timed window's own substeps, so that
     the capacities cover them too (the dam's fall deepens the tables past
-    what the first substeps need). Returns the warm (state, dt);
-    ``engine.step_config`` holds the grown capacities."""
+    what the first substeps need). ``on_substep`` goes to
+    :func:`run_substeps`; ``on_rerun(flags)`` is called after each run
+    that grew the tables, with ``engine.step_config`` already grown.
+    Returns the warm (state, dt); ``engine.step_config`` holds the grown
+    capacities."""
     import torch
 
     dt0 = dt if dt is not None else torch.tensor(params.max_dt, dtype=torch.float32,
                                                  device=state.device)
     for _ in range(6):
-        st, dt, flags = run_substeps(state, dt0, params, scene, engine.step_config, steps)
+        st, dt, flags = run_substeps(state, dt0, params, scene, engine.step_config, steps,
+                                     on_substep)
         if not engine._needs_rerun(flags):
             break
+        if on_rerun is not None:
+            on_rerun(flags)
     else:
         raise RuntimeError("capacity growth did not converge")
     if window:
-        warm_up(st, params, scene, engine, window, dt)
+        warm_up(st, params, scene, engine, window, dt, on_substep=on_substep,
+                on_rerun=on_rerun)
     return st, dt
 
 
@@ -402,6 +427,9 @@ def bench_mesh_record(ranks, n, steps, world, exchange, cuda, card) -> dict:
             "ranks_share_card": cuda and world > torch.cuda.device_count(),
             "card": card,
             "host_cpu": host_cpu(),
+            # the grown tables: (density_sub16, force_sub16, force_sub8),
+            # force_query_rows, the capacities and tier2_frac
+            "tables": ranks[0]["tables"],
             "config": ranks[0]["config"],
         },
     }

@@ -104,7 +104,26 @@ non-zero):
 11. the emitter (``experiments/torch_emitter_run.py``, the round-5
     matrix's row 9): 262,144 particles from ``shower.obj``'s tray onto
     ``monkey.obj`` for 5 frames; every frame after the first must
-    recycle particles.
+    recycle particles;
+12. the mesh, 4 ranks sharing the card over gloo (staged through host
+    buffers): 12a one sharded substep per exchange and table shape from
+    the settled 64k cube against the single-chip substep, then 8
+    substeps of the sharded frame loop with two-tier routing and
+    candidate reuse (``cand_interval`` 4) under halo and all_gather
+    against the single-chip frame from the same state (positions atol
+    1e-5, density rtol 1e-5, acceleration atol 5e-4 * max|a|, the same
+    rebuilds and reuses, tier 2 receiving blocks); 12b ``density_c16``
+    hit_sub 16 and ``forces_q32_c16`` against their plain versions on
+    each rank's exchanged tables at 1M; 12c ``bench_torch``'s ``--mesh
+    4`` function at 1M for halo and all_gather, and ``--mesh 1 --exchange
+    halo`` against phase 4b (the grown table shape printed for each);
+    12d ``sph-torch ... --mesh 4 --exchange halo`` at 64,000 particles;
+13. the probes: ``experiments/torch_refine_probe.py`` at 1M (the
+    refine's split at 128, 64 and 32 query rows), ``torch_scale_diag.py``
+    at 2M (warm-up with growth and 10 substeps) and
+    ``torch_river_frame_diag.py`` on the 1M river for 5 frames, each in a
+    process of its own, each printing its JSON line; a probe that exits
+    non-zero fails the run.
 
 Phase 2 also holds, at the 1M lattice, ``density_blocks`` and
 ``forces_blocks`` of the three block variants on the block search's
@@ -145,8 +164,8 @@ import sys
 import tempfile
 import time
 
-from bench_torch import (bench_mesh_record, bench_result, card_line, run_substeps, sync,
-                         timed_window, warm_up)
+from bench_torch import (bench_mesh, bench_mesh_record, bench_result, card_line,
+                         run_substeps, sync, timed_window, warm_up)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EXPERIMENTS = os.path.join(ROOT, "experiments")
@@ -271,6 +290,13 @@ EMITTER_FRAMES = 5  # frames of the 256k emitter (phase 11)
 MESH_RANKS = 4  # phase 12: ranks that share the one card
 MESH_STEPS = 10  # timed substeps of phase 12c
 MESH_FRAMES = 2  # frames of the mesh CLI run (phase 12d)
+# phase 12a's tier-2 reuse case: substeps of the sharded frame loop (a
+# rebuild at substeps 0 and 4 on the 4/4 cadence), and its exchanges
+REUSE_SUBSTEPS = 8
+REUSE_EXCHANGES = ("halo", "all_gather")
+N_SCALE = 2_000_000  # phase 13: the scale probe's dam-break
+SCALE_STEPS = 10
+RIVER_PROBE_FRAMES = 5
 # phase 12a: (label, exchange, halo_hops, StepConfig fields) of each
 # sharded substep held against the single-chip substep; ring at 2 hops
 # covers 4 ranks
@@ -1234,6 +1260,7 @@ def phase4b_sub16(s1m, params, scene, engine, card):
         f"substep ms (median of 5): ungated {times['ungated'][0]:.3f} / "
         f"{times['ungated'][1]:.3f}, gated {times['gated'][0]:.3f} / {times['gated'][1]:.3f}; "
         f"card {card}")
+    return mean["ungated"]
 
 
 def engine_with(engine, cfg):
@@ -1873,10 +1900,12 @@ def records_from_raw(raw) -> dict:
             for rec, (fn, variant, *_) in KERNELS.items()}
 
 
-def phase12_rank(mesh, arrays64, p64, dt64, p1m, cases):
+def phase12_rank(mesh, arrays64, p64, dt64, p1m, cases, reuse_over):
     """Phase 12a-c on one rank (spawned by parallel.mesh.launch; the
     script's own functions run in the ranks, which import no JAX).
     Returns host arrays and numbers for the parent to check."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -1910,6 +1939,18 @@ def phase12_rank(mesh, arrays64, p64, dt64, p1m, cases):
         out["a"][label] = dict(state=checkpoint.state_to_arrays(st), dt=float(dt_o),
                                flags=flags, ms=ms,
                                launches=raw_delta(kernels.launch_counts(), before))
+    # 12a, tier 2 with candidate reuse: REUSE_SUBSTEPS substeps of the
+    # sharded frame loop, its substeps counted
+    cfg = dataclasses.replace(mesh_config(reuse_over), substeps_per_dispatch=REUSE_SUBSTEPS)
+    for exchange in REUSE_EXCHANGES:
+        halo_max = 0 if exchange == "all_gather" else ss.default_halo_max(
+            p64.particles_count, world, cfg.block_size)
+        stats = {}
+        st, dt_o, _, flags = ss.local_frame(
+            mesh, local, dt, torch.tensor(3.0e38, device=dev), p64, scene64, cfg, exchange,
+            halo_max, 1, stats)
+        out["a"][f"reuse {exchange}"] = dict(state=checkpoint.state_to_arrays(st),
+                                             dt=float(dt_o), flags=int(flags), stats=stats)
     mesh_raw = kernels.launch_counts()
 
     # 12b: the 16-wide pair on this rank's exchanged tables at 1M
@@ -1982,10 +2023,83 @@ def compare_sharded(tag, parts, ref, atol_pos=1e-5, rtol_dens=1e-5, atol_acc=5e-
     return errs
 
 
-def phase12_mesh(dev, card, ms_main, paths, stats, tmp):
+def reuse_case(s64, p64):
+    """Phase 12a's tier-2 reuse config: the mesh path on the 4/4 cadence
+    with a base subblock capacity at the 75th percentile of the settled
+    cube's refined counts at the reuse radius (one device's), a tier-2
+    width past 1.5 x the deepest, and a tier-2 pool of every block."""
+    import numpy as np
+
+    from libclsph_tpu_torch.engine import step
+
+    cfg = mesh_config(dict(SUB16, cand_interval=4, sort_interval=4, max_candidates_sub=4096))
+    st, real, _ = step.pad_and_sort(s64, p64, True)
+    counts, flags = step.build_candidates(st, real, p64, cfg)[1:]
+    if int(flags):
+        raise RuntimeError(f"phase 12a reuse: the full-depth refine raised {int(flags)}")
+    counts = counts.cpu().numpy()
+    c1 = int(np.percentile(counts, 75))
+    mult = 2
+    while c1 * mult < 1.5 * counts.max():
+        mult *= 2
+    return dict(SUB16, cand_interval=4, sort_interval=4, max_candidates_sub=c1,
+                tier2_frac=1, tier2_mult=mult)
+
+
+def check_reuse_case(ranks, s64, dt64, p64, scene64, over):
+    """Phase 12a's tier-2 reuse case against the single-chip frame from
+    the same state (compare_sharded's tolerances, the same dt, flags 0,
+    the same rebuilds and reuses); tier 2 must receive blocks and the
+    carried table have the tier-2 width."""
+    import dataclasses
+
+    import torch
+
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.io import checkpoint
+
+    cfg = dataclasses.replace(mesh_config(over), substeps_per_dispatch=REUSE_SUBSTEPS)
+    one = {}
+    saved = save_launches()
+    st, dt1, _, flags = step.frame(s64, dt64, torch.tensor(3.0e38, device=s64.device), p64,
+                                   scene64, cfg, one)
+    restore_launches(saved)
+    ref = dict(checkpoint.state_to_arrays(st), dt=float(dt1))
+    if int(flags) or not one["reuses"] or not one["tier2_blocks"]:
+        raise RuntimeError(f"phase 12a reuse: the single-chip frame raised {int(flags)}, "
+                           f"counted {one}")
+    for exchange in REUSE_EXCHANGES:
+        tag = f"reuse {exchange}"
+        got = [r["a"][tag] for r in ranks]
+        errs = compare_sharded(tag, [g["state"] for g in got], ref)
+        counted = [g["stats"] for g in got]
+        width = over["max_candidates_sub"] * over["tier2_mult"]
+        if (any(g["flags"] for g in got)
+                or any(abs(g["dt"] / ref["dt"] - 1.0) > 1e-5 for g in got)
+                or any((c["rebuilds"], c["reuses"]) != (one["rebuilds"], one["reuses"])
+                       for c in counted)
+                or not sum(c["tier2_blocks"] for c in counted)
+                or any(c["carry_width"] != width for c in counted)):
+            raise RuntimeError(f"phase 12a {tag}: flags {[g['flags'] for g in got]}, dt "
+                               f"{[g['dt'] for g in got]} against {ref['dt']}, counted "
+                               f"{counted} against one device's {one}")
+        log(f"phase 12a {tag} (tier 2, cand_interval 4): {MESH_RANKS} ranks, "
+            f"{REUSE_SUBSTEPS} substeps of the frame loop from the settled 64k cube against "
+            f"the single-chip frame: position err {errs['pos']:.3g}, density rel err "
+            f"{errs['dens']:.3g}, accel err {errs['acc']:.3g} of max|a|, dt equal to 1e-5, "
+            f"flags 0; per rank {[c['rebuilds'] for c in counted]} rebuilds and "
+            f"{[c['reuses'] for c in counted]} reuse substeps (one device "
+            f"{one['rebuilds']} / {one['reuses']}), blocks routed to tier 2 summed over the "
+            f"substeps {[c['tier2_blocks'] for c in counted]} (one device "
+            f"{one['tier2_blocks']}), carried table {width} wide (base "
+            f"{over['max_candidates_sub']} x tier2_mult {over['tier2_mult']})")
+
+
+def phase12_mesh(dev, card, ms_main, ms_16wide, paths, stats, tmp):
     """Phase 12: 4 ranks on the one card (gloo, staged through host
     buffers; on a machine with 4 cards, one card a rank over NCCL), one
-    launch for a-c, the CLI's own for d."""
+    launch for a-c, the CLI's own for d; then bench_torch's --mesh 1
+    (12c, N = 1)."""
     import torch
 
     from libclsph_tpu_torch.core.state import init_state
@@ -2008,9 +2122,11 @@ def phase12_mesh(dev, card, ms_main, paths, stats, tmp):
             raise RuntimeError(f"phase 12a {label}: the single-chip substep raised {int(flags)}")
         refs[label] = dict(checkpoint.state_to_arrays(st), dt=float(dt_r))
     restore_launches(saved)
+    reuse_over = reuse_case(s64, p64)
     p1m = water_params(N_BENCH)
     ranks = mesh.launch(phase12_rank, MESH_RANKS, device="cuda", log=log, args=(
-        checkpoint.state_to_arrays(s64), p64, float(dt64), p1m, MESH_CASES))
+        checkpoint.state_to_arrays(s64), p64, float(dt64), p1m, MESH_CASES, reuse_over))
+    check_reuse_case(ranks, s64, dt64, p64, scene64, reuse_over)
     del s64
     torch.cuda.empty_cache()
     for label, _, _, _ in MESH_CASES:
@@ -2064,16 +2180,85 @@ def phase12_mesh(dev, card, ms_main, paths, stats, tmp):
             f"ms/substep); per substep on rank 0: collectives {d['collectives_per_substep']}, "
             f"bytes {d['collective_bytes_per_substep']}, staged through host "
             f"{d['staged_bytes_per_substep']:.6g} B; warm-up {res[0]['warm_s']:.2f} s; "
-            f"config {d['config']}; card {card}")
+            f"grown tables {d['tables']}; card {card}")
         log(f"phase 12c bench_torch --mesh {MESH_RANKS} --exchange {exchange}: "
             f"{json.dumps(record)}")
-    raw = ranks[0]["launches"]
-    for r in ranks[1:]:
+    # 12c at N = 1: bench_torch --mesh 1 --exchange halo, against phase 4b
+    # (the 16-wide force path, the tables the mesh runs)
+    record, one = bench_mesh(N_BENCH, MESH_STEPS, WARMUP_STEPS, "water", "cube", dev,
+                             mesh_config(), 1, "halo", log=log)
+    d = record["detail"]
+    if d["timed_flags"] or not one[0]["finite"]:
+        raise RuntimeError(f"phase 12c N = 1: flags {d['timed_flags']}, finite "
+                           f"{one[0]['finite']}")
+    log(f"phase 12c bench_torch --mesh 1 --exchange halo: {N_BENCH} particles, "
+        f"{MESH_STEPS} timed substeps, {d['ms_per_step']:.3f} ms/substep against phase 4b's "
+        f"{ms_16wide:.3f} (the 16-wide force path on one device, "
+        f"{d['ms_per_step'] / ms_16wide:.3f}x); collectives per substep "
+        f"{d['collectives_per_substep']}; warm-up {one[0]['warm_s']:.2f} s; grown tables "
+        f"{d['tables']}; card {card}")
+    log(f"phase 12c bench_torch --mesh 1 --exchange halo: {json.dumps(record)}")
+    raw = one[0]["launches"]
+    for r in ranks:
         raw = raw_sum(raw, r["launches"])
     paths["mesh"] = records_from_raw(raw)
     log(f"phase 12 a-c: {time.perf_counter() - t0:.2f} s")
     phase3_cli(tmp, "12d", ("--mesh", str(MESH_RANKS), "--exchange", "halo"),
                frames=MESH_FRAMES)
+
+
+def run_probe(script, *args, timeout=900) -> dict:
+    """``experiments/<script>`` in a process of its own on the card, as a
+    user runs it (the sort backend the package defaults to, not phase 8's);
+    its last line of output is its JSON record. A probe that exits non-zero
+    fails the phase."""
+    import subprocess
+
+    env = {k: v for k, v in os.environ.items() if k != "LIBCLSPH_TPU_SORT"}
+    out = subprocess.run([sys.executable, os.path.join(EXPERIMENTS, script), *args],
+                         capture_output=True, text=True, cwd=ROOT, env=env, timeout=timeout)
+    if out.returncode != 0:
+        raise RuntimeError(f"phase 13 {script} exited {out.returncode}: {out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def phase13_probes(card):
+    """Phase 13: the diagnostic probes on the card, each in a process of
+    its own, each printing its JSON line: the refine split at 1M for 128,
+    64 and 32 query rows (``torch_refine_probe``), the 2M dam-break
+    substep by substep through its warm-up and SCALE_STEPS substeps
+    (``torch_scale_diag``), and the 1M river dispatch by dispatch for
+    RIVER_PROBE_FRAMES frames (``torch_river_frame_diag``, row 7's
+    placement and pretune)."""
+    t0 = time.perf_counter()
+    refine = run_probe("torch_refine_probe.py")
+    for w in refine["widths"]:
+        if not w["exact"]["tables_equal_refine_candidates_exact"]:
+            raise RuntimeError(f"phase 13 refine probe: the parts' tables differ at rows "
+                               f"{w['nl_query_rows']}")
+        log(f"phase 13 refine q{w['nl_query_rows']}: rebuild substep "
+            f"{w['rebuild_substep']['device_ms']:.3f} ms of device time; parts (event ms, "
+            f"device ms, share of the rebuild's device time) "
+            + ", ".join(f"{k} {v['ms']:.3f} / {v['device_ms']:.3f} / "
+                        f"{w['share_of_rebuild'][k]:.3f}" for k, v in w["parts"].items())
+            + f"; count_sub exact mean {w['exact']['mean']:.1f} max {w['exact']['max']}, "
+            f"aabb mean {w['aabb']['mean']:.1f} max {w['aabb']['max']}")
+    log(f"phase 13 torch_refine_probe: {json.dumps(refine)}")
+    scale = run_probe("torch_scale_diag.py", "--n", str(N_SCALE), "--steps", str(SCALE_STEPS))
+    log(f"phase 13 scale probe at {N_SCALE}: growth {json.dumps(scale['growth'])}; deepest "
+        f"superblock shortlist / its cap by substep "
+        f"{[(r['super_rows_max'], r['super_cap']) for r in scale['rows']]}; blocks a block "
+        f"needs (max) {[r['count_max'] for r in scale['rows']]}")
+    log(f"phase 13 torch_scale_diag: {json.dumps(scale)}")
+    river = run_probe("torch_river_frame_diag.py", "--frames", str(RIVER_PROBE_FRAMES))
+    if not river["finite"]:
+        raise RuntimeError("phase 13 river probe: non-finite state")
+    frames = [(f["substeps"], f["rebuilds"], f["reuses"], f["reruns"], round(f["wall_s"], 4),
+               round(f["device_s"], 4)) for f in river["frames"]]
+    log(f"phase 13 river probe: frames (substeps, rebuilds, reuses, re-runs, wall s under "
+        f"the profiler, device s) {frames}")
+    log(f"phase 13 torch_river_frame_diag: {json.dumps(river)}")
+    log(f"phase 13 probes: {time.perf_counter() - t0:.2f} s; card {card}")
 
 
 class Walls:
@@ -2229,7 +2414,8 @@ def main(argv=None) -> int:
     got = read_launches()
     if min(got["density_c16 hit_sub 16"], got["forces_q32_c16"]) <= 0:
         raise RuntimeError(f"the --no-force-sub8 CLI run launched {got}")
-    phase4b_sub16(s1m, p1m, scene1m, engine_with(engine, step.StepConfig(**SUB16)), card)
+    ms_16wide = phase4b_sub16(s1m, p1m, scene1m,
+                              engine_with(engine, step.StepConfig(**SUB16)), card)
     paths["16-wide"] = read_launches()
     walls.mark("3b-4b")
 
@@ -2268,8 +2454,11 @@ def main(argv=None) -> int:
     # phase 12 drives the mesh path: 4 ranks on the card, each with its
     # counts set to 0 before and read after
     with tempfile.TemporaryDirectory() as tmp:
-        phase12_mesh(dev, card, ms_main, paths, stats, tmp)
+        phase12_mesh(dev, card, ms_main, ms_16wide, paths, stats, tmp)
     walls.mark("12")
+    # phase 13: the diagnostic probes on the card
+    phase13_probes(card)
+    walls.mark("13")
 
     launches = {rec: sum(paths[path][rec] for path in spec[4])
                 for rec, spec in KERNELS.items()}

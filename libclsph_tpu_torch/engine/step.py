@@ -336,6 +336,18 @@ def hit_lists(cand_sub: torch.Tensor, hits: torch.Tensor, config: StepConfig,
     query block of each row, default the identity; the self range is its
     parent Morton block's (qblock // q_rep).
     Returns (cand (nq*groups, cap) int32, count, flags)."""
+    ids, self_lo, self_width, width = hit_ids(cand_sub, config, groups, qblock)
+    cand_f, count_f, ovf = tiles_ops.compact_hits(
+        ids, hits[:, : ids.shape[1]], cap or _hit_cap(config, width, groups),
+        self_lo=self_lo, self_width=self_width,
+    )
+    return cand_f.contiguous(), count_f, ovf.to(torch.int32) * FLAG_CAPACITY_HIT
+
+
+def hit_ids(cand_sub: torch.Tensor, config: StepConfig, groups: int = GROUPS, qblock=None):
+    """:func:`hit_lists`' input to :func:`tiles.compact_hits`: the ids split
+    to the force width, repeated once a hit row. Returns (ids (nq*groups,
+    M * split) int32, self_lo, self_width, the force width)."""
     nq = cand_sub.shape[0]
     sub = config.block_size // config.subblock
     if qblock is None:
@@ -353,11 +365,7 @@ def hit_lists(cand_sub: torch.Tensor, hits: torch.Tensor, config: StepConfig,
     if groups > 1:
         ids = torch.repeat_interleave(ids, groups, dim=0)
         self_lo = torch.repeat_interleave(self_lo, groups)
-    cand_f, count_f, ovf = tiles_ops.compact_hits(
-        ids, hits[:, : ids.shape[1]], cap or _hit_cap(config, width, groups),
-        self_lo=self_lo, self_width=self_width,
-    )
-    return cand_f.contiguous(), count_f, ovf.to(torch.int32) * FLAG_CAPACITY_HIT
+    return ids, self_lo, self_width, width
 
 
 def _hit_cap(config: StepConfig, width: int, groups: int) -> int:
@@ -754,8 +762,30 @@ def substep(state: ParticleState, dt: torch.Tensor, params: SimulationParameters
     return new_state, dt_out, flags, cand_out
 
 
+def count_substep(stats: Optional[dict], rebuild: bool, tables, config: StepConfig):
+    """Add one substep to a frame loop's ``stats`` (nothing when None):
+    ``substeps``, ``rebuilds``, ``reuses`` and, where a carried table
+    ``tables`` = (cand_sub, count_sub, ...) runs two-tier routing,
+    ``tier2_blocks`` (the blocks :func:`tiles.route_overflow` sends to
+    tier 2 on this substep, summed over the substeps; a host read) and
+    ``carry_width`` (the carried table's slots). Changes no result."""
+    if stats is None:
+        return
+    for key, add in (("substeps", 1), ("rebuilds", int(rebuild)), ("reuses", int(not rebuild)),
+                     ("tier2_blocks", 0)):
+        stats[key] = stats.get(key, 0) + add
+    if tables is None or not config.two_tier:
+        return
+    cand_sub, count_sub = tables[0], tables[1]
+    nb2 = -(-count_sub.shape[0] // config.tier2_frac)
+    used = tiles_ops.route_overflow(count_sub, config.max_candidates_sub, nb2)[1]
+    stats["tier2_blocks"] += int(used.sum())
+    stats["carry_width"] = cand_sub.shape[1]
+
+
 def frame(state: ParticleState, dt: torch.Tensor, timeleft: torch.Tensor,
-          params: SimulationParameters, scene, config: StepConfig):
+          params: SimulationParameters, scene, config: StepConfig,
+          stats: Optional[dict] = None):
     """A frame's substep loop (sph_simulation.cpp:384-409; frame_jit,
     step.py:1245-1376): runs until the frame's time is spent or
     ``config.substeps_per_dispatch`` substeps ran, clamping dt to the
@@ -763,6 +793,7 @@ def frame(state: ParticleState, dt: torch.Tensor, timeleft: torch.Tensor,
     rebuilds the candidate tables when n % cand_interval == 0 or when
     the displacement since the carried anchor already exceeds the
     slack (the predictive staleness check); substep 0 always rebuilds.
+    ``stats``: a dict that counts the substeps (:func:`count_substep`).
     Returns (state, dt, timeleft, flags), flags ORed over the substeps.
     """
     interval = config.sort_interval
@@ -787,6 +818,7 @@ def frame(state: ParticleState, dt: torch.Tensor, timeleft: torch.Tensor,
             state, dt_next, step_flags, _ = substep(
                 state, dt, params, scene, config, do_sort=False, cand_in=tables
             )
+        count_substep(stats, rebuild, tables, config)
         timeleft = timeleft - dt_next
         dt = torch.where(timeleft < dt_next, timeleft, dt_next)
         flags = flags | step_flags

@@ -188,13 +188,14 @@ def compact_mask(mask: torch.Tensor, cap: int):
     return idx[:cap], valid, total > cap
 
 
-def candidate_blocks_hierarchical(bmin: torch.Tensor, bmax: torch.Tensor, h: float,
-                                  max_candidates: int, super_cand: int = SUPER_CAND):
-    """Two-level candidate search for large block counts
-    (tiles.py:198-299): query blocks against superblocks of SUPER
-    consecutive blocks (4 boxes split at the largest member-centre gaps),
-    then the superblock shortlists refined to blocks with
-    :func:`refine_candidates`."""
+def superblock_candidates(bmin: torch.Tensor, bmax: torch.Tensor, h: float,
+                          super_cand: int):
+    """Level 1 of :func:`candidate_blocks_hierarchical`: superblocks of
+    SUPER consecutive blocks, each with 4 boxes split at the largest
+    member-centre gaps, against each other, own superblock in slot 0.
+    Returns (shortlists (nsb, min(super_cand, nsb)) int32, their counts,
+    the untruncated counts (nsb,), and the member boxes (nsb, SUPER, 3)
+    twice)."""
     nb = bmin.shape[0]
     if nb % SUPER:
         raise ValueError(f"nb={nb} not a multiple of SUPER={SUPER}")
@@ -211,15 +212,31 @@ def candidate_blocks_hierarchical(bmin: torch.Tensor, bmax: torch.Tensor, h: flo
     all_members = torch.ones_like(seg, dtype=torch.bool)
     sb_min, sb_max = _segment_boxes(mem_lo, mem_hi, all_members, seg, sb_split)
 
-    # level 1: superblock x superblock, own superblock in slot 0
     ov1 = _box_overlap(sb_min - h, sb_max + h, sb_min, sb_max)
-    super_cand = min(super_cand, nsb)
     sb_ids = torch.arange(nsb, dtype=torch.int32, device=bmin.device)
     eye = torch.eye(nsb, dtype=torch.bool, device=bmin.device)
-    sb_cand_sb, sb_count_sb, row_count1 = _compact_with_self(
-        ov1 & ~eye, sb_ids, super_cand
-    )
-    sb_overflow = torch.any(row_count1 > super_cand)
+    sb_cand, sb_count, row_count = _compact_with_self(ov1 & ~eye, sb_ids,
+                                                      min(super_cand, nsb))
+    return sb_cand, sb_count, row_count, mem_lo, mem_hi
+
+
+def super_cand_for(nb: int, max_candidates: int) -> int:
+    """The level-1 cap that :func:`candidate_blocks_auto` gives the
+    hierarchical search: it scales with max_candidates and with nsb / 3."""
+    return max(SUPER_CAND, max_candidates, -(-(nb // SUPER) // 3))
+
+
+def candidate_blocks_hierarchical(bmin: torch.Tensor, bmax: torch.Tensor, h: float,
+                                  max_candidates: int, super_cand: int = SUPER_CAND):
+    """Two-level candidate search for large block counts
+    (tiles.py:198-299): query blocks against superblocks of SUPER
+    consecutive blocks (4 boxes split at the largest member-centre gaps),
+    then the superblock shortlists refined to blocks with
+    :func:`refine_candidates`."""
+    nb = bmin.shape[0]
+    sb_cand_sb, sb_count_sb, row_count1, mem_lo, mem_hi = superblock_candidates(
+        bmin, bmax, h, super_cand)
+    sb_overflow = torch.any(row_count1 > min(super_cand, nb // SUPER))
 
     # level 2: refine superblock shortlists to blocks (member union boxes)
     cand_rep = torch.repeat_interleave(sb_cand_sb, SUPER, dim=0)
@@ -240,10 +257,8 @@ def candidate_blocks_auto(bmin, bmax, h: float, max_candidates: int):
     max_candidates and with nsb/3."""
     nb = bmin.shape[0]
     if nb > HIERARCHICAL_THRESHOLD and nb % SUPER == 0:
-        nsb = nb // SUPER
-        super_cand = max(SUPER_CAND, max_candidates, -(-nsb // 3))
         return candidate_blocks_hierarchical(
-            bmin, bmax, h, max_candidates, super_cand=super_cand
+            bmin, bmax, h, max_candidates, super_cand=super_cand_for(nb, max_candidates)
         )
     return candidate_blocks(bmin, bmax, h, max_candidates)
 
@@ -308,6 +323,51 @@ def refine_candidates(cand, count, qmin, qmax, sub_lo, sub_hi, h: float, sub: in
     return cand_sub.to(torch.int32), torch.clamp(count_sub, max=max_sub), overflow
 
 
+def refine_exact_chunks(cand: torch.Tensor, b: int) -> list:
+    """The query-row ranges (slices) that the exact refine runs one at a
+    time: each chunk's gathered stream holds about REFINE_CHUNK_ELEMS
+    elements."""
+    nb, m = cand.shape
+    starts, rows = _row_chunks(nb, m * b * 3)
+    return [slice(r0, r0 + rows) for r0 in starts]
+
+
+def refine_exact_gather(cand, count, pos_blocked, rows: slice) -> torch.Tensor:
+    """The exact refine's gathered position stream for the query rows
+    ``rows``: (r, M, B, 3), each live candidate block's particles (dead
+    slots read block 0)."""
+    m = cand.shape[1]
+    live = torch.arange(m, device=cand.device)[None, :] < count[rows, None]
+    return pos_blocked[torch.where(live, cand[rows], 0).to(torch.int64)]
+
+
+def refine_exact_test(g, cand, count, qlo, qhi, h: float, sub: int, rows: slice):
+    """The exact refine's distance test on a gathered chunk ``g`` (r, M,
+    B, 3) of the query rows ``rows``: a candidate subblock survives iff
+    one of its particles lies within h of one of the rows' query boxes,
+    ``sum_axis max(lo-p, p-hi, 0)^2 <= 1.01 h^2``. Returns the chunk's
+    sort keys (r, M * sub) int32, the surviving ids with dead slots =
+    REFINE_SENTINEL, and its counts (r,) int32."""
+    r, m, b = g.shape[:3]
+    h2_cut = torch.tensor(float(h) * float(h) * 1.01, dtype=torch.float32,
+                          device=cand.device)
+    inside = torch.zeros(g.shape[:3], dtype=torch.bool, device=cand.device)
+    for s in range(qlo.shape[1]):
+        lo = qlo[rows, s][:, None, None, :]
+        hi = qhi[rows, s][:, None, None, :]
+        deficit = torch.clamp(torch.maximum(lo - g, g - hi), min=0.0)
+        deficit = torch.clamp(deficit, max=1.0e6)  # far sentinels
+        d2 = deficit * deficit
+        d2 = (d2[..., 0] + d2[..., 1]) + d2[..., 2]
+        inside |= d2 <= h2_cut
+    inside &= (torch.arange(m, device=cand.device)[None, :] < count[rows, None])[:, :, None]
+    ok = torch.any(inside.reshape(r, m, sub, b // sub), dim=-1)  # (r, m, sub)
+    ids_sub = torch.arange(sub, dtype=torch.int32, device=cand.device)
+    ids = cand[rows, :, None] * sub + ids_sub[None, None, :]
+    return (torch.where(ok, ids, REFINE_SENTINEL).reshape(r, -1),
+            ok.sum(dim=(1, 2), dtype=torch.int32))
+
+
 def refine_candidates_exact(cand, count, qlo, qhi, pos_blocked, h: float, sub: int,
                             max_sub: int, self_lo=None, self_width: int = 1):
     """Exact-position subblock refinement (tiles.py:509-628): a
@@ -316,37 +376,18 @@ def refine_candidates_exact(cand, count, qlo, qhi, pos_blocked, h: float, sub: i
     threshold keeps the JAX package's 1.01 inflation (tiles.py:575) so
     the tables stay equal to its. ``cand`` (nb, M), ``qlo``/``qhi``
     (nb, S, 3), ``pos_blocked`` (nbc, B, 3) in sorted order (sentinels
-    sit far outside every box).
+    sit far outside every box). Three parts, chunk by chunk of query
+    rows: the gathered stream (:func:`refine_exact_gather`), the distance
+    test (:func:`refine_exact_test`), then one row sort of the whole
+    table (:func:`_self_priority_sort`).
     Returns (cand_sub (nb, max_sub) int32 with dead slots =
     REFINE_SENTINEL, count_sub (nb,) int32, overflowed () bool)."""
-    nb, m = cand.shape
-    s_boxes = qlo.shape[1]
-    b = pos_blocked.shape[1]
-    h2_cut = torch.tensor(float(h) * float(h) * 1.01, dtype=torch.float32,
-                          device=cand.device)
-    live = torch.arange(m, device=cand.device)[None, :] < count[:, None]
-    candc = torch.where(live, cand, 0).to(torch.int64)
-    ids_sub = torch.arange(sub, dtype=torch.int32, device=cand.device)
-
     keys_out, counts = [], []
-    starts, rows = _row_chunks(nb, m * b * 3)
-    for r0 in starts:
-        g = pos_blocked[candc[r0 : r0 + rows]]  # (r, m, B, 3)
-        inside = torch.zeros(g.shape[:3], dtype=torch.bool, device=cand.device)
-        for s in range(s_boxes):
-            lo = qlo[r0 : r0 + rows, s][:, None, None, :]
-            hi = qhi[r0 : r0 + rows, s][:, None, None, :]
-            deficit = torch.clamp(torch.maximum(lo - g, g - hi), min=0.0)
-            deficit = torch.clamp(deficit, max=1.0e6)  # far sentinels
-            d2 = deficit * deficit
-            d2 = (d2[..., 0] + d2[..., 1]) + d2[..., 2]
-            inside |= d2 <= h2_cut
-        inside &= live[r0 : r0 + rows, :, None]
-        r = inside.shape[0]
-        ok = torch.any(inside.reshape(r, m, sub, b // sub), dim=-1)  # (r, m, sub)
-        ids = cand[r0 : r0 + rows, :, None] * sub + ids_sub[None, None, :]
-        keys_out.append(torch.where(ok, ids, REFINE_SENTINEL).reshape(r, -1))
-        counts.append(ok.sum(dim=(1, 2), dtype=torch.int32))
+    for rows in refine_exact_chunks(cand, pos_blocked.shape[1]):
+        g = refine_exact_gather(cand, count, pos_blocked, rows)
+        keys, n = refine_exact_test(g, cand, count, qlo, qhi, h, sub, rows)
+        keys_out.append(keys)
+        counts.append(n)
     keys = torch.cat(keys_out)
     count_sub = torch.cat(counts)
     cand_sub = _self_priority_sort(keys, self_lo, self_width, max_sub)

@@ -560,7 +560,8 @@ def local_substep(mesh: Mesh, state: ParticleState, dt: torch.Tensor,
 
 def local_frame(mesh: Mesh, state: ParticleState, dt: torch.Tensor, timeleft: torch.Tensor,
                 params: SimulationParameters, scene, config: StepConfig,
-                exchange: str = "all_gather", halo_max: int = 0, halo_hops: int = 1):
+                exchange: str = "all_gather", halo_max: int = 0, halo_hops: int = 1,
+                stats: Optional[dict] = None):
     """A frame's substeps on rank ``mesh.rank`` (``_local_frame``,
     sharded_step.py:873-990): up to ``substeps_per_dispatch`` substeps
     while time is left, dt clamped to it; a re-sort every
@@ -568,8 +569,9 @@ def local_frame(mesh: Mesh, state: ParticleState, dt: torch.Tensor, timeleft: to
     ``cand_interval``-th and wherever the displacement since the carried
     anchor, reduced over the ranks, already exceeds the slack (the
     predictive staleness check); the tables carried in between, with the
-    surface sets under halo and ring. Returns (state, dt, timeleft, flags),
-    flags OR'd over the substeps."""
+    surface sets under halo and ring. ``stats``: a dict that counts this
+    rank's substeps (:func:`engine.step.count_substep`). Returns (state,
+    dt, timeleft, flags), flags OR'd over the substeps."""
     config = mesh_config(config)
     interval, ci = config.sort_interval, config.cand_interval
     slack2 = (config.cand_slack * params.h) ** 2
@@ -591,6 +593,8 @@ def local_frame(mesh: Mesh, state: ParticleState, dt: torch.Tensor, timeleft: to
             state, dt_next, step_flags, tables = run(state, dt, do_sort=do_sort)
         else:
             state, dt_next, step_flags, _ = run(state, dt, do_sort=False, cand_in=tables)
+        carried = None if tables is None else (tables["cand_sub"], tables["count_sub"])
+        step_mod.count_substep(stats, rebuild, carried, config)
         timeleft = timeleft - dt_next
         dt = torch.where(timeleft < dt_next, timeleft, dt_next)
         flags = flags | step_flags
@@ -664,17 +668,19 @@ def scatter_state(mesh: Mesh, state: Optional[ParticleState], params: Simulation
 def run_shards(mesh: Mesh, shards, params: SimulationParameters, config: StepConfig,
                exchange: str = "all_gather", halo_max: int = 0, halo_hops: int = 1,
                frame_time: Optional[float] = None, record: bool = False,
-               per_substep: bool = False) -> dict:
+               per_substep: bool = False, substeps: Optional[int] = None) -> dict:
     """A rank body for :func:`parallel.mesh.launch`: rank r takes
     ``shards[r]`` (host arrays of its rows, as ``io.checkpoint`` writes
     them) and, in free space from dt = max_dt, runs one
     :func:`local_substep` or, with ``frame_time``, that much simulated
     time: through the frame loop, or with ``per_substep`` through
     :func:`make_sharded_substep` with the time left kept on the host (the
-    engine's per-substep path). Returns host arrays of the rank's state,
-    dt, flags, ``calls`` (substeps, or frame-loop calls), the
-    collectives' counts and, with ``record``, the substep's exchanged
-    tables."""
+    engine's per-substep path); or, with ``substeps``, one call of the
+    frame loop that runs exactly that many (its time never runs out).
+    Returns host arrays of the rank's state, dt, flags, ``calls``
+    (substeps, or frame-loop calls), the frame loop's ``frame_stats``
+    (:func:`local_frame`), the collectives' counts and, with ``record``,
+    the substep's exchanged tables."""
     from ..io import checkpoint
 
     dev = mesh.device
@@ -683,7 +689,14 @@ def run_shards(mesh: Mesh, shards, params: SimulationParameters, config: StepCon
     tables = {} if record else None
     flags = torch.zeros((), dtype=torch.int32, device=dev)
     calls = 0
-    if frame_time is None:
+    frame_stats = {}
+    if substeps is not None:
+        config = dataclasses.replace(config, substeps_per_dispatch=substeps)
+        timeleft = torch.tensor(_INF, dtype=torch.float32, device=dev)
+        state, dt_t, _, flags = local_frame(mesh, state, dt_t, timeleft, params, None, config,
+                                            exchange, halo_max, halo_hops, frame_stats)
+        calls = 1
+    elif frame_time is None:
         state, dt_t, flags, _ = local_substep(mesh, state, dt_t, params, None, config,
                                               exchange, halo_max, halo_hops, record=tables)
         calls = 1
@@ -702,11 +715,12 @@ def run_shards(mesh: Mesh, shards, params: SimulationParameters, config: StepCon
         timeleft = torch.tensor(frame_time, dtype=torch.float32, device=dev)
         while bool(timeleft > 0.0):
             state, dt_t, timeleft, f = local_frame(mesh, state, dt_t, timeleft, params, None,
-                                                   config, exchange, halo_max, halo_hops)
+                                                   config, exchange, halo_max, halo_hops,
+                                                   frame_stats)
             flags = flags | f
             calls += 1
     return dict(state=checkpoint.state_to_arrays(state), dt=float(dt_t), flags=int(flags),
-                stats=mesh.read_stats(), calls=calls,
+                stats=mesh.read_stats(), calls=calls, frame_stats=frame_stats,
                 tables=None if tables is None else {
                     k: v.cpu().numpy() for k, v in tables.items() if v is not None})
 

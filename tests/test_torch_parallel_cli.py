@@ -1,6 +1,7 @@
 """The sharded path through the port's entry points on the CPU:
 ``sph-torch ... --mesh 2 --device cpu`` (frames, checkpoint, resume),
-``bench_torch.py --mesh 2``, the engine's ``halo_hops`` growth on
+``bench_torch.py --mesh 2`` and its warm-up's growth rule (bench.py's
+mesh rule), the engine's ``halo_hops`` growth on
 ``FLAG_EXCHANGE``, the engine's callbacks over a mesh, and the JAX
 module's ``dryrun`` hook."""
 
@@ -18,7 +19,17 @@ from scipy.spatial import cKDTree
 import bench_torch
 from libclsph_tpu_torch import cli
 from libclsph_tpu_torch.engine import simulation as tsim
-from libclsph_tpu_torch.engine.step import FLAG_CAPACITY_HIT, FLAG_EXCHANGE, StepConfig
+from libclsph_tpu_torch.engine.step import (
+    FLAG_CAND_STALE,
+    FLAG_CAPACITY,
+    FLAG_CAPACITY_HIT,
+    FLAG_CAPACITY_SUB,
+    FLAG_CAPACITY_T2,
+    FLAG_EXCHANGE,
+    FLAG_GRID_DIM,
+    StepConfig,
+)
+from libclsph_tpu_torch.parallel import bench as pbench
 from libclsph_tpu_torch.parallel import mesh, sharded_step
 from test_torch_engine import _root
 from torch_cpu import one_torch_thread  # noqa: F401 (an autouse fixture)
@@ -87,10 +98,49 @@ def test_bench_torch_mesh_prints_the_mesh_line(capsys):
     assert d["timed_flags"] == 0 and d["ranks_share_card"] is False and d["card"] is None
     assert d["halo_hops"] == 1 and d["halo_max"] == 16  # full coverage at 2 ranks
     assert d["config"]["force_sub8"] is False
+    # the grown table shape: the 16-wide tables stay under bench.py's rule
+    t = d["tables"]
+    assert t["tables"] == [True, True, False] and t["force_query_rows"] == 32
+    assert t["tier2_frac"] == 0
+    assert {k: d["config"][k] for k in t if k != "tables"} == {
+        k: v for k, v in t.items() if k != "tables"}
     calls = d["collectives_per_substep"]
     assert calls["ring"] > 0 and calls["all_reduce"] >= 2
     assert d["staged_bytes_per_substep"] == 0
     assert out["value"] == pytest.approx(4096 * 3 / d["elapsed_s"], rel=1e-3)
+
+
+# bench.py's mesh warm-up (bench.py:115-140), copied here because
+# bench.py imports jax at the top of its module: each flag's updates,
+# doubled from the config the warm-up ran
+BENCH_PY_MESH_RULE = {
+    FLAG_CAPACITY: ("max_candidates",),  # bench.py:122-123
+    FLAG_CAPACITY_SUB: ("max_candidates_sub",),  # :124-125
+    FLAG_CAPACITY_HIT: ("max_candidates_hit", "max_candidates_hit16",
+                        "max_candidates_hit8"),  # :126-129
+    FLAG_CAND_STALE: ("cand_slack",),  # :130-131
+}
+
+
+@pytest.mark.parametrize("flags", range(1 << len(BENCH_PY_MESH_RULE)))
+def test_mesh_growth_is_bench_py_rule(flags):
+    """Every combination of the four flags bench.py's mesh warm-up reads
+    gives its updates and no others; the bits it ignores (the tier-2 pool,
+    the grid) add nothing, so its warm-up stops (bench.py:132-133)."""
+    bits = [b for i, b in enumerate(BENCH_PY_MESH_RULE) if flags >> i & 1]
+    f = sum(bits)
+    cfg = StepConfig(force_sub8=False, max_candidates_hit8=80, cand_slack=0.25)
+    want = {k: getattr(cfg, k) * 2 for b in bits for k in BENCH_PY_MESH_RULE[b]}
+    for extra in (0, FLAG_CAPACITY_T2, FLAG_GRID_DIM):
+        assert pbench.mesh_growth(cfg, f | extra, 1, 4) == (want, 1)
+
+
+def test_mesh_growth_widens_the_ring_to_full_coverage():
+    cfg = StepConfig(force_sub8=False)
+    assert pbench.mesh_growth(cfg, FLAG_EXCHANGE, 1, 4) == ({}, 2)
+    assert pbench.mesh_growth(cfg, FLAG_EXCHANGE, 2, 4) == ({}, 2)  # full: no update
+    assert pbench.mesh_growth(cfg, FLAG_EXCHANGE | FLAG_CAPACITY, 2, 8) == (
+        {"max_candidates": 192}, 4)
 
 
 @pytest.mark.parametrize("world,grown", [(4, [2]), (8, [2, 4])])
