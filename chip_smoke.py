@@ -120,10 +120,15 @@ non-zero):
     12d ``sph-torch ... --mesh 4 --exchange halo`` at 64,000 particles;
 13. the probes: ``experiments/torch_refine_probe.py`` at 1M (the
     refine's split at 128, 64 and 32 query rows), ``torch_scale_diag.py``
-    at 2M (warm-up with growth and 10 substeps) and
-    ``torch_river_frame_diag.py`` on the 1M river for 5 frames, each in a
+    at 2M (warm-up with growth and 10 substeps),
+    ``torch_river_frame_diag.py`` on the 1M river for 5 frames, and the
+    stream probes at 1M, ``torch_force_kernel_bisect.py`` (the q128 force
+    kernel split into feed, support test and pair terms on a stream
+    gathered beforehand) and ``torch_nl_kernel_variants.py`` (the sums on
+    the aabb lists' stream in both layouts, and the asm route), each in a
     process of its own, each printing its JSON line; a probe that exits
-    non-zero fails the run.
+    non-zero fails the run. The stream probes' launch counts are the
+    ``probe`` path's.
 
 Phase 2 also holds, at the 1M lattice, ``density_blocks`` and
 ``forces_blocks`` of the three block variants on the block search's
@@ -138,12 +143,25 @@ on the port's own tables at those shapes: ``density_c32`` with block
 counts and ``forces_q128_c32`` on 64- and 32-row lists (nl and asm),
 ``density_c32`` densities only on the full 32-row lists, and the row
 variant's passes at ``block_size`` 64.
+Phase 2 also holds, at 64k and 1M, the stream kernels
+(``ops/kernels/stream.py``): ``gather_stream`` in both layouts bit for
+bit against its plain version at 8, 16 and 32 particles a slot (the main
+path's hit lists, the 16-wide lists, the q128 lists), and
+``forces_c32_stream`` on the q128 lists' stream: its sums (staged,
+planes, no cull) each within rtol 1e-5 and atol 1e-5 of the sum's
+largest |value|, its accel mode bit for bit against ``forces_q128_c32``
+(else within 1e-5 * max|a|, the difference printed), its test mode's
+counts equal, and the zero-count control all zeros. These kernels are
+not timed in phase 2: their record's times, plain times, bounds,
+``torch.index_select``'s time (``library_ms`` of the gathers) and
+launches are those of phase 13's bisect probe, which times them at 1M.
 The block variants' plain versions are timed
 over 2 repetitions after a warm-up (about a second each at 1M), the rest
 over 7.
 
 Each path (main: phases 3, 3c and 4; 16-wide: 3b-4b; deep columns: 5-6; row,
-fine, asym and asm: 7; exact: 8; each shape of phase 9) runs with the
+fine, asym and asm: 7; exact: 8; each shape of phase 9; the stream probes
+of 13) runs with the
 launch counts set to 0 just before it and read just after; each record
 counts the launches of the paths it belongs to. Every phase prints its
 wall time, and one line before the card's holds them all and the total.
@@ -166,6 +184,7 @@ import time
 
 from bench_torch import (bench_mesh, bench_mesh_record, bench_result, card_line,
                          run_substeps, sync, timed_window, warm_up)
+from kernel_bounds import DENSITY_OPS, FORCE_OPS, bound, nbytes, stream_works
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EXPERIMENTS = os.path.join(ROOT, "experiments")
@@ -189,6 +208,9 @@ NL = "libclsph_tpu/ops/pallas/neighbor_nl.py"
 ROW = "libclsph_tpu/ops/pallas/neighbor.py"
 ASYM = "libclsph_tpu/ops/pallas/neighbor_asym.py"
 CSRC = "libclsph_tpu_torch/csrc/"
+LAYOUT_TEST = "tests/test_nl_layout.py:52"
+BISECT = "experiments/force_kernel_bisect.py:153"
+VARIANTS = "experiments/nl_kernel_variants.py"
 NL_PATHS = ("main", "16-wide", "deep")
 BLOCK_VARIANTS = ("row", "fine", "asym")
 # record name: (wrapper, launch variant or None, source, TPU kernel it
@@ -259,24 +281,24 @@ KERNELS = {
     # the whole sort; its count is of passes
     "radix_sort": ("radix_sort", None, CSRC + "radix_sort.cu",
                    "libclsph_tpu/ops/radix_sort.py:87", ("exact", "mesh")),
+    # the candidate stream and the sums over it (ops/kernels/stream.py):
+    # no engine path runs them; the probes of phase 13 do
+    "gather_stream": ("gather_stream", "staged", CSRC + "gather_stream.cu", LAYOUT_TEST,
+                      ("probe",)),
+    "gather_stream planes": ("gather_stream", "planes", CSRC + "gather_stream.cu",
+                             LAYOUT_TEST, ("probe",)),
+    "forces_c32_stream sums": ("forces_c32_stream", "sums", CSRC + "forces_stream.cu",
+                               BISECT, ("probe",)),
+    "forces_c32_stream accel": ("forces_c32_stream", "accel", CSRC + "forces_stream.cu",
+                                BISECT, ("probe",)),
+    "forces_c32_stream planes": ("forces_c32_stream", "planes", CSRC + "forces_stream.cu",
+                                 VARIANTS + ":163", ("probe",)),
+    "forces_c32_stream no cull": ("forces_c32_stream", "no cull", CSRC + "forces_stream.cu",
+                                  BISECT, ("probe",)),
+    "forces_c32_stream test": ("forces_c32_stream", "test", CSRC + "forces_stream.cu",
+                               BISECT, ("probe",)),
 }
 BENCH_TAG = "1M lattice"  # the phase-2 tables whose times and bounds are recorded
-# one NVIDIA H100 SXM (data sheet): fp32 outside the tensor cores, HBM3
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
-# operations a pair, counted from the kernels' bodies (csrc/sph_pair.cuh):
-# density: r^2 (3 sub, 3 mul, 2 add), h^2 - r^2 and its clamp (2), t^3
-# (2), poly6 * real (1), the fma (2), the hit test (1), for the pairs
-# inside the support only (a pair outside adds exactly +0 and no count,
-# and the density kernels skip most of them); the dilated tile count
-# adds a test for each pair within its radius
-DENSITY_OPS = 16
-# force, for the pairs inside the support only (a pair outside adds
-# nothing, and the force kernels skip most of them): r^2 and the support
-# test (9), the rsqrt, r, h - r and h^2 - r^2 with their clamps, the
-# kernel weights (8 products and a sum), the P, N sums (6 fmas), V (3
-# subs, 3 fmas) and L (4)
-FORCE_OPS = 51
 # the radix sort's least traffic: every pass reads and writes each key
 # and value once
 SORT_BYTES_PER_KEY_PASS = 16
@@ -342,10 +364,6 @@ def water_params(n: int):
     return derive_parameters(fluid, dict(sim, particles_count=n))
 
 
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
 def density_work(args, outs, pairs, dilated=0):
     """(bytes, operations) of a density call: each input read once and
     each output written once; DENSITY_OPS for each of the ``pairs`` inside
@@ -362,13 +380,6 @@ def force_work(args, qrows, pairs_in):
     f8, dens, real, cand, count = args[:5]
     out = cand.shape[0] * qrows * 3 * 4
     return nbytes(f8, dens, real, cand, count) + out, pairs_in * FORCE_OPS
-
-
-def bound(nbytes_, ops):
-    """The least time (ms) the card could take, and what sets it."""
-    t_bytes = 1e3 * nbytes_ / PEAK_BYTES
-    t_ops = 1e3 * ops / PEAK_FP32
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def time_kernel(stats, rec, tag, fn, plain, work, plain_reps=REPS) -> str:
@@ -471,9 +482,9 @@ def compare_kernels(tag, t, stats, time_it):
 
 
 def kernel_fn(name):
-    from libclsph_tpu_torch.ops.kernels import density, forces, radix
+    from libclsph_tpu_torch.ops.kernels import density, forces, radix, stream
 
-    for mod in (density, forces, radix):
+    for mod in (density, forces, radix, stream):
         if callable(getattr(mod, name, None)):
             return getattr(mod, name)
     raise KeyError(name)
@@ -802,6 +813,97 @@ def compare_qblock(tag, t_main, t_q, t16, t32, stats):
     log(f"phase 2 {tag}: every table-driven kernel and mode ({len(cases)} density, "
         f"{len(fcases)} force cases) through the query-block map on a pool of {len(li)} "
         f"of {nb} blocks matches its plain version")
+
+
+def check_sums(tag, rec, got, want, stats) -> float:
+    """Each of the ten raw force sums within rtol 1e-5 and atol 1e-5 of
+    that sum's largest |value| (``stream.sums_error``); returns the
+    largest difference."""
+    import torch
+
+    from libclsph_tpu_torch.ops.kernels import stream
+
+    torch.cuda.synchronize()
+    err, bad = stream.sums_error(got, want)
+    if bad >= 0:
+        raise RuntimeError(f"{tag} {rec}: sum {bad} off by more than 1e-5 of its scale "
+                           f"(largest difference {err:.3g})")
+    record_err(stats, rec, err)
+    return err
+
+
+def compare_stream(tag, t_main, t_q, t16, stats):
+    """The stream kernels against their plain versions: ``gather_stream``
+    in both layouts at 8 particles a slot (the main path's hit lists), 16
+    (the 16-wide lists) and 32 (the q128 lists), bit for bit; then, on the
+    q128 lists' stream, ``forces_c32_stream``'s sums (staged, planes, no
+    cull) at :func:`check_sums`' tolerance, its accel mode bit for bit
+    against ``forces_q128_c32`` on the same lists (else within 1e-5 *
+    max|a|, the difference printed), its test mode's counts equal, and the
+    zero-count control all zeros. No time is taken here: phase 13's
+    bisect probe times these kernels, their plain versions and
+    ``torch.index_select`` of the same rows, for the kernel record."""
+    import torch
+
+    from libclsph_tpu_torch.ops.kernels import forces, stream
+
+    params = t_q["params"]
+    visc = stream.stream_visc(params)
+    cand, count = t_q["q128"]
+    f8, dens, real = t_q["f8"], t_q["dens_plain"], t_q["real"]
+    main, wide = t_main["force_args"], t16["force_args"]  # (f8, dens, real, cand, count, p)
+    lists = {8: (main[0], main[3], main[4]), 16: (wide[0], wide[3], wide[4]),
+             32: (f8, cand, count)}
+    for sub, (f, c, n) in lists.items():
+        for layout in stream.LAYOUTS:
+            got = stream.gather_stream(f, c, n, sub, visc, layout)
+            want = stream.gather_stream_torch(f, c, n, sub, visc, layout)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise RuntimeError(f"{tag} gather_stream sub {sub} {layout}: "
+                                   f"{int((got != want).sum())} floats differ")
+            record_err(stats, "gather_stream" + ("" if layout == "staged" else " planes"),
+                       0.0)
+    del got, want
+    live = int(count.sum()) * 32
+    line = (f"phase 2 {tag} (stream kernels): gather_stream equal to its plain version at "
+            f"sub 8, 16 and 32 in both layouts ({live} live records of "
+            f"{cand.numel() * 32} on the q128 lists);")
+    st = stream.gather_stream(f8, cand, count, 32, visc)
+    planes = stream.gather_stream(f8, cand, count, 32, visc, "planes")
+    args = (f8, dens, real)
+    modes = {"forces_c32_stream sums": (st, {}),
+             "forces_c32_stream planes": (planes, dict(layout="planes")),
+             "forces_c32_stream no cull": (st, dict(cull=False))}
+    for rec, (s_, kw) in modes.items():
+        err = check_sums(tag, rec, stream.forces_c32_stream(*args, s_, count, params, **kw),
+                         stream.forces_c32_stream_torch(*args, s_, count, params, **kw), stats)
+        line += f" {rec} err {err:.3g};"
+    del planes
+    accel = stream.forces_c32_stream(*args, st, count, params, out="accel")
+    fused = forces.forces_q128_c32(*args, cand, count, params)
+    torch.cuda.synchronize()
+    if torch.equal(accel.view(torch.int32), fused.view(torch.int32)):
+        line += " forces_c32_stream accel bit-equal to forces_q128_c32;"
+    else:
+        d = float((accel - fused).abs().max())
+        line += f" forces_c32_stream accel NOT bit-equal to forces_q128_c32: max diff {d:.3g};"
+        check_accel(tag, "forces_c32_stream accel", accel, fused, stats)
+    aerr = check_accel(tag, "forces_c32_stream accel", accel,
+                       stream.forces_c32_stream_torch(*args, st, count, params, out="accel"),
+                       stats)
+    counts = stream.forces_c32_stream(*args, st, count, params, out="test")
+    if not torch.equal(counts, stream.forces_c32_stream_torch(*args, st, count, params,
+                                                              out="test")):
+        raise RuntimeError(f"{tag} forces_c32_stream test: counts differ")
+    record_err(stats, "forces_c32_stream test", 0.0)
+    zero = stream.forces_c32_stream(*args, st, torch.zeros_like(count), params)
+    if bool(zero.any()):
+        raise RuntimeError(f"{tag} forces_c32_stream: the zero-count control summed")
+    line += (f" accel err {aerr:.3g} against its plain version; test counts equal "
+             f"({int(counts.sum())} pairs inside the support); the zero-count control sums "
+             f"nothing")
+    log(line)
 
 
 def block_tables(state, params, engine):
@@ -2222,14 +2324,20 @@ def run_probe(script, *args, timeout=900) -> dict:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def phase13_probes(card):
+def phase13_probes(card, stats):
     """Phase 13: the diagnostic probes on the card, each in a process of
     its own, each printing its JSON line: the refine split at 1M for 128,
     64 and 32 query rows (``torch_refine_probe``), the 2M dam-break
     substep by substep through its warm-up and SCALE_STEPS substeps
     (``torch_scale_diag``), and the 1M river dispatch by dispatch for
     RIVER_PROBE_FRAMES frames (``torch_river_frame_diag``, row 7's
-    placement and pretune)."""
+    placement and pretune); then the stream probes at 1M
+    (``torch_force_kernel_bisect``: the q128 force kernel split into feed,
+    test and terms; ``torch_nl_kernel_variants``: the sums on the aabb
+    lists' stream in both layouts and the asm route). Returns the stream
+    probes' launches, as KERNELS' records; the bisect probe's lines give
+    the stream kernels' records their times, plain times and work
+    (``stats``)."""
     t0 = time.perf_counter()
     refine = run_probe("torch_refine_probe.py")
     for w in refine["widths"]:
@@ -2258,7 +2366,30 @@ def phase13_probes(card):
     log(f"phase 13 river probe: frames (substeps, rebuilds, reuses, re-runs, wall s under "
         f"the profiler, device s) {frames}")
     log(f"phase 13 torch_river_frame_diag: {json.dumps(river)}")
+    raw = None
+    for script in ("torch_force_kernel_bisect.py", "torch_nl_kernel_variants.py"):
+        t1 = time.perf_counter()
+        rec = run_probe(script, timeout=300)
+        if not rec["planes_equal_staged"] or not rec.get("bit_equal_to_forces_q128_c32", True):
+            raise RuntimeError(f"phase 13 {script}: the stream's modes disagree")
+        log(f"phase 13 {script} ({time.perf_counter() - t1:.2f} s): {rec['live_slots']} live "
+            f"slots of {rec['blocks']} lists, {rec['live_bytes']} live bytes of a "
+            f"{rec['stream_bytes']}-byte stream; lines (event ms / device ms / bound ms) "
+            + ", ".join(f"{k} {v['ms']:.4f} / {v['device_ms']:.4f} / {v['bound_ms']:.4f}"
+                        for k, v in rec["lines"].items())
+            + (f"; split of forces_q128_c32 (device ms) {json.dumps(rec['split'])}"
+               if "split" in rec else ""))
+        log(f"phase 13 {script[:-3]}: {json.dumps(rec)}")
+        raw = rec["launches"] if raw is None else raw_sum(raw, rec["launches"])
+        if script == "torch_force_kernel_bisect.py":
+            lines = rec["lines"]
+            for name in (k for k, spec in KERNELS.items() if "probe" in spec[4]):
+                ln = lines[name]
+                stats[name]["bench"] = (ln["ms"], ln["plain_ms"], ln["bytes"], ln["ops"])
+            for name in ("gather_stream", "gather_stream planes"):
+                stats[name]["library_ms"] = lines["index_select"]["ms"]
     log(f"phase 13 probes: {time.perf_counter() - t0:.2f} s; card {card}")
+    return records_from_raw(raw)
 
 
 class Walls:
@@ -2348,6 +2479,7 @@ def main(argv=None) -> int:
         t32 = sub16_tables(state, p, engine_for(cell, FTF), 32)
         compare_sub16_kernels(tag, t16, t32, stats, time_it)
         compare_gated(tag, state, p, scene, engine_for(cell, SUB16), stats, time_it)
+        compare_stream(tag, t_main, t_q, t16, stats)
         if qblock:
             compare_qblock(tag, t_main, t_q, t16, t32, stats)
         if rows:
@@ -2456,8 +2588,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase12_mesh(dev, card, ms_main, ms_16wide, paths, stats, tmp)
     walls.mark("12")
-    # phase 13: the diagnostic probes on the card
-    phase13_probes(card)
+    # phase 13: the diagnostic probes on the card; the stream probes run
+    # the stream kernels, each probe counting their launches from 0
+    paths["probe"] = phase13_probes(card, stats)
     walls.mark("13")
 
     launches = {rec: sum(paths[path][rec] for path in spec[4])
@@ -2480,7 +2613,8 @@ def main(argv=None) -> int:
                 "b64-row": ("density_blocks row, block 64", "forces_blocks row, block 64"),
                 "q32-full": ("density_c32 densities only, rows 32", "forces_q128_c32 rows 32"),
                 "mesh": ("density_c16 hit_sub 16", "forces_q32_c16", "density_c32",
-                         "density_c32 groups 1", "forces_q32_c32", "forces_q128_c32")}
+                         "density_c32 groups 1", "forces_q32_c32", "forces_q128_c32"),
+                "probe": tuple(rec for rec, spec in KERNELS.items() if "probe" in spec[4])}
     for path, recs in required.items():
         missing = [rec for rec in recs if paths[path][rec] <= 0]
         if missing:

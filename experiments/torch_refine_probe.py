@@ -79,10 +79,11 @@ def device_ms(fn, tries: int = 3) -> float:
     raise RuntimeError(f"{tries} traces recorded no device work")
 
 
-def timed(fn, device, reps: int) -> dict:
+def timed(fn, device, reps: int, trace: bool = True) -> dict:
     """``ms``: the median of ``reps`` calls after one untimed call (CUDA
     events on the card, the host clock on the CPU); ``device_ms``: the
-    device time of one call on the card, None on the CPU."""
+    device time of one call on the card, None on the CPU or without
+    ``trace``."""
     import torch
 
     fn()
@@ -102,7 +103,7 @@ def timed(fn, device, reps: int) -> dict:
             fn()
             laps.append(1000.0 * (time.perf_counter() - t0))
     return dict(ms=statistics.median(laps),
-                device_ms=device_ms(fn) if device.type == "cuda" else None)
+                device_ms=device_ms(fn) if trace and device.type == "cuda" else None)
 
 
 def distribution(count) -> dict:

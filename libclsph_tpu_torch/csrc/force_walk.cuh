@@ -14,7 +14,9 @@
 // ``runs`` is set (bit r: candidates r*kRun .. r*kRun + kRun-1); the
 // caller clears a run's bit only where no pair of it lies inside the
 // support (its box lies beyond h of the warp's queries), so the walk
-// adds the same pairs in the same order either way.
+// adds the same pairs in the same order either way. Phase (a) alone is
+// round_hits, which the stream kernel's test mode (forces_stream.cu) runs
+// without phase (b).
 
 #pragma once
 
@@ -27,13 +29,13 @@ constexpr int kRound = 128;              // candidates a round
 constexpr int kRoundWords = kRound / 32;  // hit-mask words a lane
 constexpr int kWordRuns = 32 / kRun;      // culled runs a hit-mask word
 
+// (a) this lane's pairs inside the support: bit 31 - c % 32 of word
+// c / 32 of ``hit`` (the sign bit of r^2 - h^2, shifted in candidate by
+// candidate); returns their number.
 template <bool kCull>
-__device__ __forceinline__ void force_round(const ForceConsts& k, float4 qa, float4 qv,
-                                            int qi, float4 (*st)[3],
-                                            unsigned runs, ForceSums& s) {
-  // (a) this lane's pairs inside the support: bit 31 - c % 32 of word
-  // c / 32 (the sign bit of r^2 - h^2, shifted in candidate by candidate)
-  unsigned hit[kRoundWords];
+__device__ __forceinline__ int round_hits(const ForceConsts& k, float4 qa,
+                                          float4 (*st)[3], unsigned runs,
+                                          unsigned (&hit)[kRoundWords]) {
   int left = 0;
 #pragma unroll
   for (int m = 0; m < kRoundWords; ++m) {
@@ -63,6 +65,15 @@ __device__ __forceinline__ void force_round(const ForceConsts& k, float4 qa, flo
     hit[m] = bits;
     left += __popc(bits);
   }
+  return left;
+}
+
+template <bool kCull>
+__device__ __forceinline__ void force_round(const ForceConsts& k, float4 qa, float4 qv,
+                                            int qi, float4 (*st)[3],
+                                            unsigned runs, ForceSums& s) {
+  unsigned hit[kRoundWords];
+  int left = round_hits<kCull>(k, qa, st, runs, hit);
 
   // (b) the terms of this lane's own hits, in ascending candidate order
   int base = 0;

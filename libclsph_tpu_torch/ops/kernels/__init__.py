@@ -23,6 +23,12 @@ from .forces import (
     forces_q128_c32_torch,
 )
 from .radix import radix_sort, radix_sort_torch, rank_hist_torch
+from .stream import (
+    forces_c32_stream,
+    forces_c32_stream_torch,
+    gather_stream,
+    gather_stream_torch,
+)
 from .blocks import (
     density_blocks,
     density_blocks_torch,
@@ -32,7 +38,7 @@ from .blocks import (
 )
 
 WRAPPERS = (density_c16, density_c32, density_gated16, forces_q32_c8, forces_q32_c16,
-            forces_q32_c32, forces_q128_c32, radix_sort)
+            forces_q32_c32, forces_q128_c32, radix_sort, gather_stream, forces_c32_stream)
 
 
 def launch_counts() -> dict:
@@ -77,4 +83,8 @@ __all__ = [
     "forces_q128_c32",
     "forces_q128_c32_torch",
     "force_pack",
+    "gather_stream",
+    "gather_stream_torch",
+    "forces_c32_stream",
+    "forces_c32_stream_torch",
 ]

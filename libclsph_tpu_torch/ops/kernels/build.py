@@ -47,6 +47,8 @@ SIGNATURES = {
     "forces_c32_launch": [_P] * 6 + [_I] * 2 + [_F] * 14 + [_P, _P],
     "forces_c32_rows_launch": [_P] * 6 + [_I] * 3 + [_F] * 14 + [_P, _P],
     "radix_sort_launch": [_P] * 2 + [_I] * 4 + [_P] * 7,
+    "gather_stream_launch": [_P] * 3 + [_I] * 5 + [_F] + [_P] * 2,
+    "forces_stream_launch": [_P] * 5 + [_I] * 3 + [_F] * 14 + [_P, _P],
 }
 
 _lock = threading.Lock()

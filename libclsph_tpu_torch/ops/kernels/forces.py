@@ -96,34 +96,43 @@ def combine(press, visc, normal, lap, density, real, c: dict) -> torch.Tensor:
     return torch.where(real[:, None], total / rho + g, 0.0)
 
 
-def _forces_torch(f8, density, real, cand, count, params, qblock, qrows: int, sub: int,
-                  block: int = BLOCK):
-    """Plain force pass over ``sub``-particle candidate lists shared by
-    ``qrows`` query rows, ``block // qrows`` lists to a query block of
-    ``block`` rows (the unit of ``qblock``), chunked over lists."""
-    c = _consts(params)
-    nrows, cap = cand.shape
-    lists = block // qrows  # lists per row block
-    nq = nrows // lists
-    dev = f8.device
-    press = torch.empty((nq * block, 3), dtype=torch.float32, device=dev)
-    visc = torch.empty((nq * block, 3), dtype=torch.float32, device=dev)
-    normal = torch.empty((nq * block, 3), dtype=torch.float32, device=dev)
-    lap = torch.empty(nq * block, dtype=torch.float32, device=dev)
-    slot = torch.arange(cap, device=dev)
-    lane = torch.arange(sub, device=dev)
-    qlane = torch.arange(block, device=dev)
-    qb_all = (torch.arange(nq, device=dev) if qblock is None else qblock.to(torch.int64))
-    qids = (qb_all[:, None] * block + qlane).reshape(nrows, qrows)  # per list
-    rows = max(1, CHUNK_PAIRS // (qrows * cap * sub))
-    for r0 in range(0, nrows, rows):
-        r1 = min(nrows, r0 + rows)
+def _f8_candidates(f8, cand, count, sub: int):
+    """The plain force passes' candidates of list rows r0..r1: each live
+    slot's ``sub`` particles fetched from the f8 pack by id (a dead slot
+    reads subblock 0, masked by ``live``). See :func:`_force_sums_torch`."""
+    cap = cand.shape[1]
+    slot = torch.arange(cap, device=f8.device)
+    lane = torch.arange(sub, device=f8.device)
+
+    def chunk(r0, r1):
         r = r1 - r0
         live = slot[None, :] < count[r0:r1, None]
         jid = (torch.where(live, cand[r0:r1], 0).to(torch.int64)[:, :, None] * sub
                + lane).reshape(r, cap * sub)
         live = live[:, :, None].expand(r, cap, sub).reshape(r, 1, cap * sub)
-        cj = f8[jid][:, None]  # (r, 1, K, 8)
+        return f8[jid][:, None], jid, live
+
+    return chunk
+
+
+def _force_sums_torch(f8, params, qids, width: int, candidates):
+    """Plain raw force sums: list row l's queries ``qids[l]`` ((nrows,
+    qrows) global ids into ``f8``) against the ``width`` candidates that
+    ``candidates(r0, r1)`` gives for list rows r0..r1: (f8 fields (r, 1,
+    width, 8), global ids (r, width) int64, live (r, 1, width) bool),
+    chunked over list rows. Returns (P with the r -> 0 splat, V, N (each
+    (nrows*qrows, 3)), L (nrows*qrows,))."""
+    c = _consts(params)
+    nrows, qrows = qids.shape
+    dev = f8.device
+    press = torch.empty((nrows * qrows, 3), dtype=torch.float32, device=dev)
+    visc = torch.empty((nrows * qrows, 3), dtype=torch.float32, device=dev)
+    normal = torch.empty((nrows * qrows, 3), dtype=torch.float32, device=dev)
+    lap = torch.empty(nrows * qrows, dtype=torch.float32, device=dev)
+    rows = max(1, CHUNK_PAIRS // (qrows * width))
+    for r0 in range(0, nrows, rows):
+        r1 = min(nrows, r0 + rows)
+        cj, jid, live = candidates(r0, r1)  # (r, 1, K, 8), (r, K), (r, 1, K)
         qid = qids[r0:r1, :, None]  # (r, qrows, 1)
         qi = f8[qid]  # (r, qrows, 1, 8)
         dx = qi[..., 0] - cj[..., 0]
@@ -157,8 +166,24 @@ def _forces_torch(f8, density, real, cand, count, params, qblock, qrows: int, su
             [(g * d).sum(dim=-1) for d in (dx, dy, dz)], dim=-1
         ).reshape(-1, 3)
         lap[sl] = lp.sum(dim=-1).reshape(-1)
+    return press, visc, normal, lap
+
+
+def _forces_torch(f8, density, real, cand, count, params, qblock, qrows: int, sub: int,
+                  block: int = BLOCK):
+    """Plain force pass over ``sub``-particle candidate lists shared by
+    ``qrows`` query rows, ``block // qrows`` lists to a query block of
+    ``block`` rows (the unit of ``qblock``), chunked over lists."""
+    nrows, cap = cand.shape
+    nq = nrows // (block // qrows)
+    dev = f8.device
+    qlane = torch.arange(block, device=dev)
+    qb_all = (torch.arange(nq, device=dev) if qblock is None else qblock.to(torch.int64))
+    qids = (qb_all[:, None] * block + qlane).reshape(nrows, qrows)  # per list
+    sums = _force_sums_torch(f8, params, qids, cap * sub,
+                             _f8_candidates(f8, cand, count, sub))
     q = qids.reshape(-1)
-    return combine(press, visc, normal, lap, density[q], real[q], c)
+    return combine(*sums, density[q], real[q], _consts(params))
 
 
 def forces_q32_c8_torch(f8, density, real, cand8, count8, params: SimulationParameters,

@@ -26,7 +26,12 @@ empty lists), each also bit for bit against ``forces_q32_c32`` over the
 list repeated per subgroup, which is the ``fine`` route's old kernel.
 The mesh: two ranks that share the card (gloo, staged through host
 buffers), their collectives and one sharded substep against two CPU
-ranks.
+ranks. The stream kernels (``ops.kernels.stream``) on the 64k cube
+lattice's hit lists: ``gather_stream`` bit for bit at 8, 16 and 32
+particles a slot in both layouts, and ``forces_c32_stream``'s sums
+(staged, planes, no cull; each sum within rtol 1e-5 and atol 1e-5 of its
+largest |value|), its accel mode bit for bit against ``forces_q128_c32``,
+its test mode's counts and the zero-count control.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -1269,3 +1274,115 @@ def test_sharded_substep_on_card_ranks_matches_cpu_ranks(tables, cuda):
         a = c["state"]["acceleration"]
         np.testing.assert_allclose(g["state"]["acceleration"], a, atol=1e-5 * np.abs(a).max())
         assert g["stats"]["staged_bytes"] > 0 and c["stats"]["staged_bytes"] == 0
+
+
+STREAM_N = 65_536
+STREAM_TABLES = {  # the lists' particles a slot: (StepConfig fields, hit rows a list)
+    8: ({}, 4),
+    16: (dict(force_sub8=False), 4),
+    32: (dict(Q_PATH, force_query_rows=128, cand_interval=1), 1),
+}
+
+
+@pytest.fixture(scope="module")
+def stream_tables():
+    """The 64k cube lattice's hit lists at 8, 16 and 32 particles a slot
+    (the main path's, the 16-wide force path's and the q128 lists), each
+    with its force pack and densities, built on the card."""
+    from libclsph_tpu_torch.core.state import init_state
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    params = derive_parameters(WATER, dict(
+        particles_count=STREAM_N, particle_mass=0.05, simulation_time=1, target_fps=60,
+        simulation_scale=0.1, constant_acceleration=dict(x=0, y=-9.8, z=0)))
+    st, real, _ = step.pad_and_sort(init_state(params, "cuda"), params, True)
+    pos4 = density.pos_pack(st.position, real)
+    out = dict(params=params, real=real)
+    for sub, (over, groups) in STREAM_TABLES.items():
+        cfg = step.StepConfig(**over)
+        cand_sub, count_sub, _ = step.build_candidates(st, real, params, cfg)
+        if cfg.density_sub16:
+            dens, hits = density.density_c16_torch(pos4, cand_sub, count_sub, params,
+                                                   hit_sub=cfg.hit_width(groups))
+        else:
+            dens, hits = density.density_c32_torch(pos4, cand_sub, count_sub, params,
+                                                   groups=groups)
+        cand, count, _ = step.hit_lists(cand_sub, hits, cfg, groups)
+        _, f8 = step._pressure_and_pack(st, real, dens, params)
+        out[sub] = (f8, dens, cand, count)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["staged", "planes"])
+@pytest.mark.parametrize("sub", [8, 16, 32])
+def test_gather_stream_matches_plain(stream_tables, sub, layout):
+    from libclsph_tpu_torch.ops.kernels import stream
+
+    f8, _, cand, count = stream_tables[sub]
+    visc = stream.stream_visc(stream_tables["params"])
+    before = stream.gather_stream.launches
+    got = stream.gather_stream(f8, cand, count, sub, visc, layout)
+    torch.cuda.synchronize()
+    assert stream.gather_stream.launches == before + 1
+    want = stream.gather_stream_torch(f8, cand, count, sub, visc, layout)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _stream_args(stream_tables, layout="staged"):
+    from libclsph_tpu_torch.ops.kernels import stream
+
+    f8, dens, cand, count = stream_tables[32]
+    params = stream_tables["params"]
+    st = stream.gather_stream(f8, cand, count, 32, stream.stream_visc(params), layout)
+    return (f8, dens, stream_tables["real"], st, count, params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout, cull", [("staged", True), ("planes", True),
+                                          ("staged", False)])
+def test_forces_c32_stream_sums_match_plain(stream_tables, layout, cull):
+    """Each of the ten sums within rtol 1e-5 and atol 1e-5 of its largest
+    |value| (float32 summation order)."""
+    from libclsph_tpu_torch.ops.kernels import stream
+
+    args = _stream_args(stream_tables, layout)
+    before = stream.forces_c32_stream.launches
+    got = stream.forces_c32_stream(*args, layout=layout, cull=cull).cpu().numpy()
+    torch.cuda.synchronize()
+    assert stream.forces_c32_stream.launches == before + 1
+    want = stream.forces_c32_stream_torch(*args, layout=layout, cull=cull).cpu().numpy()
+    assert got.shape == want.shape == (STREAM_N, 10)
+    for j in range(10):
+        np.testing.assert_allclose(got[:, j], want[:, j], rtol=1e-5,
+                                   atol=1e-5 * np.abs(want[:, j]).max(), err_msg=f"sum {j}")
+
+
+@pytest.mark.cuda
+def test_forces_c32_stream_accel_equals_forces_q128_c32(stream_tables):
+    """Only the feed differs from forces_q128_c32 on the same lists: the
+    same pairs in the same order, so the same bits."""
+    from libclsph_tpu_torch.ops.kernels import stream
+
+    args = _stream_args(stream_tables)
+    f8, dens, cand, count = stream_tables[32]
+    got = stream.forces_c32_stream(*args, out="accel")
+    fused = forces.forces_q128_c32(f8, dens, stream_tables["real"], cand, count,
+                                   stream_tables["params"])
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), fused.view(torch.int32))
+    a0 = stream.forces_c32_stream_torch(*args, out="accel").cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), a0, atol=1e-5 * np.abs(a0).max())
+
+
+@pytest.mark.cuda
+def test_forces_c32_stream_test_counts_and_zero_count(stream_tables):
+    from libclsph_tpu_torch.ops.kernels import stream
+
+    args = _stream_args(stream_tables)
+    got = stream.forces_c32_stream(*args, out="test")
+    want = stream.forces_c32_stream_torch(*args, out="test")
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    zero = stream.forces_c32_stream(*args[:4], torch.zeros_like(args[4]), args[5])
+    assert not zero.any()
