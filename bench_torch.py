@@ -217,10 +217,10 @@ def sync(device) -> None:
 
 
 def run_substep(state, dt, i, tables, params, scene, cfg):
-    """Substep ``i`` of bench.py's schedule (bench.py:325-335): re-sort
-    when i % sort_interval == 0, rebuild the candidate tables when
-    i % cand_interval == 0, else reuse ``tables``. Returns (state, dt,
-    flags, tables)."""
+    """Substep ``i`` of bench.py's schedule (bench.py:325-335) alone:
+    re-sort when i % sort_interval == 0, rebuild the candidate tables
+    when i % cand_interval == 0, else reuse ``tables``. Returns (state,
+    dt, flags, tables)."""
     from libclsph_tpu_torch.engine import step
 
     if i % cfg.cand_interval == 0:
@@ -229,22 +229,33 @@ def run_substep(state, dt, i, tables, params, scene, cfg):
     return step.substep(state, dt, params, scene, cfg, do_sort=False, cand_in=tables)
 
 
-def run_substeps(state, dt, params, scene, cfg, steps, on_substep=None):
-    """``steps`` substeps of bench.py's schedule from ``state`` (substep 0
-    rebuilds). ``on_substep(i, before, after, dt, flags, cfg)``, where
+def run_substeps(state, dt, params, scene, cfg, steps, on_substep=None, host=None):
+    """``steps`` substeps of bench.py's schedule (bench.py:325-335) from
+    ``state``: substep i re-sorts when i % sort_interval == 0 and rebuilds
+    the candidate tables when i % cand_interval == 0, else reuses them
+    (substep 0 rebuilds). They run through the frame loop's dispatch
+    layer (:func:`engine.step.dispatch`) with no time kept and no
+    staleness check, one host read a candidate period, as the engine
+    runs them. ``on_substep(i, before, after, dt, flags, cfg)``, where
     given, sees each substep's input and output state (a substep changes
-    no tensor of its input). Returns (state, dt, flags ORed over the
-    substeps)."""
-    import torch
+    no tensor of its input). ``host``: a dict that receives the
+    dispatch's host values (``reads``, ``flags``, ``stops``). Returns
+    (state, dt, flags ORed over the substeps)."""
+    from libclsph_tpu_torch.engine import step
 
-    flags = torch.zeros((), dtype=torch.int32, device=state.device)
-    tables = None
-    for i in range(steps):
-        before = state
-        state, dt, f, tables = run_substep(state, dt, i, tables, params, scene, cfg)
-        flags = flags | f
-        if on_substep is not None:
-            on_substep(i, before, state, dt, f, cfg)
+    def run(st, d, i, tables, rebuild):
+        if rebuild:
+            return step.substep(st, d, params, scene, cfg, do_sort=i % cfg.sort_interval == 0,
+                                speculative=True)
+        return step.substep(st, d, params, scene, cfg, do_sort=False, cand_in=tables,
+                            speculative=True)
+
+    def on_commit(i, rebuild, before, after, dt_next, flags, tables):
+        on_substep(i, before, after, dt_next, flags, cfg)
+
+    state, dt, _, flags = step.dispatch(state, dt, None, steps, cfg.cand_interval, run,
+                                        on_commit=on_commit if on_substep else None,
+                                        host=host)
     return state, dt, flags
 
 
@@ -280,12 +291,13 @@ def warm_up(state, params, scene, engine, steps, dt=None, window=0, on_substep=N
     return st, dt
 
 
-def timed_run(state, dt, params, scene, cfg, steps):
+def timed_run(state, dt, params, scene, cfg, steps, host=None):
     """``steps`` substeps from (state, dt), the device synchronised before
-    and after. Returns (state, dt, elapsed seconds, flags ORed)."""
+    and after; ``host`` as :func:`run_substeps`'s. Returns (state, dt,
+    elapsed seconds, flags ORed)."""
     sync(state.device)
     t0 = time.perf_counter()
-    st, dt, flags = run_substeps(state, dt, params, scene, cfg, steps)
+    st, dt, flags = run_substeps(state, dt, params, scene, cfg, steps, host=host)
     sync(state.device)
     return st, dt, time.perf_counter() - t0, flags
 
@@ -318,6 +330,37 @@ def timed_window(label, state, dt, params, scene, engine, steps, counts=None):
     return st, dt_t, 1000.0 * elapsed / steps, grown
 
 
+def sync_calls(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: returns
+    (its result, the synchronising calls it made, each as the "file:line"
+    of the Python frame that made it). On the CPU there is nothing to
+    count: the list is empty."""
+    import warnings
+
+    import torch
+
+    if not torch.cuda.is_available():
+        return fn(), []
+    if not getattr(sync_calls, "primed", False):
+        # the first switch to "warn" in a process reports a synchronising
+        # call of torch's own, which no later switch does
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.cuda.set_sync_debug_mode("warn")
+            torch.cuda.set_sync_debug_mode("default")
+        sync_calls.primed = True
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    calls = [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    return out, calls
+
+
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi`` prints them."""
     out = subprocess.run(
@@ -347,9 +390,10 @@ def host_cpu(cpuinfo: str = "/proc/cpuinfo") -> str:
 
 
 def bench_result(n, steps, elapsed, flags, final_dt, fluid, impl, scene, device, cfg,
-                 card) -> dict:
+                 card, host_reads=None) -> dict:
     """bench.py's JSON record (bench.py:400-420) for a timed window, with
-    the port's additions in ``detail``."""
+    the port's additions in ``detail``; ``host_reads``: the window's
+    host reads (:func:`engine.step.host_read`)."""
     platform = "cuda" if str(device).startswith("cuda") else "cpu"
     psteps = n * steps / elapsed
     return {
@@ -369,6 +413,7 @@ def bench_result(n, steps, elapsed, flags, final_dt, fluid, impl, scene, device,
             # the status bits ORed over the timed substeps: the number
             # stands only at 0 (no truncated table, no stale reuse)
             "timed_flags": int(flags),
+            "host_reads_per_substep": None if host_reads is None else host_reads / steps,
             "card": card,
             "host_cpu": host_cpu(),
             "config": dataclasses.asdict(cfg),
@@ -479,13 +524,14 @@ def main(argv=None) -> int:
     sync(dev)
     log(f"warm-up: {time.perf_counter() - t0:.1f}s, config {engine.step_config}")
 
+    host = {}
     state, dt, elapsed, flags = timed_run(state, dt, params, scene, engine.step_config,
-                                          args.steps)
+                                          args.steps, host)
     if int(flags):
         log(f"WARNING: flags {int(flags)} raised during the timed run")
     card = card_line() if dev.type == "cuda" else None
     print(json.dumps(bench_result(n, args.steps, elapsed, flags, dt, args.fluid, args.impl,
-                                  args.scene, dev, engine.step_config, card)))
+                                  args.scene, dev, engine.step_config, card, host["reads"])))
     return 0
 
 

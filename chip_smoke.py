@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of libclsph-tpu's PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile DIR] [--river-frames K]
+    python3 chip_smoke.py [--profile DIR] [--river-frames K] [--parent DIR]
 
 Phases (each prints its own numbers; any failure raises and exits
 non-zero):
@@ -24,7 +24,8 @@ non-zero):
    state three reuse substeps from its anchor, and every kernel through
    the query-block map on a tier-2 pool (every 8th block of the 1M
    lattice). Density rtol 1e-5, hit and tile counts equal, acceleration
-   atol 1e-5 * max|a|; kernel and plain times (CUDA events, median of 7)
+   atol 1e-5 * max|a|; kernel and plain times (CUDA events, median of 7
+   and of 3)
    and the bound (bytes or fp32 operations at the H100's peaks) at 1M;
 3. the CLI main path: ``sph-torch water default cube`` at 64,000
    particles for 3 frames with the native ``.geo`` writer (built in
@@ -48,7 +49,21 @@ non-zero):
    ``torch.profiler`` breakdown (``utils/profiling``) of one rebuild and
    one reuse substep from the window's last state: the top 15 entries by
    device time, the device total and the host wall time of each, beside
-   the median of 5 unprofiled runs;
+   the median of 5 unprofiled runs; before it, the warm-up's first
+   substeps again with the frame loop's dispatch layer's stops, and the
+   synchronising calls (``torch.cuda.set_sync_debug_mode``) of 8
+   substeps from the warm state, on bench_torch's cadence and in one
+   frame dispatch: more than one a candidate period, plus the
+   dispatch's own read, fails the phase;
+   4c. the parent commit against this tree, in turns (parent, change,
+   change, parent), each run a process of its own: ``bench_torch.py``'s
+   1M cube (ms/substep, host reads a substep) and
+   ``experiments/torch_e2e_64k.py`` for 12 frames with export (s/frame,
+   the engine's dispatches, reads and stops). The parent is a checkout
+   given by ``--parent DIR``, or ``build/parent`` where it exists
+   (``git archive <commit> | tar -x -C build/parent``); with one, also
+   phase 4's profiler breakdown run in each checkout; without one, this
+   tree's two runs alone, once. Recorded, not gated;
    4b. the same on the 16-wide force path (True, True, False), then with
    ``density_gate``: ``forces_q32_c16`` on every timed substep,
    ``density_gated16`` on every reuse substep, positions bit-equal to the
@@ -121,7 +136,9 @@ non-zero):
 13. the probes: ``experiments/torch_refine_probe.py`` at 1M (the
     refine's split at 128, 64 and 32 query rows), ``torch_scale_diag.py``
     at 2M (warm-up with growth and 10 substeps),
-    ``torch_river_frame_diag.py`` on the 1M river for 5 frames, and the
+    ``torch_river_frame_diag.py`` on the 1M river for 5 frames (host
+    clock only, with the dispatch layer's host reads, discarded substeps
+    and stops a frame), and the
     stream probes at 1M, ``torch_force_kernel_bisect.py`` (the q128 force
     kernel split into feed, support test and pair terms on a stream
     gathered beforehand) and ``torch_nl_kernel_variants.py`` (the sums on
@@ -156,10 +173,11 @@ not timed in phase 2: their record's times, plain times, bounds,
 ``torch.index_select``'s time (``library_ms`` of the gathers) and
 launches are those of phase 13's bisect probe, which times them at 1M.
 The block variants' plain versions are timed
-over 2 repetitions after a warm-up (about a second each at 1M), the rest
-over 7.
+over 2 repetitions after a warm-up (about a second each at 1M), the other
+plain versions over 3, the kernels over 7.
 
-Each path (main: phases 3, 3c and 4; 16-wide: 3b-4b; deep columns: 5-6; row,
+Each path (main: phases 3, 3c and 4 (4c's runs are processes of their
+own, with their own counts); 16-wide: 3b-4b; deep columns: 5-6; row,
 fine, asym and asm: 7; exact: 8; each shape of phase 9; the stream probes
 of 13) runs with the
 launch counts set to 0 just before it and read just after; each record
@@ -174,6 +192,7 @@ profiler traces and full tables in DIR (``rebuild/`` and ``reuse/``).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -183,7 +202,7 @@ import tempfile
 import time
 
 from bench_torch import (bench_mesh, bench_mesh_record, bench_result, card_line,
-                         run_substeps, sync, timed_window, warm_up)
+                         run_substeps, sync, sync_calls, timed_window, warm_up)
 from kernel_bounds import DENSITY_OPS, FORCE_OPS, bound, nbytes, stream_works
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -305,6 +324,7 @@ SORT_BYTES_PER_KEY_PASS = 16
 SORT_KEYS = (N_BENCH, 4_000_000)  # keys of the timed sorts (phase 2)
 # the plain block-granular passes take about a second each at 1M
 BLOCK_PLAIN_REPS = 2
+PLAIN_REPS = 3  # timed calls of the other plain versions (0.2-0.7 s each at 1M)
 FEW_STEPS = 8  # timed substeps of the fine and asym variants (phase 7)
 N_EXACT = 64_000
 VIEW_FRAMES = 3  # frames of the rendered 1M cube (phase 10)
@@ -319,6 +339,7 @@ REUSE_EXCHANGES = ("halo", "all_gather")
 N_SCALE = 2_000_000  # phase 13: the scale probe's dam-break
 SCALE_STEPS = 10
 RIVER_PROBE_FRAMES = 5
+E2E_FRAMES = 12  # phase 4c: frames of each 64k end-to-end run
 # phase 12a: (label, exchange, halo_hops, StepConfig fields) of each
 # sharded substep held against the single-chip substep; ring at 2 hops
 # covers 4 ranks
@@ -382,7 +403,7 @@ def force_work(args, qrows, pairs_in):
     return nbytes(f8, dens, real, cand, count) + out, pairs_in * FORCE_OPS
 
 
-def time_kernel(stats, rec, tag, fn, plain, work, plain_reps=REPS) -> str:
+def time_kernel(stats, rec, tag, fn, plain, work, plain_reps=PLAIN_REPS) -> str:
     """Kernel and plain times of one call; at BENCH_TAG also its work for
     the bound. Returns the log fragment."""
     ms, plain_ms = cuda_ms(fn), cuda_ms(plain, plain_reps)
@@ -1490,6 +1511,118 @@ def phase3c_fidelity(dev):
                            f"{fid.BAR}: {r}")
 
 
+def phase4_syncs(st, dt, params, scene, cfg, steps=8):
+    """The synchronising calls (``set_sync_debug_mode``) of ``steps``
+    substeps from the warm 1M state: bench_torch's cadence and one frame
+    dispatch with time to spare (each run once before it is counted).
+    Returns {run: (calls, the layer's host reads)}; the acceptance is at
+    most one call a candidate period, plus the dispatch's own read."""
+    import torch
+
+    from libclsph_tpu_torch.engine import step
+
+    cfg = dataclasses.replace(cfg, substeps_per_dispatch=steps)
+    far = torch.tensor(3.0e38, dtype=torch.float32, device=st.device)
+    runs = {"bench cadence": lambda h: run_substeps(st, dt, params, scene, cfg, steps, host=h),
+            "frame dispatch": lambda h: step.frame(st, dt, far, params, scene, cfg, None, h)}
+    out = {}
+    for name, fn in runs.items():
+        fn({})
+        sync(st.device)
+        host = {}
+        _, calls = sync_calls(lambda: fn(host))
+        sync(st.device)
+        if host["events"]:
+            raise RuntimeError(f"phase 4 syncs: {name} stopped {host['events']}")
+        limit = steps // cfg.cand_interval + (name == "frame dispatch")
+        if len(calls) > limit:
+            raise RuntimeError(f"phase 4 syncs: {name} made {len(calls)} synchronising calls "
+                               f"in {steps} substeps (limit {limit}): {calls}")
+        out[name] = (len(calls), host["reads"])
+        log(f"phase 4 syncs, {name}: {len(calls)} synchronising calls in {steps} substeps "
+            f"({len(calls) / steps:.3f} a substep; {host['reads']} host reads of the dispatch "
+            f"layer): {sorted(set(calls))}")
+    return out
+
+
+def run_tree(tree, script, *args, timeout=600) -> dict:
+    """``script`` of the checkout ``tree`` in a process of its own on the
+    card (cwd ``tree``, so that it builds and loads that tree's kernels);
+    its last line of output is its JSON record."""
+    import subprocess
+
+    env = {k: v for k, v in os.environ.items() if k != "LIBCLSPH_TPU_SORT"}
+    out = subprocess.run([sys.executable, os.path.join(tree, script), *args],
+                         capture_output=True, text=True, cwd=tree, env=env, timeout=timeout)
+    if out.returncode != 0:
+        raise RuntimeError(f"{tree}/{script} exited {out.returncode}: {out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+# phase 4c: phase 4's profiler breakdown of one 1M rebuild and one reuse
+# substep, run in another checkout (cwd) with that checkout's code
+PROFILE_SCRIPT = """
+import sys, tempfile
+sys.path[:0] = ['.', 'experiments']
+import bench_torch, chip_smoke as cs
+from libclsph_tpu_torch.core.state import init_state
+from libclsph_tpu_torch.engine import step
+from libclsph_tpu_torch.engine.simulation import SPHSimulation, configure_device
+dev = configure_device('cuda')
+p = cs.water_params(cs.N_BENCH)
+scene = cs.cube_scene(p, dev)
+eng = SPHSimulation(step.StepConfig(), device=dev, pretune=False)
+st, dt = bench_torch.warm_up(init_state(p, dev), p, scene, eng, cs.WARMUP_STEPS,
+                             window=cs.TIMED_STEPS)
+with tempfile.TemporaryDirectory() as tmp:
+    cs.phase4_profile(tmp, st, dt, p, scene, eng.step_config)
+"""
+
+
+def phase4c_parent(parent, card):
+    """Phase 4c: the 1M cube's ms/substep (``bench_torch.py`` at its
+    defaults, 20 timed substeps) and the 64k end to end's s/frame with
+    export (``experiments/torch_e2e_64k.py``, E2E_FRAMES frames) of the
+    parent checkout ``parent`` and of this tree, in turns (parent, change,
+    change, parent), each run a process of its own on the card; without a
+    parent, this tree's alone, once. Recorded, not gated."""
+    trees = [("parent", parent), ("change", ROOT), ("change", ROOT), ("parent", parent)]
+    if parent is None:
+        log("phase 4c: no parent checkout (--parent, or build/parent): this tree alone")
+        trees = [("change", ROOT)]
+    runs = []
+    for name, tree in trees:
+        bench = run_tree(tree, "bench_torch.py", "--json-only")
+        e2e = run_tree(tree, os.path.join("experiments", "torch_e2e_64k.py"), "--frames",
+                       str(E2E_FRAMES))
+        runs.append(dict(tree=name, ms_per_substep=bench["detail"]["ms_per_step"],
+                         host_reads_per_substep=bench["detail"].get("host_reads_per_substep"),
+                         timed_flags=bench["detail"]["timed_flags"],
+                         e2e_median_s=e2e["median_s_per_frame"], e2e_p90_s=e2e["p90_s_per_frame"],
+                         e2e_mean_s=e2e["mean_s_per_frame"], e2e_first_s=e2e["first_frame_s"],
+                         dispatch_stats=e2e.get("dispatch_stats")))
+        log(f"phase 4c {name}: {json.dumps(runs[-1])}")
+    if parent is not None:
+        import subprocess
+
+        env = {k: v for k, v in os.environ.items() if k != "LIBCLSPH_TPU_SORT"}
+        for name, tree in (("parent", parent), ("change", ROOT)):
+            out = subprocess.run([sys.executable, "-c", PROFILE_SCRIPT], capture_output=True,
+                                 text=True, cwd=tree, env=env, timeout=600)
+            if out.returncode != 0:
+                raise RuntimeError(f"phase 4c {name} profile exited {out.returncode}: "
+                                   f"{out.stderr[-3000:]}")
+            for line in out.stdout.splitlines():
+                if line.startswith("phase 4 profile, 1M"):
+                    log(f"phase 4c {name}: {line[len('phase 4 '):].split(';')[0]}")
+    for name in dict.fromkeys(t for t, _ in trees):
+        mine = [r for r in runs if r["tree"] == name]
+        log(f"phase 4c {name}: 1M cube {[r['ms_per_substep'] for r in mine]} ms/substep, 64k "
+            f"end to end median {[round(r['e2e_median_s'], 4) for r in mine]} s/frame; "
+            f"card {card}")
+    return runs
+
+
 def phase4_profile(logdir, st, dt, params, scene, cfg, reps=5):
     """torch.profiler breakdowns (utils/profiling.trace) of one rebuild
     substep from ``st`` and one reuse substep on its tables: for each the
@@ -2358,13 +2491,24 @@ def phase13_probes(card, stats):
         f"{[(r['super_rows_max'], r['super_cap']) for r in scale['rows']]}; blocks a block "
         f"needs (max) {[r['count_max'] for r in scale['rows']]}")
     log(f"phase 13 torch_scale_diag: {json.dumps(scale)}")
-    river = run_probe("torch_river_frame_diag.py", "--frames", str(RIVER_PROBE_FRAMES))
+    river = run_probe("torch_river_frame_diag.py", "--frames", str(RIVER_PROBE_FRAMES),
+                      "--no-device-time")
     if not river["finite"]:
         raise RuntimeError("phase 13 river probe: non-finite state")
-    frames = [(f["substeps"], f["rebuilds"], f["reuses"], f["reruns"], round(f["wall_s"], 4),
-               round(f["device_s"], 4)) for f in river["frames"]]
-    log(f"phase 13 river probe: frames (substeps, rebuilds, reuses, re-runs, wall s under "
-        f"the profiler, device s) {frames}")
+    frames = [(f["substeps"], f["rebuilds"], f["reuses"], f["reruns"], round(f["wall_s"], 4))
+              for f in river["frames"]]
+    log(f"phase 13 river probe: frames (substeps, rebuilds, reuses, re-runs, wall s) "
+        f"{frames}")
+    stops = []
+    for f in river["frames"]:
+        mine = [d for d in river["dispatches"]
+                if d["frame"] == f["frame"] and d["attempt"] == f["reruns"]]
+        stops.append(dict(frame=f["frame"], reads=sum(d["host_reads"] for d in mine),
+                          wasted=sum(d["wasted"] for d in mine),
+                          **{k: sum(d["stops"][k] for d in mine)
+                             for k in ("time", "stale", "retry")}))
+    log(f"phase 13 river probe: the dispatch layer's host reads and stops a frame "
+        f"{json.dumps(stops)}")
     log(f"phase 13 torch_river_frame_diag: {json.dumps(river)}")
     raw = None
     for script in ("torch_force_kernel_bisect.py", "torch_nl_kernel_variants.py"):
@@ -2416,7 +2560,12 @@ def main(argv=None) -> int:
                     "reuse substep in DIR")
     ap.add_argument("--river-frames", type=int, default=RIVER_FRAMES,
                     help="frames of the river run (phase 6)")
+    ap.add_argument("--parent", default=None, metavar="DIR",
+                    help="a checkout of the parent commit (default: build/parent where it "
+                    "exists), timed in turns with this tree in phase 4c")
     args = ap.parse_args(argv)
+    if args.parent is None and os.path.isdir(os.path.join(ROOT, "build", "parent")):
+        args.parent = os.path.join(ROOT, "build", "parent")
 
     import torch
 
@@ -2534,10 +2683,18 @@ def main(argv=None) -> int:
     line = bench_result(N_BENCH, TIMED_STEPS, ms_main * TIMED_STEPS / 1e3, 0, dt, "water",
                         "pallas", "cube", dev, engine.step_config, card)
     log(f"phase 4 bench_torch: {json.dumps(line)}")
+    warm = {}
+    run_substeps(init_state(p1m, dev), torch.tensor(p1m.max_dt, device=dev), p1m, scene1m,
+                 engine.step_config, WARMUP_STEPS, host=warm)
+    log(f"phase 4 warm-up's first {WARMUP_STEPS} substeps again, the dispatch layer: "
+        f"{warm['reads']} host reads, stops {warm['events']}")
+    phase4_syncs(st, dt, p1m, scene1m, engine.step_config)
     with tempfile.TemporaryDirectory() as tmp:
         phase4_profile(args.profile or tmp, st, dt, p1m, scene1m, engine.step_config)
     paths = {"main": read_launches()}
     walls.mark("3-4")
+    phase4c_parent(args.parent, card)
+    walls.mark("4c")
 
     # phases 3b and 4b drive the 16-wide force path and the gated density
     reset_launches()

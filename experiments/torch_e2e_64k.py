@@ -5,6 +5,7 @@ demo size (``simulation_properties/default.json``).
 
     python3 experiments/torch_e2e_64k.py [--device cuda|cpu] [--n 65536]
                                          [--frames 30] [--no-export] [--out PREFIX]
+                                         [--fetch saver|inline] [--loop dispatch|reads]
 
 The production engine as the CLI runs it: ``SPHSimulation`` at the
 ``StepConfig`` defaults (the main path), adaptive substepping, the
@@ -13,7 +14,15 @@ native writer (without it the run exits, as the NumPy writer would set
 the frame time). A frame's time is the host clock between two
 ``post_frame`` callbacks. Prints one JSON line: the first frame, and the
 median, p90 and mean s/frame from frame 2 on (the mean carries the
-impact frames, where the CFL dt shrinks).
+impact frames, where the CFL dt shrinks), and the engine's dispatches
+with their host reads and the chunks that stopped on each predicate.
+
+Two switches take one of the engine's two host-side parts back to the
+form it had before the frame loop's dispatch layer, to split a change of
+s/frame between them: ``--fetch inline`` makes the host copy of the
+state on the loop thread (the saver thread only writes), and ``--loop
+reads`` runs the frame with a host read before each predicate
+(``tests/torch_frame_ref.py``'s loop).
 """
 
 from __future__ import annotations
@@ -34,6 +43,43 @@ import numpy as np  # noqa: E402
 import bench_torch  # noqa: E402
 
 
+def inline_host(self, saver, state, save, callbacks):
+    """``SPHSimulation._host`` as the engine made its host copy before:
+    fetched on the loop thread, saved on the saver thread."""
+    from concurrent.futures import Future
+
+    from libclsph_tpu_torch.io import checkpoint
+
+    arrays = self._fetch(self._gathered(state))
+    p, save_cb = self.parameters, self.save_frame if save else None
+    ckpt = self.checkpoint_path if self.serialize else None
+
+    def run():
+        save_cb(arrays, p)
+        if ckpt:
+            checkpoint.save_checkpoint(ckpt, arrays, p)
+
+    if save_cb is not None:
+        saver.submit(run)
+    done = Future()
+    done.set_result(arrays)
+    return done
+
+
+def frame_with_reads(state, dt, timeleft, params, scene, config, stats=None, host=None):
+    """``engine.step.frame`` as a loop that reads the host before each
+    predicate (``tests/torch_frame_ref.py``), with the engine's ``host``
+    values read after it."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_frame_ref
+
+    state, dt, timeleft, flags = torch_frame_ref.frame(state, dt, timeleft, params, scene,
+                                                       config, stats)
+    host.update(more=bool(timeleft > 0.0), flags=int(flags), reads=0, wasted=0,
+                stops=dict(time=0, stale=0, retry=0), events=[])
+    return state, dt, timeleft, flags
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
@@ -42,6 +88,10 @@ def main(argv=None) -> int:
     ap.add_argument("--no-export", action="store_true")
     ap.add_argument("--out", default=None,
                     help="frames prefix to keep (default: a temporary directory)")
+    ap.add_argument("--fetch", choices=("saver", "inline"), default="saver",
+                    help="where the host copy is made (inline: on the loop thread)")
+    ap.add_argument("--loop", choices=("dispatch", "reads"), default="dispatch",
+                    help="the frame loop (reads: a host read before each predicate)")
     args = ap.parse_args(argv)
 
     from libclsph_tpu_torch.core.params import derive_parameters
@@ -57,6 +107,12 @@ def main(argv=None) -> int:
         except RuntimeError as e:
             sys.exit(f"torch_e2e_64k: {e}")
 
+    if args.fetch == "inline":
+        SPHSimulation._host = inline_host
+    if args.loop == "reads":
+        from libclsph_tpu_torch.engine import simulation
+
+        simulation.frame = frame_with_reads
     sim = SPHSimulation(device=dev)
     sim.parameters = derive_parameters(dict(WATER), simulation_config(
         particles_count=args.n, simulation_time=args.frames / 60.0))
@@ -97,7 +153,10 @@ def main(argv=None) -> int:
         "mean_s_per_frame": float(steady.mean()),
         "fps_median": 1.0 / float(np.median(steady)),
         "wall_s": wall,
+        "fetch": args.fetch,
+        "loop": args.loop,
         "config": str(sim.step_config),
+        "dispatch_stats": sim.dispatch_stats,
         "device": str(dev),
         "card": bench_torch.card_line() if dev.type == "cuda" else None,
         "host_cpu": bench_torch.host_cpu(),

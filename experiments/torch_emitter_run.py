@@ -20,7 +20,8 @@ engages on the first frame after the start.
 Prints one JSON line: s/frame of every frame (host clock between
 pre_frame calls) with the median and mean from frame 2 on, the first
 frame, the substeps the engine ran in each frame (counted at
-``engine.step.substep``, re-runs after a capacity flag included),
+``engine.step.substep``, re-runs after a capacity flag included, the
+substeps that the frame loop ran ahead and discarded not),
 particle-steps/s over frames 2 on, the particles recycled in each frame,
 and the config after the run.
 """
@@ -127,7 +128,7 @@ def run(n: int = N, frames: int = 20, device: str = "cuda", recycle_frac: float 
         now = time.perf_counter()
         frame_s.append(now - last[0])
         last[0] = now
-        marks.append(substeps[0])
+        marks.append(committed())
         pos_, vel = arrays["position"], arrays["velocity"]
         idx = np.where(pos_[:, 1] < RECYCLE_Y)[0][:budget]
         recycled.append(int(len(idx)))
@@ -152,6 +153,11 @@ def run(n: int = N, frames: int = 20, device: str = "cuda", recycle_frac: float 
 
     count_from = step.substep
 
+    def committed():
+        # the frame loop's dispatch runs some substeps ahead and discards
+        # them where a predicate held (engine.step.dispatch): not counted
+        return substeps[0] - sim.dispatch_stats["wasted"]
+
     def counted(*args, **kw):
         substeps[0] += 1
         return count_from(*args, **kw)
@@ -164,7 +170,7 @@ def run(n: int = N, frames: int = 20, device: str = "cuda", recycle_frac: float 
     finally:
         step.substep = count_from
     frame_s.append(time.perf_counter() - last[0])
-    marks.append(substeps[0])
+    marks.append(committed())
     # frame k runs between pre_frame calls k and k+1 (the last ends with
     # the run); the time before the first call is set-up, not a frame
     per_frame = [b - a for a, b in zip(marks, marks[1:])]

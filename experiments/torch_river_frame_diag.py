@@ -21,7 +21,9 @@ its first frame overflows its tables past the engine's six re-runs.
 
 For each dispatch: its substeps, rebuilds and reuses (counted in the
 loop, ``frame``'s ``stats``; no result changes), flags, dt and the time
-left, its wall time (the host clock, the device synchronised around it)
+left, its host reads, the substeps it ran and discarded and the chunks
+that stopped on each predicate (``frame``'s ``host``: time, stale,
+retry), its wall time (the host clock, the device synchronised around it)
 and its device time (``utils.profiling.trace``, which the wall time then
 includes; none on the CPU or with ``--no-device-time``). Prints one JSON
 line a dispatch and one JSON line last.
@@ -113,19 +115,23 @@ def run(n: int = N, frames: int = FRAMES, cap: int = CAP, scene: str = "river",
             st, d = state, dt
             timeleft = torch.tensor(p.frame_time, dtype=torch.float32, device=dev)
             mine, rerun = [], False
-            while bool(timeleft > 0.0):
-                stats = {}
+            more = True
+            while more:
+                stats, host = {}, {}
                 bench_torch.sync(dev)
                 t = time.perf_counter()
                 with device_clock(on_card) as dev_s:
                     st, d, timeleft, flags = step.frame(st, d, timeleft, p, sdev,
-                                                        sim.step_config, stats)
+                                                        sim.step_config, stats, host)
                     bench_torch.sync(dev)
                 wall = time.perf_counter() - t
+                more = host["more"]
                 rec = dict(frame=f, attempt=attempt, dispatch=len(mine),
                            substeps=stats.get("substeps", 0),
                            rebuilds=stats.get("rebuilds", 0), reuses=stats.get("reuses", 0),
                            flags=int(flags), dt=float(d), timeleft=float(timeleft),
+                           host_reads=host["reads"], stops=host["stops"],
+                           wasted=host["wasted"],
                            wall_s=wall, device_s=dev_s[0])
                 mine.append(rec)
                 dispatches.append(rec)

@@ -3,12 +3,18 @@
 another build of the same C interface, on one NVIDIA GPU.
 
     python3 kernel_ab.py --base DIR [--variant NAME=DIR ...] [--out DIR] [--sass]
-                         [--sort-tree TREE]
+                         [--sort-tree TREE] [--only stream]
 
 ``DIR`` holds another tree of ``libclsph_tpu_torch/csrc/`` sources (for
 example an earlier commit's, unpacked under ``build/``). Each tree is
 compiled with the package's ``nvcc`` flags into ``build/kernel_ab/``
 and loaded in place of the package's library while its turn runs.
+
+First the stream kernels (``gather_stream`` in both layouts, every mode
+of ``forces_c32_stream``) on the stream probes' lists, the 1M cube after
+three substeps (the bisect's hit lists and the variants probe's aabb
+lists): bits against the base build and the plain versions, then times
+in turns (:func:`stream_ab`; ``--only stream`` stops there).
 
 On the tables of the 1M cube lattice (those of ``chip_smoke.py``'s phase
 2: the main path's, the 16-wide force path's, the q-granular ones, the
@@ -309,6 +315,129 @@ def cases_1m(dev, libs):
     ]
 
 
+STREAM_KEYS = {"gather": "gather_stream", "forces": "forces_stream"}
+# the stream probes' lists: the bisect's hit-compacted q128 lists and the
+# variants probe's aabb lists at 192 slots, not compacted
+STREAM_LISTS = {"bisect": {}, "variants": dict(refine="aabb", max_sub=192, compact=False)}
+
+
+def stream_ab(dev, run_with, order) -> list:
+    """``gather_stream`` (both layouts) and every mode of
+    ``forces_c32_stream`` on the stream probes' lists (the 1M cube after
+    three substeps): each library's output held bit for bit against the
+    base build's and against the plain version (streams bit for bit, sums
+    ``stream.sums_error`` at 1e-5, the test counts exactly, accel within
+    1e-5 of max|a| and bit for bit against ``forces_q128_c32`` on the same
+    lists, the zero-count control all zeros), then timed in turns as the
+    other cases are. Returns the records."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "experiments"))
+    import torch_force_kernel_bisect as bisect
+
+    import kernel_bounds
+    from libclsph_tpu_torch.ops import kernels
+    from libclsph_tpu_torch.ops.kernels import stream
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    records = []
+    for lists, kw in STREAM_LISTS.items():
+        s = bisect.setup(cs.N_BENCH, dev, **kw)
+        f8, dens, real, params = s["f8"], s["dens"], s["real"], s["params"]
+        cand, count, s_pos4 = s["cand_f"], s["count_f"], s["pos4"]
+        del s
+        visc = stream.stream_visc(params)
+        live = int(count.sum()) * bisect.SUB
+        streams = {layout: stream.gather_stream(f8, cand, count, bisect.SUB, visc, layout)
+                   for layout in stream.LAYOUTS}
+        pairs_in = int(stream.forces_c32_stream(f8, dens, real, streams["staged"], count,
+                                                params, out="test").sum())
+        work = kernel_bounds.stream_works(f8, dens, real, cand, count, live, pairs_in)
+        fused = kernels.forces_q128_c32(f8, dens, real, cand, count, params)
+        zero = torch.zeros_like(count)
+        panels = panel_stats(s_pos4, cand, count, params, bisect.SUB)
+        print(f"stream lists ({lists}): {live // bisect.SUB} live slots, {pairs_in} pairs "
+              f"inside the support, (subgroup, run of 8) panels {json.dumps(panels)}",
+              flush=True)
+
+        def gather(layout):
+            return lambda: stream.gather_stream(f8, cand, count, bisect.SUB, visc, layout)
+
+        def plain_gather(layout):
+            return lambda: stream.gather_stream_torch(f8, cand, count, bisect.SUB, visc, layout)
+
+        def sums(layout="staged", cnt=count, **mode):
+            return lambda: stream.forces_c32_stream(f8, dens, real, streams[layout], cnt,
+                                                    params, layout=layout, **mode)
+
+        def plain_sums(layout="staged", **mode):
+            return lambda: stream.forces_c32_stream_torch(f8, dens, real, streams[layout],
+                                                          count, params, layout=layout, **mode)
+
+        cases = [("gather_stream", "gather", gather("staged"), plain_gather("staged"),
+                  "stream"),
+                 ("gather_stream planes", "gather", gather("planes"), plain_gather("planes"),
+                  "stream"),
+                 ("forces_c32_stream sums", "forces", sums(), plain_sums(), "sums"),
+                 ("forces_c32_stream accel", "forces", sums(out="accel"),
+                  plain_sums(out="accel"), "accel"),
+                 ("forces_c32_stream planes", "forces", sums("planes"), plain_sums("planes"),
+                  "sums"),
+                 ("forces_c32_stream no cull", "forces", sums(cull=False),
+                  plain_sums(cull=False), "sums"),
+                 ("forces_c32_stream test", "forces", sums(out="test"),
+                  plain_sums(out="test"), "exact"),
+                 ("forces_c32_stream count=0", "forces", sums(cnt=zero), None, "zero")]
+        for name, key, call, plain, kind in cases:
+            outs = {lib: run_with(lib, call) for lib in ["base"] + order}
+            ref = plain() if plain is not None else None
+            rec = dict(name=f"{name} ({lists} lists)", lists=lists, bytes=work[name][0],
+                       ops=work[name][1], checks={})
+            rec["bound_ms"], rec["bound_by"] = kernel_bounds.bound(*work[name])
+            for lib in order:
+                got = outs[lib]
+                check = dict(bit_equal_base=bool(torch.equal(bits(got), bits(outs["base"]))))
+                if kind == "stream":
+                    check["bit_equal_plain"] = bool(torch.equal(bits(got), bits(ref)))
+                    ok = check["bit_equal_plain"]
+                elif kind == "sums":
+                    check["max_abs"], bad = stream.sums_error(got, ref)
+                    ok = bad < 0
+                elif kind == "accel":
+                    check["max_abs"] = float((got - ref).abs().max())
+                    check["bit_equal_forces_q128_c32"] = bool(torch.equal(bits(got),
+                                                                          bits(fused)))
+                    ok = (check["max_abs"] <= 1e-5 * float(ref.abs().max())
+                          and check["bit_equal_forces_q128_c32"])
+                elif kind == "exact":
+                    ok = check["equal_plain"] = bool(torch.equal(got, ref))
+                else:
+                    ok = check["all_zero"] = not bool(got.any())
+                if not ok:
+                    raise RuntimeError(f"{rec['name']} {lib}: {check}")
+                rec["checks"][lib] = check
+            del outs, ref
+            turns = ["base"] + order + order[::-1] + ["base"]
+            seq = [(lib, run_with(lib, lambda: cs.cuda_ms(call)),
+                    run_with(lib, lambda: device_ms(call, STREAM_KEYS[key]))) for lib in turns]
+            rec["turns"] = seq
+            rec["ms"] = {lib: statistics.mean(t for other, t, _ in seq if other == lib)
+                         for lib in dict.fromkeys(turns)}
+            rec["device_ms"] = {lib: statistics.mean(d for other, _, d in seq if other == lib)
+                                for lib in dict.fromkeys(turns)}
+            print(f"{rec['name']}: bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}; "
+                  + "; ".join(f"{lib} {rec['ms'][lib]:.4f} ms, device {rec['device_ms'][lib]:.4f}"
+                              for lib in rec["ms"]) + f"; {json.dumps(rec['checks'])}",
+                  flush=True)
+            rec["panels"] = panels
+            records.append(rec)
+        del streams, fused, s_pos4
+        torch.cuda.empty_cache()
+    return records
+
+
 def row_substeps(dev, turns, run_with) -> dict:
     """ms per substep of the row variant on the 1M cube (the host clock
     over ROW_SUBSTEPS substeps that end in a synchronize, from one warm
@@ -524,6 +653,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sass", action="store_true", help="write each library's SASS")
     ap.add_argument("--sort-tree", default=None, metavar="DIR",
                     help="a whole checkout whose radix sort is timed against the package's")
+    ap.add_argument("--only", choices=("stream",), default=None,
+                    help="run only the stream kernels' cases")
     args = ap.parse_args(argv)
 
     import torch
@@ -560,6 +691,11 @@ def main(argv=None) -> int:
         finally:
             build._library = libs["package"]
 
+    result["stream"] = stream_ab(dev, run_with, order)
+    if args.only == "stream":
+        (out_dir / "kernel_ab.json").write_text(json.dumps(result, indent=1))
+        print(json.dumps(result))
+        return 0
     stats, cases = cases_1m(dev, libs)
     result["table_stats"] = stats
     print(f"table statistics: {json.dumps(stats)}", flush=True)

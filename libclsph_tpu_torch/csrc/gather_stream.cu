@@ -26,10 +26,17 @@
 // bytes of the f8 pack (x y z vx | vy vz pm mr) and writes 48 (40 in
 // planes); at 1M the stream passes 2^31 bytes, so every offset is 64-bit.
 //
-// Design: one thread a record, a grid-stride loop over the records;
-// neighbouring threads read neighbouring particles of a slot (two 16-byte
-// loads) and write neighbouring records (three 16-byte stores, or one
-// 4-byte store a plane, coalesced across the warp).
+// Design: a warp takes 32 consecutive records a round, whole slots of
+// ``sub`` records (a slot is a warp, half of one or a quarter), in a
+// grid-stride loop over the rounds. The first lane of each slot reads the
+// slot's id and count and decides its liveness once, a 32-bit division
+// for the row, and hands them to the slot's lanes by a shuffle. Lane l
+// reads particle l of its slot (two 16-byte loads, neighbouring lanes on
+// neighbouring particles). Staged: the warp writes its 32 records to a
+// 1.5 KB patch of shared memory (48-byte stride, no bank conflict) and
+// stores the patch, contiguous in the stream, with lane-contiguous
+// 16-byte streaming stores (three 512-byte warp stores). Planes: one
+// 4-byte store a field, coalesced across the warp.
 
 #include <math_constants.h>
 
@@ -38,27 +45,39 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kPlanes = 10;
 constexpr long long kMaxBlocks = 1 << 20;
 
 template <bool kPlaneLayout>
 __global__ void __launch_bounds__(kThreads)
 gather_stream_kernel(const float4* __restrict__ f8, const int* __restrict__ cand,
-                     const int* __restrict__ count, long long records, int cap, int sub,
-                     int nsub, float visc, void* __restrict__ out) {
-  const long long per_row = (long long)cap * sub;
-  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < records;
-       e += (long long)gridDim.x * kThreads) {
-    const long long row = e / per_row;
-    const int k = (int)((e - row * per_row) / sub);
-    const int l = (int)(e % sub);
-    const int id = cand[row * cap + k];
-    const bool live = k < count[row] && id >= 0 && id < nsub;
+                     const int* __restrict__ count, long long records, int cap,
+                     int sub_shift, int nsub, float visc, void* __restrict__ out) {
+  __shared__ float4 patch[kWarps][32 * 3];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int sub = 1 << sub_shift;
+  const int leader = lane & ~(sub - 1);  // the slot's first lane
+  const long long rounds = (records + 31) / 32;
+  for (long long r = (long long)blockIdx.x * kWarps + w; r < rounds;
+       r += (long long)gridDim.x * kWarps) {
+    const long long e = r * 32 + lane;
+    int id = -1;
+    int live = 0;
+    if (lane == leader && e < records) {
+      const int slot = (int)(e >> sub_shift);  // row * cap + k
+      const int row = slot / cap;
+      id = cand[slot];
+      live = slot - row * cap < count[row] && id >= 0 && id < nsub;
+    }
+    id = __shfl_sync(0xffffffffu, id, leader);
+    live = __shfl_sync(0xffffffffu, live, leader);
     float4 p = make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, __int_as_float(-1));
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     float4 ms = v;
     if (live) {
-      const long long j = (long long)id * sub + l;
+      const long long j = (long long)id * sub + (lane & (sub - 1));
       const float4 a = f8[2 * j];      // x y z vx
       const float4 b = f8[2 * j + 1];  // vy vz pm mr
       p = make_float4(a.x, a.y, a.z, __int_as_float((int)j));
@@ -66,15 +85,26 @@ gather_stream_kernel(const float4* __restrict__ f8, const int* __restrict__ cand
       ms = make_float4(b.w, __fmul_rn(visc, b.w), 0.f, 0.f);
     }
     if constexpr (kPlaneLayout) {
-      float* planes = static_cast<float*>(out);
-      const float f[kPlanes] = {p.x, p.y, p.z, p.w, v.x, v.y, v.z, v.w, ms.x, ms.y};
+      if (e < records) {
+        float* planes = static_cast<float*>(out);
+        const float f[kPlanes] = {p.x, p.y, p.z, p.w, v.x, v.y, v.z, v.w, ms.x, ms.y};
 #pragma unroll
-      for (int q = 0; q < kPlanes; ++q) planes[q * records + e] = f[q];
+        for (int q = 0; q < kPlanes; ++q) planes[q * records + e] = f[q];
+      }
     } else {
-      float4* rec = static_cast<float4*>(out) + 3 * e;
-      rec[0] = p;
-      rec[1] = v;
-      rec[2] = ms;
+      float4* mine = patch[w];
+      mine[3 * lane] = p;
+      mine[3 * lane + 1] = v;
+      mine[3 * lane + 2] = ms;
+      __syncwarp();
+      float4* dst = static_cast<float4*>(out) + 3 * (r * 32);
+      const long long left = 3 * (records - r * 32);  // float4s of this round in the stream
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const int q = c * 32 + lane;
+        if (q < left) __stcs(dst + q, mine[q]);
+      }
+      __syncwarp();
     }
   }
 }
@@ -86,19 +116,22 @@ gather_stream_kernel(const float4* __restrict__ f8, const int* __restrict__ cand
 // pack of ``np`` particles into ``out`` (staged: rows*cap*sub*3 float4;
 // ``planes`` != 0: 10 planes of rows*cap*sub floats) on ``stream``;
 // allocates nothing and returns cudaGetLastError() (0 on success;
-// cudaErrorInvalidValue for a ``sub`` other than 8, 16 or 32).
+// cudaErrorInvalidValue for a ``sub`` other than 8, 16 or 32, or for
+// rows * cap slots past the int32 range).
 extern "C" int gather_stream_launch(const void* f8, const void* cand, const void* count,
                                     int rows, int cap, int sub, int planes, int np,
                                     float visc, void* out, void* stream) {
   if (sub != 8 && sub != 16 && sub != 32) return (int)cudaErrorInvalidValue;
+  if ((long long)rows * cap > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int sub_shift = sub == 8 ? 3 : sub == 16 ? 4 : 5;
   const long long records = (long long)rows * cap * sub;
   if (records > 0) {
-    long long blocks = (records + kThreads - 1) / kThreads;
+    long long blocks = ((records + 31) / 32 + kWarps - 1) / kWarps;
     if (blocks > kMaxBlocks) blocks = kMaxBlocks;
     decltype(&gather_stream_kernel<false>) kernel = gather_stream_kernel<false>;
     if (planes) kernel = gather_stream_kernel<true>;
     kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float4*)f8, (const int*)cand, (const int*)count, records, cap, sub,
+        (const float4*)f8, (const int*)cand, (const int*)count, records, cap, sub_shift,
         np / sub, visc, out);
   }
   return (int)cudaGetLastError();

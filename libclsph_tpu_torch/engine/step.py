@@ -57,15 +57,22 @@ JAX package (``StepConfig.neighbor_impl``):
 Other values of the JAX package's ``StepConfig`` are refused, with the
 JAX package's reason where it refuses them too.
 
-PyTorch runs eagerly, so the loops are Python loops: the dt retry
-condition, the frame's time left and the predictive staleness check
-are read back to the host once per substep.
+PyTorch runs eagerly, so the frame's loop is a Python loop. Its
+dispatch layer (:func:`dispatch`) runs a chunk of substeps, a candidate
+period on the main path, with every predicate kept on the device (the
+time left, the staleness before each reuse, whether the dt retry would
+fire) and reads them all back at the chunk's end in one ``tolist()``
+(:func:`host_read`, which counts the reads). It commits the substeps
+before the first that fired and runs that one by the exact path (the
+host retry loop, or a rebuild), so the results are those of a loop that
+read each predicate before it acted.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -102,6 +109,9 @@ VARIANTS = ("nl", "asm", "row", "fine", "asym")
 BLOCK_VARIANTS = ("row", "fine", "asym")  # sums over whole candidate blocks
 # candidate slots a chunk of the exact impl's gathers (rows x 27 x cap)
 EXACT_CHUNK_SLOTS = 1 << 24
+# substeps a dispatch chunk runs where no candidate period sets its length
+# (cand_interval 1: every substep rebuilds)
+SPEC_PERIOD = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -714,9 +724,34 @@ def pad_and_sort(state: ParticleState, params: SimulationParameters, do_sort: bo
     return state, real, grid_bad
 
 
+def host_read(t: torch.Tensor) -> list:
+    """The frame loops' one way to the host: ``t.tolist()``, counted in
+    ``host_read.count`` (as the kernel wrappers count their launches)."""
+    host_read.count += 1
+    return t.tolist()
+
+
+host_read.count = 0
+
+
+def retry_loop(advance: Callable, dt, new_state, dt_out, retry: Optional[bool] = None):
+    """The adaptive dt's retry (sph_simulation.cpp:246-262) after a first
+    ``advance(dt)`` gave (new_state, dt_out): advance again at the new dt
+    while it dropped by more than DT_RETRY_EPS, one host read a test.
+    ``retry``: the first test's answer, where the caller has read it.
+    Returns (new_state, dt_out)."""
+    dt_used = dt
+    while retry if retry is not None else host_read(
+            dt_used - dt_out > integrate_ops.DT_RETRY_EPS):
+        retry = None
+        dt_used = dt_out
+        new_state, dt_out = advance(dt_used)
+    return new_state, dt_out
+
+
 def substep(state: ParticleState, dt: torch.Tensor, params: SimulationParameters,
             scene: Optional[collisions_ops.DeviceScene], config: StepConfig,
-            do_sort: bool = True, cand_in=None):
+            do_sort: bool = True, cand_in=None, speculative: bool = False):
     """One SPH substep. Returns (new_state, dt_next, flags, cand_out).
 
     ``dt`` and ``dt_next`` are 0-d float32 device tensors and ``flags``
@@ -726,7 +761,14 @@ def substep(state: ParticleState, dt: torch.Tensor, params: SimulationParameters
     back as ``cand_in`` on reuse substeps, which must not sort); else
     None. The input state is not modified. Like the reference, the
     returned state is in Morton-sorted order; ``grid_index`` holds the
-    codes.
+    codes. The dt retry reads the host at least once (:func:`retry_loop`).
+
+    ``speculative``: the substep without a host read, one advance at
+    ``dt`` and no retry. Returns (new_state, dt_next, flags, cand_out,
+    retry, finish): ``retry`` a 0-d bool tensor, True where the substep
+    retries (None without ``adaptive_dt``), and ``finish(retry=None)`` ->
+    (new_state, dt_next) runs :func:`retry_loop` from that advance, which
+    gives the substep's results bit for bit.
     """
     n = params.particles_count
     if cand_in is not None and do_sort:
@@ -752,13 +794,16 @@ def substep(state: ParticleState, dt: torch.Tensor, params: SimulationParameters
         return new_state, dt_next
 
     new_state, dt_out = advance(dt)
-    if config.adaptive_dt:
-        dt_used = dt
-        while bool(dt_used - dt_out > integrate_ops.DT_RETRY_EPS):
-            dt_used = dt_out
-            new_state, dt_out = advance(dt_used)
-
     flags = cap_flags + grid_bad.to(torch.int32) * FLAG_GRID_DIM
+    retry = dt - dt_out > integrate_ops.DT_RETRY_EPS if config.adaptive_dt else None
+
+    def finish(retry=None):
+        return retry_loop(advance, dt, new_state, dt_out, retry)
+
+    if speculative:
+        return new_state, dt_out, flags, cand_out, retry, finish
+    if retry is not None:
+        new_state, dt_out = finish()
     return new_state, dt_out, flags, cand_out
 
 
@@ -783,9 +828,197 @@ def count_substep(stats: Optional[dict], rebuild: bool, tables, config: StepConf
     stats["carry_width"] = cand_sub.shape[1]
 
 
+class _Spec(NamedTuple):
+    """A substep that a dispatch chunk ran before reading the host: its
+    number, kind, input and results, ``finish`` (the retry loop), and
+    where its predicates and flags sit in the chunk's read (None: not
+    read)."""
+
+    n: int
+    rebuild: bool
+    before: ParticleState
+    state: ParticleState
+    dt_next: torch.Tensor
+    flags: torch.Tensor
+    tables: object
+    finish: Callable
+    at_time: Optional[int]
+    at_stale: Optional[int]
+    at_retry: Optional[int]
+    at_flags: int
+
+
+def dispatch(state: ParticleState, dt: torch.Tensor, timeleft: Optional[torch.Tensor],
+             steps: int, ci: int, run: Callable, stale: Optional[Callable] = None,
+             combine: Optional[Callable] = None, on_commit: Optional[Callable] = None,
+             host: Optional[dict] = None):
+    """Up to ``steps`` substeps with one host read a chunk: the frame
+    loops' dispatch layer.
+
+    Substep n rebuilds its tables when there are none, when n % ``ci``
+    == 0, or when ``stale(state, tables)`` (a 0-d bool tensor; None:
+    never) holds before it; else it reuses them. ``run(state, dt, n,
+    tables, rebuild)`` runs one as :func:`substep` does with
+    ``speculative`` and returns its (state, dt_next, flags, tables_out,
+    retry, finish). With a ``timeleft`` (a 0-d tensor) the substeps run
+    while it is above 0, dt clamped to it; without, dt is dt_next and no
+    time is kept (bench's fixed cadence).
+
+    The dispatch first reads the time left and dt (its own read). A chunk
+    runs from n to the end of n's period (``ci``, or SPEC_PERIOD where
+    ``ci`` is 1), no further than the time left over the last dt read;
+    after a stop, or a staleness read ahead, chunks of one substep run
+    until a whole period has run with no predicate holding. Each substep
+    whose predicates are not yet known runs as if they were false; they,
+    the flags, and the next substep's time and staleness are stacked and
+    read in one :func:`host_read` (``combine``, the mesh's all-reduce, is
+    applied first so that every rank reads the same values). The
+    substeps before the first predicate that holds are committed; there
+    the frame ends (time), or that substep runs again as a rebuild
+    (stale), or its retry loop runs on (retry) and the next substep's
+    predicates are read. ``on_commit(n, rebuild, before, after, dt_next,
+    flags, tables)`` sees each committed substep.
+
+    ``host``, a dict, receives ``more`` (time left after the dispatch;
+    None without ``timeleft``) and ``flags`` (int), both from the
+    dispatch's reads, ``stops`` (the chunks that stopped, by predicate),
+    ``events`` ((substep, predicate) of each stop), ``wasted`` (substeps
+    run and not committed) and ``reads``. Returns (state, dt, timeleft,
+    flags), flags ORed over the committed substeps: the results of a loop
+    that reads each predicate before it acts on it."""
+    timed = timeleft is not None
+    period = ci if ci > 1 else SPEC_PERIOD
+    flags = torch.zeros((), dtype=torch.int32, device=state.device)
+    host_flags = 0
+    tables = None
+    n = 0
+    known = None  # (time left, stale) of substep n, read already
+    streak = period  # substeps run since the last stop
+    left = None  # substeps the frame has left, from the last read
+    stops = dict(time=0, stale=0, retry=0)
+    events = []  # (substep, predicate) of each stop
+    wasted = 0
+    reads0 = host_read.count
+
+    def read(preds: list) -> list:
+        vec = torch.stack([p.to(torch.float32) for p in preds])
+        return host_read(combine(vec) if combine is not None else vec)
+
+    def next_preds(st, tb, tl, k: int) -> list:
+        """Substep k's predicates: time left and, before a reuse, stale."""
+        preds = [tl > 0.0] if timed else []
+        if stale is not None and tb is not None and k < steps and k % ci != 0:
+            preds.append(stale(st, tb))
+        return preds
+
+    def known_from(vals: list):
+        """(time left, stale) from :func:`next_preds`' values; None where
+        none were read."""
+        if not vals:
+            return None
+        return (bool(vals[0]) if timed else True), len(vals) > timed and bool(vals[-1])
+
+    def advance_time(tl, dt_next):
+        if not timed:
+            return None, dt_next
+        tl_new = tl - dt_next
+        return tl_new, torch.where(tl_new < dt_next, tl_new, dt_next)
+
+    def commit(sp: _Spec, new_state, dt_next, flag_bits: int):
+        nonlocal state, tables, flags, host_flags, timeleft, dt
+        state, tables = new_state, sp.tables
+        timeleft, dt = advance_time(timeleft, dt_next)
+        flags = flags | sp.flags
+        host_flags |= flag_bits
+        if on_commit is not None:
+            on_commit(sp.n, sp.rebuild, sp.before, new_state, dt_next, sp.flags, sp.tables)
+
+    def estimate(tl_h: float, d_h: float):
+        return math.ceil(tl_h / d_h) if d_h > 0.0 and tl_h < d_h * 1e6 else None
+
+    if timed and steps > 0:  # the dispatch's own read: the time left, and dt
+        vals = read([timeleft > 0.0, timeleft, dt])
+        known, left = (bool(vals[0]), False), estimate(vals[1], vals[2])
+    while n < steps and (known is None or known[0]):
+        end = min(steps, (n // period + 1) * period) if streak >= period else n + 1
+        if left is not None:
+            end = min(end, n + max(1, left))
+        chunk, preds = [], []
+        st, d, tl, tb = state, dt, timeleft, tables
+        for k in range(n, end):
+            first_known = k == n and known is not None
+            rebuild = tb is None or k % ci == 0 or (first_known and known[1])
+            at_time = at_stale = at_retry = None
+            if not first_known:
+                if timed:
+                    at_time = len(preds)
+                    preds.append(tl > 0.0)
+                if not rebuild and stale is not None:
+                    at_stale = len(preds)
+                    preds.append(stale(st, tb))
+            new, dt_next, f, tb_out, retry, finish = run(st, d, k, tb, rebuild)
+            if retry is not None:
+                at_retry = len(preds)
+                preds.append(retry)
+            preds.append(f)
+            tb = tb_out if rebuild else tb
+            chunk.append(_Spec(k, rebuild, st, new, dt_next, f, tb, finish, at_time, at_stale,
+                               at_retry, len(preds) - 1))
+            st = new
+            tl, d = advance_time(tl, dt_next)
+        at_end = len(preds)
+        preds += next_preds(st, tb, tl, end)
+        at_tail = len(preds)
+        if timed:
+            preds += [tl, d]
+        vals = read(preds)
+
+        stop = None
+        for sp in chunk:
+            if sp.at_time is not None and not vals[sp.at_time]:
+                stop = "time"
+            elif sp.at_stale is not None and vals[sp.at_stale]:
+                stop = "stale"
+            elif sp.at_retry is not None and vals[sp.at_retry]:
+                stop = "retry"
+            if stop is not None:
+                break
+            commit(sp, sp.state, sp.dt_next, int(vals[sp.at_flags]))
+        if stop is None:
+            n, streak = end, streak + end - n
+            known = known_from(vals[at_end:at_tail])
+            if timed:
+                left = estimate(vals[-2], vals[-1])
+            if known is not None and known[1]:  # it would have stopped a longer chunk
+                streak = 0
+            continue
+        wasted += sum(1 for c in chunk if c.n > sp.n) + (stop != "retry")
+        stops[stop] += 1
+        events.append((sp.n, stop))
+        streak, left = 0, None
+        if stop == "time":
+            known = (False, False)
+            break
+        if stop == "stale":  # run it again as a rebuild; its time left was read
+            n, known = sp.n, (True, True)
+            continue
+        new_state, dt_next = sp.finish(True)  # the retry loop, from its first advance
+        commit(sp, new_state, dt_next, int(vals[sp.at_flags]))
+        n = sp.n + 1
+        preds = next_preds(state, tables, timeleft, n)
+        known = known_from(read(preds) if preds else [])
+        if known is not None and known[1]:
+            streak = 0
+    if host is not None:
+        host.update(more=known[0] if timed and steps > 0 else None, flags=host_flags,
+                    stops=stops, events=events, wasted=wasted,
+                    reads=host_read.count - reads0)
+    return state, dt, timeleft, flags
+
+
 def frame(state: ParticleState, dt: torch.Tensor, timeleft: torch.Tensor,
           params: SimulationParameters, scene, config: StepConfig,
-          stats: Optional[dict] = None):
+          stats: Optional[dict] = None, host: Optional[dict] = None):
     """A frame's substep loop (sph_simulation.cpp:384-409; frame_jit,
     step.py:1245-1376): runs until the frame's time is spent or
     ``config.substeps_per_dispatch`` substeps ran, clamping dt to the
@@ -793,33 +1026,29 @@ def frame(state: ParticleState, dt: torch.Tensor, timeleft: torch.Tensor,
     rebuilds the candidate tables when n % cand_interval == 0 or when
     the displacement since the carried anchor already exceeds the
     slack (the predictive staleness check); substep 0 always rebuilds.
-    ``stats``: a dict that counts the substeps (:func:`count_substep`).
-    Returns (state, dt, timeleft, flags), flags ORed over the substeps.
+    The substeps run through :func:`dispatch`, one host read a candidate
+    period. ``stats``: a dict that counts the substeps
+    (:func:`count_substep`); ``host``: a dict that receives the
+    dispatch's host values (``more``, ``flags``). Returns (state, dt,
+    timeleft, flags), flags ORed over the substeps.
     """
     interval = config.sort_interval
-    ci = config.cand_interval
-    slack2 = torch.tensor((config.cand_slack * params.h) ** 2, dtype=torch.float32,
-                          device=state.device)
-    flags = torch.zeros((), dtype=torch.int32, device=state.device)
-    tables = None
-    for n in range(config.substeps_per_dispatch):
-        if not bool(timeleft > 0.0):
-            break
-        do_sort = n % interval == 0
-        rebuild = tables is None or n % ci == 0
-        if not rebuild:
-            d2 = torch.sum((state.position - tables[2][: state.n]) ** 2, dim=1)
-            rebuild = bool(4.0 * torch.amax(d2) > slack2)
+    slack2 = grid_ops.device_scalar((config.cand_slack * params.h) ** 2, state.device)
+
+    def run(st, d, n, tables, rebuild):
         if rebuild:
-            state, dt_next, step_flags, tables = substep(
-                state, dt, params, scene, config, do_sort=do_sort
-            )
-        else:
-            state, dt_next, step_flags, _ = substep(
-                state, dt, params, scene, config, do_sort=False, cand_in=tables
-            )
+            return substep(st, d, params, scene, config, do_sort=n % interval == 0,
+                           speculative=True)
+        return substep(st, d, params, scene, config, do_sort=False, cand_in=tables,
+                       speculative=True)
+
+    def stale(st, tables):
+        d2 = torch.sum((st.position - tables[2][: st.n]) ** 2, dim=1)
+        return 4.0 * torch.amax(d2) > slack2
+
+    def on_commit(n, rebuild, before, after, dt_next, flags, tables):
         count_substep(stats, rebuild, tables, config)
-        timeleft = timeleft - dt_next
-        dt = torch.where(timeleft < dt_next, timeleft, dt_next)
-        flags = flags | step_flags
-    return state, dt, timeleft, flags
+
+    return dispatch(state, dt, timeleft, config.substeps_per_dispatch, config.cand_interval,
+                    run, stale, on_commit=on_commit if stats is not None else None,
+                    host=host)

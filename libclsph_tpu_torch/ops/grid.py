@@ -47,10 +47,25 @@ class GridInfo(NamedTuple):
     cell_side: torch.Tensor  # () f32
 
 
+_SCALARS: dict = {}
+
+
+def device_scalar(value: float, device) -> torch.Tensor:
+    """A 0-d float32 tensor of ``value`` on ``device``, made once a process:
+    a constant that an op needs as a device tensor (a CPU scalar would
+    change its rounding) costs a synchronising host-to-device copy each
+    time it is made. Callers must not write to it."""
+    key = (float(value), str(torch.device(device)))
+    t = _SCALARS.get(key)
+    if t is None:
+        t = _SCALARS[key] = torch.tensor(value, dtype=torch.float32, device=device)
+    return t
+
+
 def compute_bounds(position: torch.Tensor, params: SimulationParameters) -> GridInfo:
     """Bounds padded by two cells on every side, so 3x3x3 neighbourhood
     coordinates never underflow (sph_simulation.cpp:668-702)."""
-    cell = torch.tensor(params.cell_side, dtype=torch.float32, device=position.device)
+    cell = device_scalar(params.cell_side, position.device)
     pmin = position.amin(dim=0) - 2.0 * cell
     pmax = position.amax(dim=0) + 2.0 * cell
     grid_size = ((pmax - pmin) * (1.0 / cell)).to(torch.int32)

@@ -27,6 +27,7 @@ import torch
 
 from ..core import smoothing
 from ..core.params import SimulationParameters
+from . import grid as grid_ops
 
 SENTINEL_CODE = (1 << 30) - 1  # Morton code of the padding particles
 # above this many blocks the superblock prefilter replaces the dense
@@ -349,8 +350,7 @@ def refine_exact_test(g, cand, count, qlo, qhi, h: float, sub: int, rows: slice)
     sort keys (r, M * sub) int32, the surviving ids with dead slots =
     REFINE_SENTINEL, and its counts (r,) int32."""
     r, m, b = g.shape[:3]
-    h2_cut = torch.tensor(float(h) * float(h) * 1.01, dtype=torch.float32,
-                          device=cand.device)
+    h2_cut = grid_ops.device_scalar(float(h) * float(h) * 1.01, cand.device)
     inside = torch.zeros(g.shape[:3], dtype=torch.bool, device=cand.device)
     for s in range(qlo.shape[1]):
         lo = qlo[rows, s][:, None, None, :]

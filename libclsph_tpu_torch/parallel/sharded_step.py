@@ -431,7 +431,8 @@ def _freeze(new: ParticleState, old: ParticleState, live: torch.Tensor) -> Parti
 def local_substep(mesh: Mesh, state: ParticleState, dt: torch.Tensor,
                   params: SimulationParameters, scene, config: StepConfig,
                   exchange: str = "all_gather", halo_max: int = 0, halo_hops: int = 1,
-                  do_sort: bool = True, cand_in=None, record=None):
+                  do_sort: bool = True, cand_in=None, record=None,
+                  speculative: bool = False):
     """One substep of rank ``mesh.rank`` over its ``n_local`` rows
     (``_local_substep``, sharded_step.py:375-870). ``cand_in``: the
     carried dict of a build substep (cand_sub, count_sub, anchor, and
@@ -439,7 +440,8 @@ def local_substep(mesh: Mesh, state: ParticleState, dt: torch.Tensor,
     must not sort. ``record``: a dict that receives the exchanged tables.
     Returns (state, dt, flags, cand_out); ``flags`` is the same on every
     rank; ``cand_out`` is the carry when ``cand_interval > 1``, else
-    None."""
+    None. ``speculative``: no host read and no dt retry; returns
+    :func:`engine.step.substep`'s six speculative values instead."""
     if exchange not in EXCHANGES:
         raise ValueError(f"exchange must be one of {EXCHANGES}, not {exchange!r}")
     config = mesh_config(config)
@@ -546,22 +548,27 @@ def local_substep(mesh: Mesh, state: ParticleState, dt: torch.Tensor,
         return new, torch.clamp(dt_new, integrate_ops.DT_MIN, params.max_dt), red[2:]
 
     new_state, dt_out, red = advance(dt, extra)
-    if config.adaptive_dt:
-        dt_used = dt
-        while bool(dt_used - dt_out > integrate_ops.DT_RETRY_EPS):
-            dt_used = dt_out
-            new_state, dt_out, _ = advance(dt_used)
     flags = torch.sum(red[:FLAG_BITS].to(torch.int32) << bit)
     if is_reuse:
         stale = 4.0 * red[FLAG_BITS] > (config.cand_slack * params.h) ** 2
         flags = flags | stale.to(torch.int32) * FLAG_CAND_STALE
-    return new_state, dt_out, flags.to(torch.int32), cand_out
+    flags = flags.to(torch.int32)
+    retry = dt - dt_out > integrate_ops.DT_RETRY_EPS if config.adaptive_dt else None
+
+    def finish(retry=None):
+        return step_mod.retry_loop(lambda d: advance(d)[:2], dt, new_state, dt_out, retry)
+
+    if speculative:
+        return new_state, dt_out, flags, cand_out, retry, finish
+    if retry is not None:
+        new_state, dt_out = finish()
+    return new_state, dt_out, flags, cand_out
 
 
 def local_frame(mesh: Mesh, state: ParticleState, dt: torch.Tensor, timeleft: torch.Tensor,
                 params: SimulationParameters, scene, config: StepConfig,
                 exchange: str = "all_gather", halo_max: int = 0, halo_hops: int = 1,
-                stats: Optional[dict] = None):
+                stats: Optional[dict] = None, host: Optional[dict] = None):
     """A frame's substeps on rank ``mesh.rank`` (``_local_frame``,
     sharded_step.py:873-990): up to ``substeps_per_dispatch`` substeps
     while time is left, dt clamped to it; a re-sort every
@@ -569,36 +576,38 @@ def local_frame(mesh: Mesh, state: ParticleState, dt: torch.Tensor, timeleft: to
     ``cand_interval``-th and wherever the displacement since the carried
     anchor, reduced over the ranks, already exceeds the slack (the
     predictive staleness check); the tables carried in between, with the
-    surface sets under halo and ring. ``stats``: a dict that counts this
-    rank's substeps (:func:`engine.step.count_substep`). Returns (state,
-    dt, timeleft, flags), flags OR'd over the substeps."""
+    surface sets under halo and ring. The substeps run through
+    :func:`engine.step.dispatch`: one host read a candidate period, of
+    predicates all-reduced first, so that every rank takes the same
+    branch. ``stats``: a dict that counts this rank's substeps
+    (:func:`engine.step.count_substep`); ``host``: the dispatch's host
+    values (``more``, ``flags``). Returns (state, dt, timeleft, flags),
+    flags OR'd over the substeps."""
     config = mesh_config(config)
     interval, ci = config.sort_interval, config.cand_interval
     slack2 = (config.cand_slack * params.h) ** 2
     run = partial(local_substep, mesh, params=params, scene=scene, config=config,
-                  exchange=exchange, halo_max=halo_max, halo_hops=halo_hops)
-    flags = torch.zeros((), dtype=torch.int32, device=state.device)
-    tables = None
-    for k in range(config.substeps_per_dispatch):
-        if not bool(timeleft > 0.0):
-            break
-        do_sort = interval <= 1 or k % interval == 0
-        rebuild = ci <= 1 or tables is None or k % ci == 0
-        if not rebuild:
-            d2 = torch.sum((state.position - tables["anchor"]) ** 2, dim=1)
-            ok = state.position.abs().amax(dim=1) < LIVE_LIMIT
-            d2max = mesh.all_reduce_max(torch.amax(torch.where(ok, d2, 0.0))[None])[0]
-            rebuild = bool(4.0 * d2max > slack2)
+                  exchange=exchange, halo_max=halo_max, halo_hops=halo_hops,
+                  speculative=True)
+
+    def run_one(st, d, k, tables, rebuild):
         if rebuild:
-            state, dt_next, step_flags, tables = run(state, dt, do_sort=do_sort)
-        else:
-            state, dt_next, step_flags, _ = run(state, dt, do_sort=False, cand_in=tables)
+            return run(st, d, do_sort=interval <= 1 or k % interval == 0)
+        return run(st, d, do_sort=False, cand_in=tables)
+
+    def stale(st, tables):
+        d2 = torch.sum((st.position - tables["anchor"]) ** 2, dim=1)
+        ok = st.position.abs().amax(dim=1) < LIVE_LIMIT
+        d2max = mesh.all_reduce_max(torch.amax(torch.where(ok, d2, 0.0))[None])[0]
+        return 4.0 * d2max > slack2
+
+    def on_commit(k, rebuild, before, after, dt_next, flags, tables):
         carried = None if tables is None else (tables["cand_sub"], tables["count_sub"])
         step_mod.count_substep(stats, rebuild, carried, config)
-        timeleft = timeleft - dt_next
-        dt = torch.where(timeleft < dt_next, timeleft, dt_next)
-        flags = flags | step_flags
-    return state, dt, timeleft, flags
+
+    return step_mod.dispatch(state, dt, timeleft, config.substeps_per_dispatch, ci, run_one,
+                             stale if ci > 1 else None, combine=mesh.all_reduce_max,
+                             on_commit=on_commit if stats is not None else None, host=host)
 
 
 def make_sharded_substep(mesh: Mesh, params: SimulationParameters, scene,

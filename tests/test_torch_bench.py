@@ -91,8 +91,10 @@ def test_cpu_run_prints_one_bench_line(capsys):
     assert set(out) == {"metric", "value", "unit", "vs_baseline", "detail"}
     assert out["vs_baseline"] is None and out["unit"] == "particle-steps/s"
     d = out["detail"]
-    assert set(d) == BENCH_DETAIL | {"card", "host_cpu", "config"}
+    assert set(d) == BENCH_DETAIL | {"card", "host_cpu", "config", "host_reads_per_substep"}
     assert d["timed_flags"] == 0 and d["platform"] == "cpu" and d["card"] is None
+    # one host read for the timed window's one candidate period of 4 substeps
+    assert d["host_reads_per_substep"] == 0.25
     assert (d["n"], d["steps"], d["impl"], d["scene"]) == (4096, 4, "pallas", "cube")
     assert d["config"] == dataclasses.asdict(step.StepConfig())
     assert out["value"] == pytest.approx(4096 * 4 / d["elapsed_s"], rel=1e-3)

@@ -31,7 +31,11 @@ lattice's hit lists: ``gather_stream`` bit for bit at 8, 16 and 32
 particles a slot in both layouts, and ``forces_c32_stream``'s sums
 (staged, planes, no cull; each sum within rtol 1e-5 and atol 1e-5 of its
 largest |value|), its accel mode bit for bit against ``forces_q128_c32``,
-its test mode's counts and the zero-count control.
+its test mode's counts and the zero-count control; every mode at a cap
+that is no multiple of the force kernel's 4-slot tile; both kernels bit
+for bit against the parent build's, where its sources are unpacked in
+``build/parent_csrc``. The frame loop's dispatch layer on the 1M cube:
+one synchronising call a clean chunk, by ``set_sync_debug_mode``.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -1386,3 +1390,118 @@ def test_forces_c32_stream_test_counts_and_zero_count(stream_tables):
     assert got.dtype == torch.int32 and torch.equal(got, want)
     zero = stream.forces_c32_stream(*args[:4], torch.zeros_like(args[4]), args[5])
     assert not zero.any()
+
+
+@pytest.mark.cuda
+def test_stream_kernels_past_a_cap_of_no_whole_tile(stream_tables):
+    """A cap that is no multiple of the force kernel's 4-slot tile: the
+    last tile's slots past the cap are not copied and their runs are
+    masked out; every mode still matches the plain version."""
+    from libclsph_tpu_torch.ops.kernels import stream
+
+    f8, dens, cand, count = stream_tables[32]
+    cap = cand.shape[1] - cand.shape[1] % 4 - 1
+    cand = cand[:, :cap].contiguous()
+    count = torch.clamp(count, max=cap)
+    params = stream_tables["params"]
+    st = stream.gather_stream(f8, cand, count, 32, stream.stream_visc(params))
+    assert torch.equal(st.view(torch.int32), stream.gather_stream_torch(
+        f8, cand, count, 32, stream.stream_visc(params)).view(torch.int32))
+    args = (f8, dens, stream_tables["real"], st, count, params)
+    for cull in (True, False):
+        err, bad = stream.sums_error(stream.forces_c32_stream(*args, cull=cull),
+                                     stream.forces_c32_stream_torch(*args, cull=cull))
+        assert bad < 0, (cull, err)
+    assert torch.equal(stream.forces_c32_stream(*args, out="test"),
+                       stream.forces_c32_stream_torch(*args, out="test"))
+
+
+def _parent_library():
+    """The parent commit's kernels, built from ``build/parent_csrc`` (its
+    ``libclsph_tpu_torch/csrc`` unpacked there, as ``kernel_ab.py --base``
+    takes it)."""
+    import os
+    from pathlib import Path
+
+    from libclsph_tpu_torch.ops.kernels import build
+
+    src = Path(__file__).resolve().parents[1] / "build" / "parent_csrc"
+    if not os.path.isdir(src):
+        pytest.skip(f"no parent kernels at {src}: unpack them with `git archive <commit> "
+                    "libclsph_tpu_torch/csrc | tar -x -C build/parent_csrc --strip-components=2`")
+    return build.open_library(build.build(src, build.BUILD_DIR.parent / "parent_csrc_build"))
+
+
+@pytest.mark.cuda
+def test_stream_kernels_bit_equal_to_the_parent_build(stream_tables):
+    """The stream kernels give the parent build's bits (the gather's
+    redesign changed no byte): every stream at 8, 16 and 32 particles a
+    slot in both layouts, and every mode of the sums."""
+    from libclsph_tpu_torch.ops.kernels import build, stream
+
+    parent = _parent_library()
+    package = build.load_library()
+
+    def both(fn):
+        out = []
+        for lib in (package, parent):
+            build._library = lib
+            try:
+                r = fn()
+                torch.cuda.synchronize()
+                out.append(r.view(torch.int32) if r.dtype == torch.float32 else r)
+            finally:
+                build._library = package
+        return out
+
+    params = stream_tables["params"]
+    visc = stream.stream_visc(params)
+    for sub in (8, 16, 32):
+        f8, _, cand, count = stream_tables[sub]
+        for layout in stream.LAYOUTS:
+            got, want = both(lambda: stream.gather_stream(f8, cand, count, sub, visc, layout))
+            assert torch.equal(got, want), (sub, layout)
+    for layout, cull, out in stream.MODES:
+        args = _stream_args(stream_tables, layout)
+        got, want = both(lambda: stream.forces_c32_stream(*args, layout=layout, cull=cull,
+                                                          out=out))
+        assert torch.equal(got, want), (layout, cull, out)
+
+
+@pytest.mark.cuda
+def test_dispatch_syncs_once_a_chunk_at_1m():
+    """A clean chunk of the main path at 1M (the bench cube, warmed up as
+    bench_torch warms it) synchronises once a candidate period, plus the
+    dispatch's own read, by ``torch.cuda.set_sync_debug_mode``."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import bench_torch
+    from libclsph_tpu_torch.core.state import init_state
+    from libclsph_tpu_torch.engine.simulation import SPHSimulation
+    from libclsph_tpu_torch.ops import collisions
+    from libclsph_tpu_torch.scene.scene import Scene
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    params = bench_torch.build_params(1_000_000)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    scene = collisions.build_device_scene(
+        Scene.load("cube.obj", params.h * 2, scenes_dir=os.path.join(root, "scenes")), "cuda")
+    engine = SPHSimulation(step.StepConfig(), device="cuda", pretune=False)
+    state, dt = bench_torch.warm_up(init_state(params, "cuda"), params, scene, engine, 3,
+                                    window=8)
+    cfg = engine.step_config
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, substeps_per_dispatch=2 * cfg.cand_interval)
+    host = {}
+    timeleft = torch.tensor(3.0e38, dtype=torch.float32, device="cuda")
+    step.frame(state, dt, timeleft, params, scene, cfg)  # what a process makes once
+    torch.cuda.synchronize()
+    _, calls = bench_torch.sync_calls(
+        lambda: step.frame(state, dt, timeleft, params, scene, cfg, None, host))
+    assert host["events"] == [] and host["flags"] == 0
+    assert host["reads"] == 3
+    assert len(calls) <= 3, calls
