@@ -38,8 +38,7 @@ Prints ONE JSON line with bench.py's keys; the number stands only with
   and the port has no H100 baseline yet;
 * ``detail`` adds ``card`` (``nvidia-smi`` name and power limit),
   ``host_cpu`` and ``config`` (the grown ``StepConfig``); ``platform`` is
-  ``cuda`` or ``cpu``;
-* ``--tile-mode mxu`` is refused (a TPU-only layout).
+  ``cuda`` or ``cpu``.
 
 ``--mesh N`` (with ``--exchange``, ``--halo-max``, ``--halo-hops``) times
 the sharded frame loop over N ranks instead (bench.py's ``bench_mesh``;
@@ -72,8 +71,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # particles a run holds by default, on the card and on the CPU (bench.py)
 N_CARD = 1_000_000
 N_CPU = 32_768
-MXU_REFUSAL = ("bench_torch: --tile-mode mxu is a TPU-only layout that the port does not "
-               "run (ROADMAP.md queue 2 C); the port runs --tile-mode direct")
 
 
 def build_params(n: int, fluid_name: str = "water"):
@@ -152,7 +149,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 def config_from_args(args):
     """The ``StepConfig`` of a parsed command line (bench.py:254-295).
-    Exits with a message on ``--tile-mode mxu``, a negative ``--mesh`` or
+    Exits with a message on a negative ``--mesh`` or
     ``--halo-max``, ``--halo-hops`` below 1, the exchange flags without
     ``--mesh`` (they would do nothing), a ``--cand-interval`` that does not divide
     ``--sort-interval`` and any combination ``StepConfig`` refuses; off
@@ -165,8 +162,6 @@ def config_from_args(args):
     if not args.mesh and (args.exchange != "all_gather" or args.halo_max
                           or args.halo_hops != 1):
         sys.exit("bench_torch: --exchange, --halo-max and --halo-hops need --mesh N")
-    if args.tile_mode != "direct":
-        sys.exit(MXU_REFUSAL)
     if args.cand_interval > 1 and args.sort_interval % args.cand_interval:
         # reuse substeps must not re-sort (ids index the sorted order)
         sys.exit("--cand-interval must divide --sort-interval")
@@ -176,6 +171,7 @@ def config_from_args(args):
         block_size=args.block_size,
         nl_query_rows=args.nl_query_rows,
         max_candidates=args.max_candidates,
+        tile_mode=args.tile_mode,
         max_candidates_sub=args.max_candidates_sub,
         max_candidates_hit=args.max_candidates_hit,
         hit_compact=not args.no_hit_compact,

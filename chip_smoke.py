@@ -146,6 +146,20 @@ non-zero):
     process of its own, each printing its JSON line; a probe that exits
     non-zero fails the run. The stream probes' launch counts are the
     ``probe`` path's.
+14. the identity mode (``StepConfig.pair_r2="mxu"``, r^2 by |q|^2 +
+    |c|^2 - 2 q.c on packs centred on the domain), run after phase 9: the 1M
+    cube through ``bench_torch``'s warm-up and timed window in the mode
+    (ms/substep beside phase 4's, bench_torch's JSON line), one substep
+    against the direct one from the window's last state (density rtol
+    and acceleration atol / max|a| of ``identity_tolerance``: the JAX
+    package's 5e-4 for the mode, or twice the identity's worst rounding
+    of r^2 at the state's largest centred |p| where that is larger);
+    each of ``MXU_CONFIGS`` (the gated 16-wide path, whose reuse
+    substeps run the gated density in the direct form; the 16-wide,
+    q32, q128, 64- and 32-row and asm tables) warmed up for 3 substeps
+    at 64k, each launching its kernels' identity mode; and one 64k tiles
+    substep in ``tile_mode="mxu"`` against the direct tile mode (the
+    same ``identity_tolerance``).
 
 Phase 2 also holds, at the 1M lattice, ``density_blocks`` and
 ``forces_blocks`` of the three block variants on the block search's
@@ -160,6 +174,15 @@ on the port's own tables at those shapes: ``density_c32`` with block
 counts and ``forces_q128_c32`` on 64- and 32-row lists (nl and asm),
 ``density_c32`` densities only on the full 32-row lists, and the row
 variant's passes at ``block_size`` 64.
+At the 1M lattice phase 2 also holds each kernel mode's identity mode
+(``r2_mxu=True``: ``density_c16`` at hit_sub 8, 16 and 16 with the tile
+counts, ``density_c32`` at 4 and 1 groups, hit_sub 16 and 64 and 32
+rows, ``forces_q32_c8``, ``_c16``, ``_c32`` and ``forces_q128_c32`` at
+128, 64 and 32 rows) against its plain version in the mode on the same
+tables with centred packs (densities rtol 1e-5, every hit and tile count
+equal, accelerations atol 1e-5 * max|a|), and times it by CUDA events
+with the direct mode on the same inputs before and after it; the
+records named with " mxu" take those times and the launches of phase 14.
 Phase 2 also holds, at 64k and 1M, the stream kernels
 (``ops/kernels/stream.py``): ``gather_stream`` in both layouts bit for
 bit against its plain version at 8, 16 and 32 particles a slot (the main
@@ -179,7 +202,7 @@ plain versions over 3, the kernels over 7.
 Each path (main: phases 3, 3c and 4 (4c's runs are processes of their
 own, with their own counts); 16-wide: 3b-4b; deep columns: 5-6; row,
 fine, asym and asm: 7; exact: 8; each shape of phase 9; the stream probes
-of 13) runs with the
+of 13; the identity mode: 14) runs with the
 launch counts set to 0 just before it and read just after; each record
 counts the launches of the paths it belongs to. Every phase prints its
 wall time, and one line before the card's holds them all and the total.
@@ -317,6 +340,24 @@ KERNELS = {
     "forces_c32_stream test": ("forces_c32_stream", "test", CSRC + "forces_stream.cu",
                                BISECT, ("probe",)),
 }
+# the identity mode (StepConfig.pair_r2 = "mxu"): each kernel mode's twin,
+# counted under its variant with ", mxu" (the force kernels without
+# another variant under "mxu"), launched on phase 14's runs
+MXU_RECS = (
+    ("density_c16", "hit_sub 8"), ("density_c16 hit_sub 16", "hit_sub 16"),
+    ("density_c16 hit_sub 16, hit2_h", "hit_sub 16, hit2_h"),
+    ("density_c32", "groups 4, hit_sub 32"), ("density_c32 groups 1", "groups 1, hit_sub 32"),
+    ("density_c32 hit_sub 16", "groups 4, hit_sub 16"),
+    ("density_c32 groups 1, rows 64", "groups 1, rows 64"),
+    ("density_c32 groups 1, rows 32", "groups 1, rows 32"),
+    ("forces_q32_c8", None), ("forces_q32_c16", None), ("forces_q32_c32", None),
+    ("forces_q128_c32", "rows 128"), ("forces_q128_c32 rows 64", "rows 64"),
+    ("forces_q128_c32 rows 32", "rows 32"),
+)
+for _rec, _variant in MXU_RECS:
+    _fn, _, _src, _replaces, _ = KERNELS[_rec]
+    KERNELS[_rec + " mxu"] = (_fn, "mxu" if _variant is None else _variant + ", mxu", _src,
+                              _replaces, ("mxu",))
 BENCH_TAG = "1M lattice"  # the phase-2 tables whose times and bounds are recorded
 # the radix sort's least traffic: every pass reads and writes each key
 # and value once
@@ -1203,6 +1244,104 @@ def compare_all_rows(tag, state, params, engine_for, stats):
         pallas_variant="row", block_size=64, cand_interval=1)), stats)
 
 
+def centred_pos4(pos4):
+    """``pos4`` and its positions less the domain centre of its real rows
+    (engine.step.domain_center), the identity mode's pack, and the
+    centre."""
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.ops.kernels import density
+
+    real = pos4[:, 3] > 0
+    center = step.domain_center(pos4[:, :3], real)
+    return density.pos_pack(pos4[:, :3], real, center), center
+
+
+def centred_f8(f8, center):
+    import torch
+
+    return torch.cat([f8[:, :3] - center, f8[:, 3:]], dim=1).contiguous()
+
+
+def mxu_cases(t_main, t_q, t16, t32, t_rows):
+    """Phase 2's identity-mode cases on one state's tables, centred:
+    (record, kernel name, density args or force args, keyword arguments,
+    pairs inside the support (the direct form's count), query rows of a
+    force list or None for a density)."""
+    cases = []
+
+    def dens(rec, name, args, pairs, **kw):
+        pos4, center = centred_pos4(args[0])
+        cases.append((rec, name, (pos4,) + tuple(args[1:]), kw, pairs, None))
+        return center
+
+    def force(rec, name, fargs, center, qrows, pairs, **kw):
+        cases.append((rec, name, (centred_f8(fargs[0], center),) + tuple(fargs[1:]), kw,
+                      pairs, qrows))
+
+    pairs = int(t_main["hits_plain"].sum())
+    c = dens("density_c16 mxu", "density_c16", t_main["density_args"], pairs)
+    force("forces_q32_c8 mxu", "forces_q32_c8", t_main["force_args"], c, 32, pairs)
+    pairs = int(t16["hits_plain"].sum())
+    c = dens("density_c16 hit_sub 16 mxu", "density_c16", t16["density_args"], pairs,
+             hit_sub=16)
+    dens("density_c16 hit_sub 16, hit2_h mxu", "density_c16", t16["density_args"], pairs,
+         hit_sub=16, hit2_h=t16["density_args"][3].h * 1.25)
+    force("forces_q32_c16 mxu", "forces_q32_c16", t16["force_args"], c, 32, pairs)
+    dens("density_c32 hit_sub 16 mxu", "density_c32", t32["density_args"],
+         int(t32["hits_plain"].sum()), hit_sub=16)
+    pairs = int(t_q["hits4"].sum())
+    c = dens("density_c32 mxu", "density_c32", t_q["density_args"], pairs, groups=4)
+    dens("density_c32 groups 1 mxu", "density_c32", t_q["density_args"], pairs, groups=1)
+    qf = (t_q["f8"], t_q["dens_plain"], t_q["real"])
+    force("forces_q32_c32 mxu", "forces_q32_c32", qf + t_q["q32"] + (t_q["params"],), c, 32,
+          pairs)
+    force("forces_q128_c32 mxu", "forces_q128_c32", qf + t_q["q128"] + (t_q["params"],), c,
+          128, pairs)
+    for rows, t in t_rows.items():
+        c = dens(f"density_c32 groups 1, rows {rows} mxu", "density_c32",
+                 t["density_args"], t["pairs_in"], groups=1, rows=rows)
+        force(f"forces_q128_c32 rows {rows} mxu", "forces_q128_c32", t["force_args"], c,
+              rows, t["pairs_in"], rows=rows)
+    return cases
+
+
+def compare_mxu(tag, cases, stats):
+    """Each identity-mode case against its plain version in the mode on
+    the same centred inputs (densities rtol 1e-5, every hit and tile
+    count equal, accelerations atol 1e-5 * max|a|), then timed beside the
+    direct mode on the same inputs in turns (direct, identity, direct)
+    by CUDA events; the identity mode's record takes its time, plain
+    time and bound (the pairs counted as the direct form's: the two
+    differ only in the identity's band of h^2, and each pair's r^2 is 8
+    operations in both)."""
+    import torch
+
+    from libclsph_tpu_torch.ops.kernels import density, forces
+
+    for rec, name, args, kw, pairs, qrows in cases:
+        fn = kernel_fn(name)
+        plain = getattr(density if qrows is None else forces, name + "_torch")
+        out = fn(*args, r2_mxu=True, **kw)
+        ref = plain(*args, r2_mxu=True, **kw)
+        if qrows is None:
+            err = check_density(tag, rec, out[0], out[1], ref[0], ref[1], stats)
+            if len(out) > 2 and not torch.equal(out[2], ref[2]):
+                raise RuntimeError(f"{tag} {rec}: tile counts differ")
+            work = density_work(args, out, pairs)
+            what = f"rel err {err:.3g}, {int(out[1].sum())} hits equal"
+        else:
+            err = check_accel(tag, rec, out, ref, stats)
+            work = force_work(args, qrows, pairs)
+            what = f"accel err {err:.3g}"
+        vpu_a = cuda_ms(lambda: fn(*args, **kw))
+        frag = time_kernel(stats, rec, tag, lambda: fn(*args, r2_mxu=True, **kw),
+                           lambda: plain(*args, r2_mxu=True, **kw), work)
+        vpu_b = cuda_ms(lambda: fn(*args, **kw))
+        stats[rec]["vpu_ms"] = (vpu_a + vpu_b) / 2
+        log(f"phase 2 {tag} identity mode: {what};{frag} direct mode on the same inputs "
+            f"{vpu_a:.4f}, {vpu_b:.4f} ms")
+
+
 def sort_device_us(keys, vals, sorts=5) -> dict:
     """Device time of each kernel of the radix sort (microseconds a
     launch, by kernel) under torch.profiler over ``sorts`` sorts. The
@@ -1991,6 +2130,140 @@ def phase9_shapes(state, params, scene, dev, card, ms_main, paths, steps=TIMED_S
             f"{cmp}; config {eng.step_config}; {time.perf_counter() - t0:.2f} s; card {card}")
 
 
+# phase 14: the identity mode's configurations at 64k (label, StepConfig
+# fields, the records each must launch); the gated one runs its reuse
+# substeps' gated density in the direct form
+MXU_CONFIGS = (
+    ("16-wide, gated", dict(SUB16, density_gate=True),
+     ("density_c16 hit_sub 16, hit2_h mxu", "forces_q32_c16 mxu", "density_gated16")),
+    ("16-wide", SUB16, ("density_c16 hit_sub 16 mxu", "forces_q32_c16 mxu")),
+    ("16-wide over 32-wide tables", FTF, ("density_c32 hit_sub 16 mxu", "forces_q32_c16 mxu")),
+    ("q32", Q_PATH, ("density_c32 mxu", "forces_q32_c32 mxu")),
+    ("q128", dict(Q_PATH, force_query_rows=128),
+     ("density_c32 groups 1 mxu", "forces_q128_c32 mxu")),
+    ("nl_query_rows 64", dict(Q_PATH_ROWS, nl_query_rows=64),
+     ("density_c32 groups 1, rows 64 mxu", "forces_q128_c32 rows 64 mxu")),
+    ("nl_query_rows 32", dict(Q_PATH_ROWS, nl_query_rows=32),
+     ("density_c32 groups 1, rows 32 mxu", "forces_q128_c32 rows 32 mxu")),
+    ("asm", dict(Q_PATH_ROWS, pallas_variant="asm"),
+     ("density_c32 groups 1 mxu", "forces_q128_c32 mxu")),
+)
+
+
+def identity_tolerance(state, params) -> float:
+    """The identity mode's relative deviation from the direct form allowed
+    at ``state``: the larger of the JAX package's bound for the mode
+    (5e-4, tests/test_physics.py:350, set at 1,024 particles) and
+    2 x 12 x 2^-24 x (max|p - centre| / h)^2, twice the identity's worst
+    rounding of r^2 relative to h^2 (csrc/sph_pair.cuh) at the state's
+    largest centred |p|. The rounding grows with that square, and the 1M
+    cube's |p| reaches about 50 h, against a few h at 1,024 particles.
+    The tiles mode centres each query block on its first particle; the
+    domain-centred |p| stands in for the scale of its coordinates too."""
+    import torch
+
+    from libclsph_tpu_torch.engine import step
+
+    real = torch.isfinite(state.position).all(dim=1)
+    center = step.domain_center(state.position, real)
+    ratio = float((state.position[real] - center).norm(dim=1).max()) / params.h
+    return max(5e-4, 2 * 12 * 2.0 ** -24 * ratio * ratio)
+
+
+def compare_modes(tag, a, b, tol):
+    """One substep in the identity mode against the direct one from the
+    same state: the same order, density rtol ``tol``, acceleration atol
+    ``tol`` * max|a| (:func:`identity_tolerance`)."""
+    import torch
+
+    if not torch.equal(a.grid_index, b.grid_index):
+        raise RuntimeError(f"{tag}: the two substeps sorted differently")
+    if not (torch.isfinite(a.density).all() and torch.isfinite(a.acceleration).all()):
+        raise RuntimeError(f"{tag}: non-finite identity-mode substep")
+    drel = float(((a.density - b.density).abs() / b.density.abs()).max())
+    aerr = float((a.acceleration - b.acceleration).abs().max())
+    amax = float(b.acceleration.abs().max())
+    if drel > tol or not aerr <= tol * amax:
+        raise RuntimeError(f"{tag}: density rel err {drel:.3g}, accel err {aerr:.3g} "
+                           f"(max|a| {amax:.6g})")
+    return f"density rel err {drel:.3g}, accel err {aerr:.3g} (max|a| {amax:.6g})"
+
+
+def phase14_mxu(s1m, p1m, scene1m, p64, scene64, dev, card, ms_main, paths):
+    """The identity mode (``pair_r2="mxu"``, ``tile_mode="mxu"``) as a
+    path of its own, its counts set to 0 before it and read after: the 1M
+    cube through bench_torch's warm-up and timed window (ms/substep beside
+    phase 4's), one substep against the direct one from the window's last
+    state; each of MXU_CONFIGS warmed up for WARMUP_STEPS substeps at
+    64k; one 64k tiles substep in ``tile_mode="mxu"`` against the direct
+    tile mode (both comparisons at ``identity_tolerance``). The comparison
+    substeps do not count."""
+    import dataclasses
+
+    import torch
+
+    from libclsph_tpu_torch.core.state import init_state
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.engine.simulation import SPHSimulation
+
+    t0 = time.perf_counter()
+    reset_launches()
+    eng = SPHSimulation(step.StepConfig(pair_r2="mxu"), device=dev, pretune=False)
+    st, dt = warm_up(s1m, p1m, scene1m, eng, WARMUP_STEPS, window=TIMED_STEPS)
+    st, dt, ms, got = timed_window("phase 14", st, dt, p1m, scene1m, eng, TIMED_STEPS,
+                                   read_launches)
+    recs = ("density_c16 mxu", "forces_q32_c8 mxu")
+    if min(got[r] for r in recs) < TIMED_STEPS:
+        raise RuntimeError(f"phase 14: the identity mode's window launched {got}")
+    saved = save_launches()
+    s_id, ms_id = one_substep(st, p1m, scene1m, eng)
+    s_direct, ms_direct = one_substep(st, p1m, scene1m, SPHSimulation(
+        dataclasses.replace(eng.step_config, pair_r2="vpu"), device=dev, pretune=False))
+    restore_launches(saved)
+    tol = identity_tolerance(st, p1m)
+    cmp = compare_modes("phase 14 1M", s_id, s_direct, tol)
+    log(f"phase 14 1M cube, pair_r2=mxu: {N_BENCH} particles, {TIMED_STEPS} substeps, "
+        f"{ms:.3f} ms/substep ({ms / ms_main:.3f}x phase 4's {ms_main:.3f}), timed_flags 0, "
+        f"launches {json.dumps({r: got[r] for r in recs})}; one substep {ms_id:.3f} ms "
+        f"(direct {ms_direct:.3f}), against the direct substep from the same state "
+        f"(density rtol and acceleration atol / max|a| {tol:.3g}): {cmp}; "
+        f"config {eng.step_config}; card {card}")
+    line = bench_result(N_BENCH, TIMED_STEPS, ms * TIMED_STEPS / 1e3, 0, dt, "water",
+                        "pallas", "cube", dev, eng.step_config, card)
+    log(f"phase 14 bench_torch: {json.dumps(line)}")
+    del st, s_id, s_direct
+    torch.cuda.empty_cache()
+    s64 = init_state(p64, dev)
+    for label, fields, recs in MXU_CONFIGS:
+        before = read_launches()
+        e = SPHSimulation(step.StepConfig(**fields, pair_r2="mxu"), device=dev, pretune=False)
+        st, _ = warm_up(s64, p64, scene64, e, WARMUP_STEPS)
+        sync(dev)
+        after = read_launches()
+        ran = {r: after[r] - before[r] for r in recs}
+        if min(ran.values()) <= 0:
+            raise RuntimeError(f"phase 14 {label}: launched {ran}")
+        if not torch.isfinite(st.acceleration).all():
+            raise RuntimeError(f"phase 14 {label}: non-finite state")
+        log(f"phase 14 64k {label}, pair_r2=mxu: {WARMUP_STEPS} substeps, launches "
+            f"{json.dumps(ran)}; config {e.step_config}")
+    tiles = dict(neighbor_impl="tiles", cand_interval=1, density_sub16=False,
+                 force_sub8=False)
+    s_id, ms_id = one_substep(s64, p64, scene64, SPHSimulation(
+        step.StepConfig(**tiles, tile_mode="mxu"), device=dev, pretune=False))
+    saved = save_launches()
+    s_direct, ms_direct = one_substep(s64, p64, scene64, SPHSimulation(
+        step.StepConfig(**tiles), device=dev, pretune=False))
+    restore_launches(saved)
+    tol = identity_tolerance(s64, p64)
+    cmp = compare_modes("phase 14 64k tiles", s_id, s_direct, tol)
+    log(f"phase 14 64k tiles, tile_mode=mxu: one substep {ms_id:.3f} ms (direct "
+        f"{ms_direct:.3f}), against the direct tile mode (density rtol and acceleration "
+        f"atol / max|a| {tol:.3g}): {cmp}")
+    paths["mxu"] = read_launches()
+    log(f"phase 14: {time.perf_counter() - t0:.2f} s; card {card}")
+
+
 def phase10_view(dev, card, frames):
     """The 1M cube through SPHSimulation for ``frames`` frames with
     PointRenderer.view as device_view, behind a thin wrapper that checks
@@ -2633,6 +2906,11 @@ def main(argv=None) -> int:
             compare_qblock(tag, t_main, t_q, t16, t32, stats)
         if rows:
             compare_all_rows(tag, state, p, engine_for, stats)
+        if tag == BENCH_TAG:
+            t_rows = {r: rows_tables(state, p, engine_for(cell, dict(Q_PATH_ROWS,
+                                                                     nl_query_rows=r)))
+                      for r in (64, 32)}
+            compare_mxu(tag, mxu_cases(t_main, t_q, t16, t32, t_rows), stats)
 
     p64 = water_params(65536)
     scene64 = cube_scene(p64, dev)
@@ -2732,9 +3010,12 @@ def main(argv=None) -> int:
     # aabb refine, each shape a path of its own; phases 10 and 11 the
     # renderer and the emitter on the main path
     phase9_shapes(s1m, p1m, scene1m, dev, card, ms_main, paths)
+    walls.mark("9")
+    # phase 14 drives the identity mode, a path of its own
+    phase14_mxu(s1m, p1m, scene1m, p64, scene64, dev, card, ms_main, paths)
     del s1m
     torch.cuda.empty_cache()
-    walls.mark("9")
+    walls.mark("14")
     phase10_view(dev, card, VIEW_FRAMES)
     torch.cuda.empty_cache()
     walls.mark("10")
@@ -2771,7 +3052,8 @@ def main(argv=None) -> int:
                 "q32-full": ("density_c32 densities only, rows 32", "forces_q128_c32 rows 32"),
                 "mesh": ("density_c16 hit_sub 16", "forces_q32_c16", "density_c32",
                          "density_c32 groups 1", "forces_q32_c32", "forces_q128_c32"),
-                "probe": tuple(rec for rec, spec in KERNELS.items() if "probe" in spec[4])}
+                "probe": tuple(rec for rec, spec in KERNELS.items() if "probe" in spec[4]),
+                "mxu": tuple(rec for rec, spec in KERNELS.items() if "mxu" in spec[4])}
     for path, recs in required.items():
         missing = [rec for rec in recs if paths[path][rec] <= 0]
         if missing:

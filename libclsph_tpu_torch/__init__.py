@@ -9,8 +9,8 @@ pretune and checkpoint, ``.geo``/``.bgeo`` export, and the ``sph-torch``
 CLI. Every neighbour impl and variant of the JAX package runs here
 (``StepConfig``: the ``pallas`` impl's nl, asm, row, fine and asym
 variants at every block size, query width and refine mode, two-tier
-routing, the ``tiles`` impl and the ``exact`` impl with its radix sort),
-and so does the Morton-partitioned sharded substep over
+routing, the ``tiles`` impl and the ``exact`` impl with its radix sort,
+each r^2 mode: ``pair_r2`` and ``tile_mode``), and so does the Morton-partitioned sharded substep over
 ``torch.distributed`` (:mod:`parallel`, ``SPHSimulation(mesh=...)``), the
 on-device renderer (:mod:`io.render`) and the legacy checkpoint import.
 

@@ -35,7 +35,7 @@ import os
 import sys
 
 from .engine.simulation import SPHSimulation, configure_device
-from .engine.step import BLOCK_SIZES, IMPLS, QUERY_ROWS, VARIANTS, StepConfig
+from .engine.step import BLOCK_SIZES, IMPLS, QUERY_ROWS, TILE_MODES, VARIANTS, StepConfig
 from .io.houdini import HoudiniFileSaver
 
 _DEFAULTS = StepConfig()
@@ -64,6 +64,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="kernel family of the pallas impl: nl (default), asm "
                     "(needs --no-density-sub16), or row/fine/asym (whole "
                     "candidate blocks)")
+    ap.add_argument("--tile-mode", choices=list(TILE_MODES), default=_DEFAULTS.tile_mode,
+                    help="the tiles impl's r^2: 'direct' (default) or 'mxu' (by the "
+                    "identity |q|^2 + |c|^2 - 2 q.c, centred on each query block)")
     ap.add_argument("--block-size", type=int, choices=list(BLOCK_SIZES),
                     default=_DEFAULTS.block_size,
                     help="particles per Morton block (64, 128 or 256)")

@@ -38,8 +38,39 @@
 // candidates) culled by their boxes, per-lane counters reduced once a
 // column). Each query sums its candidates in ascending slot and particle
 // order, so the densities equal density_gated16's bit for bit.
+//
+// Each mode also runs in the identity mode (density_c16_mxu_launch;
+// fused_density_nl at r2_mxu=True, density_warp.cuh's kMxu): r^2 by
+// sph::pair_r2_id on the centred pack.
 
 #include "density_warp.cuh"
+
+namespace {
+
+template <bool kMxu>
+int launch_c16(const void* pos4, const void* cand, const void* count,
+               const void* qblock, int nq, int cap, int hit_sub, float h2,
+               float h2_dil, float poly6, float mass, float fluid_density,
+               void* density, void* hits, void* tiles, void* stream) {
+  using sph::Hits;
+  decltype(&sph::density_rows_kernel<16, 8, Hits::kSubgroup, false, sph::kBlock, kMxu>)
+      kernel;
+  if (hit_sub == 8 && !tiles) {
+    kernel = sph::density_rows_kernel<16, 8, Hits::kSubgroup, false, sph::kBlock, kMxu>;
+  } else if (hit_sub == 16 && !tiles) {
+    kernel = sph::density_rows_kernel<16, 16, Hits::kSubgroup, false, sph::kBlock, kMxu>;
+  } else if (hit_sub == 16) {
+    kernel =
+        sph::density_rows_kernel<16, 16, Hits::kSubgroupTiles, false, sph::kBlock, kMxu>;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return sph::launch_density_rows(kernel, pos4, cand, count, qblock, nq, cap, h2,
+                                  h2_dil, poly6, mass, fluid_density, density,
+                                  hits, tiles, stream);
+}
+
+}  // namespace
 
 // Plain C entry point: ``hit_sub`` 8 or 16 and ``tiles`` (null: no tile
 // counts; else (nq*4, ceil(cap/8)) int32, needs hit_sub 16) pick the
@@ -55,18 +86,18 @@ extern "C" int density_c16_launch(const void* pos4, const void* cand,
                                   float h2_dil, float poly6, float mass,
                                   float fluid_density, void* density,
                                   void* hits, void* tiles, void* stream) {
-  using sph::Hits;
-  decltype(&sph::density_rows_kernel<16, 8, Hits::kSubgroup>) kernel;
-  if (hit_sub == 8 && !tiles) {
-    kernel = sph::density_rows_kernel<16, 8, Hits::kSubgroup>;
-  } else if (hit_sub == 16 && !tiles) {
-    kernel = sph::density_rows_kernel<16, 16, Hits::kSubgroup>;
-  } else if (hit_sub == 16) {
-    kernel = sph::density_rows_kernel<16, 16, Hits::kSubgroupTiles>;
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return sph::launch_density_rows(kernel, pos4, cand, count, qblock, nq, cap, h2,
-                                  h2_dil, poly6, mass, fluid_density, density,
-                                  hits, tiles, stream);
+  return launch_c16<false>(pos4, cand, count, qblock, nq, cap, hit_sub, h2, h2_dil,
+                           poly6, mass, fluid_density, density, hits, tiles, stream);
+}
+
+// The identity mode's entry point (fused_density_nl at r2_mxu=True), as
+// density_c16_launch (``pos4`` centred on the domain).
+extern "C" int density_c16_mxu_launch(const void* pos4, const void* cand,
+                                      const void* count, const void* qblock,
+                                      int nq, int cap, int hit_sub, float h2,
+                                      float h2_dil, float poly6, float mass,
+                                      float fluid_density, void* density,
+                                      void* hits, void* tiles, void* stream) {
+  return launch_c16<true>(pos4, cand, count, qblock, nq, cap, hit_sub, h2, h2_dil,
+                          poly6, mass, fluid_density, density, hits, tiles, stream);
 }

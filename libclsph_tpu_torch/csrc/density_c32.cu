@@ -47,8 +47,65 @@
 // query sums its candidates in ascending slot and particle order, as
 // the earlier thread-a-query form of this kernel did, so the densities
 // equal its bits.
+//
+// Each mode also runs in the identity mode (density_c32_mxu_launch and
+// density_c32_rows_mxu_launch; fused_density_nl and fused_density_asm at
+// r2_mxu=True, density_warp.cuh's kMxu): r^2 by sph::pair_r2_id on the
+// centred pack. The block variants' densities-only calls never take it
+// (the JAX package runs them in the direct form).
 
 #include "density_warp.cuh"
+
+namespace {
+
+template <bool kMxu>
+int launch_c32(const void* pos4, const void* cand, const void* count,
+               const void* qblock, int nq, int cap, int groups, int hit_sub,
+               float h2, float poly6, float mass, float fluid_density,
+               void* density, void* hits, void* stream) {
+  using sph::Hits;
+  constexpr int R = sph::kBlock;
+  decltype(&sph::density_rows_kernel<32, 32, Hits::kSubgroup, false, R, kMxu>) kernel;
+  if (groups == 4 && hit_sub == 32) {
+    kernel = sph::density_rows_kernel<32, 32, Hits::kSubgroup, false, R, kMxu>;
+  } else if (groups == 4 && hit_sub == 16) {
+    kernel = sph::density_rows_kernel<32, 16, Hits::kSubgroup, false, R, kMxu>;
+  } else if (groups == 1 && hit_sub == 32) {
+    kernel = sph::density_rows_kernel<32, 32, Hits::kBlock, false, R, kMxu>;
+  } else if (groups == 0 && hit_sub == 32) {
+    kernel = sph::density_rows_kernel<32, 32, Hits::kNone, false, R, kMxu>;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return sph::launch_density_rows(kernel, pos4, cand, count, qblock, nq, cap, h2,
+                                  0.f, poly6, mass, fluid_density, density, hits,
+                                  nullptr, stream);
+}
+
+template <bool kMxu>
+int launch_c32_rows(const void* pos4, const void* cand, const void* count,
+                    const void* qblock, int nq, int cap, int groups, int rows,
+                    float h2, float poly6, float mass, float fluid_density,
+                    void* density, void* hits, void* stream) {
+  using sph::Hits;
+  decltype(&sph::density_rows_kernel<32, 32, Hits::kBlock, false, 64, kMxu>) kernel;
+  if (groups == 1 && rows == 64) {
+    kernel = sph::density_rows_kernel<32, 32, Hits::kBlock, false, 64, kMxu>;
+  } else if (groups == 1 && rows == 32) {
+    kernel = sph::density_rows_kernel<32, 32, Hits::kBlock, false, 32, kMxu>;
+  } else if (groups == 0 && rows == 64) {
+    kernel = sph::density_rows_kernel<32, 32, Hits::kNone, false, 64, kMxu>;
+  } else if (groups == 0 && rows == 32) {
+    kernel = sph::density_rows_kernel<32, 32, Hits::kNone, false, 32, kMxu>;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return sph::launch_density_rows(kernel, pos4, cand, count, qblock, nq, cap, h2,
+                                  0.f, poly6, mass, fluid_density, density, hits,
+                                  nullptr, stream);
+}
+
+}  // namespace
 
 // Plain C entry point: (``groups``, ``hit_sub``) = (4, 32), (1, 32),
 // (4, 16) or (0, 32) (densities only; ``hits`` is not read) picks the
@@ -64,22 +121,8 @@ extern "C" int density_c32_launch(const void* pos4, const void* cand,
                                   float h2, float poly6, float mass,
                                   float fluid_density, void* density,
                                   void* hits, void* stream) {
-  using sph::Hits;
-  decltype(&sph::density_rows_kernel<32, 32, Hits::kSubgroup>) kernel;
-  if (groups == 4 && hit_sub == 32) {
-    kernel = sph::density_rows_kernel<32, 32, Hits::kSubgroup>;
-  } else if (groups == 4 && hit_sub == 16) {
-    kernel = sph::density_rows_kernel<32, 16, Hits::kSubgroup>;
-  } else if (groups == 1 && hit_sub == 32) {
-    kernel = sph::density_rows_kernel<32, 32, Hits::kBlock>;
-  } else if (groups == 0 && hit_sub == 32) {
-    kernel = sph::density_rows_kernel<32, 32, Hits::kNone>;
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return sph::launch_density_rows(kernel, pos4, cand, count, qblock, nq, cap, h2,
-                                  0.f, poly6, mass, fluid_density, density, hits,
-                                  nullptr, stream);
+  return launch_c32<false>(pos4, cand, count, qblock, nq, cap, groups, hit_sub, h2,
+                           poly6, mass, fluid_density, density, hits, stream);
 }
 
 // Plain C entry point of the finer query blocks: ``rows`` (32 or 64, the
@@ -93,20 +136,29 @@ extern "C" int density_c32_rows_launch(const void* pos4, const void* cand,
                                        float h2, float poly6, float mass,
                                        float fluid_density, void* density,
                                        void* hits, void* stream) {
-  using sph::Hits;
-  decltype(&sph::density_rows_kernel<32, 32, Hits::kBlock, false, 64>) kernel;
-  if (groups == 1 && rows == 64) {
-    kernel = sph::density_rows_kernel<32, 32, Hits::kBlock, false, 64>;
-  } else if (groups == 1 && rows == 32) {
-    kernel = sph::density_rows_kernel<32, 32, Hits::kBlock, false, 32>;
-  } else if (groups == 0 && rows == 64) {
-    kernel = sph::density_rows_kernel<32, 32, Hits::kNone, false, 64>;
-  } else if (groups == 0 && rows == 32) {
-    kernel = sph::density_rows_kernel<32, 32, Hits::kNone, false, 32>;
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return sph::launch_density_rows(kernel, pos4, cand, count, qblock, nq, cap, h2,
-                                  0.f, poly6, mass, fluid_density, density, hits,
-                                  nullptr, stream);
+  return launch_c32_rows<false>(pos4, cand, count, qblock, nq, cap, groups, rows, h2,
+                                poly6, mass, fluid_density, density, hits, stream);
+}
+
+// The identity mode's entry points (fused_density_nl and
+// fused_density_asm at r2_mxu=True), as the two above (``pos4`` centred
+// on the domain).
+extern "C" int density_c32_mxu_launch(const void* pos4, const void* cand,
+                                      const void* count, const void* qblock,
+                                      int nq, int cap, int groups, int hit_sub,
+                                      float h2, float poly6, float mass,
+                                      float fluid_density, void* density,
+                                      void* hits, void* stream) {
+  return launch_c32<true>(pos4, cand, count, qblock, nq, cap, groups, hit_sub, h2,
+                          poly6, mass, fluid_density, density, hits, stream);
+}
+
+extern "C" int density_c32_rows_mxu_launch(const void* pos4, const void* cand,
+                                           const void* count, const void* qblock,
+                                           int nq, int cap, int groups, int rows,
+                                           float h2, float poly6, float mass,
+                                           float fluid_density, void* density,
+                                           void* hits, void* stream) {
+  return launch_c32_rows<true>(pos4, cand, count, qblock, nq, cap, groups, rows, h2,
+                               poly6, mass, fluid_density, density, hits, stream);
 }

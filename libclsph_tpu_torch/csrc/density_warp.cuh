@@ -61,6 +61,15 @@
 // r^2 is rounded as (dx*dx + dy*dy) + dz*dz without FMA contraction
 // (sph::pair_r2), so the counts equal the plain PyTorch version's
 // exactly.
+//
+// kMxu (the identity mode, sph_pair.cuh; not with the gate, which JAX
+// runs in the direct form only) takes r^2 by sph::pair_r2_id: each lane
+// forms its queries' -2q and |q|^2 once a row, and each candidate's
+// |c|^2 once a tile beside w_j, into a shared array of its own; a
+// panel's reach grows by sph::kIdErr * (|q|^2 + |c|^2) over the
+// subgroup's box and the run's (box_norm2; the run's bound rides in its
+// box's spare w), so a culled panel still holds no pair whose identity
+// r^2 is below h^2 (h2_dil with tile counts).
 
 #pragma once
 
@@ -108,7 +117,8 @@ __device__ __forceinline__ int next_flagged(const int* mask_row, int t, int nt) 
   return nt;
 }
 
-template <int kSub, int HIT_SUB, Hits kHits, bool kGate = false, int kRows = kBlock>
+template <int kSub, int HIT_SUB, Hits kHits, bool kGate = false, int kRows = kBlock,
+          bool kMxu = false>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
 density_rows_kernel(const float4* __restrict__ pos4,
                     const int* __restrict__ cand, const int* __restrict__ count,
@@ -134,8 +144,11 @@ density_rows_kernel(const float4* __restrict__ pos4,
   static_assert(kRows == kBlock || ((kRows == 32 || kRows == 64) && !kGate &&
                                     (kAny || kHits == Hits::kNone)),
                 "finer query blocks: 32 or 64 rows, block counts or none");
+  static_assert(!(kGate && kMxu), "the gate runs the direct form");
   __shared__ float4 stage[kWarps][2][kBlock];
   __shared__ float4 run_box[kWarps][kBlock / kRun][2];  // lo, hi of each run
+  // kMxu: |c|^2 of each staged candidate, beside stage
+  __shared__ float cnorm[kMxu ? kWarps : 1][2][kMxu ? kBlock : 1];
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int b = blockIdx.x * kWarps + w;
@@ -143,6 +156,7 @@ density_rows_kernel(const float4* __restrict__ pos4,
   const long long qb = qblock ? qblock[b] : b;
   const float4* qrow = pos4 + qb * kRows + lane;
   float qx[kQ], qy[kQ], qz[kQ], sum[kQ];
+  IdQuery idq[kQ];  // kMxu
   unsigned cnt[kQ], dil[kQ];
   int mine[kQ];  // lane c keeps column c of the tile's counts
   float3 qlo, qhi;  // the box of subgroup lane % 4
@@ -156,6 +170,7 @@ density_rows_kernel(const float4* __restrict__ pos4,
     qx[g] = q.x;
     qy[g] = q.y;
     qz[g] = q.z;
+    if constexpr (kMxu) idq[g] = id_query(q.x, q.y, q.z);
     sum[g] = 0.f;
     cnt[g] = 0u;
     dil[g] = 0u;
@@ -171,6 +186,7 @@ density_rows_kernel(const float4* __restrict__ pos4,
   // a (subgroup, run) panel whose boxes lie this far apart holds no pair
   // with r^2 below h^2 (nor h2_dil with tile counts)
   const float reach2 = (kTiles ? fmaxf(h2, h2_dil) : h2) * kBoxMargin;
+  const float qnorm = kMxu ? box_norm2(qlo, qhi) : 0.f;  // subgroup lane % 4's bound
   const int n = count[b];
   const int* row = cand + (long long)b * cap;
   const long long ncol = kAny ? cap : (long long)kRuns * cap;
@@ -184,18 +200,22 @@ density_rows_kernel(const float4* __restrict__ pos4,
   // without the gate).
   auto sum_tile = [&](float4* cur, int k0, int t, unsigned gate) {
     const int ns = min(kTile, n - k0);
+    float* cn = nullptr;
+    if constexpr (kMxu) cn = cnorm[w][cur == stage[w][0] ? 0 : 1];
 #pragma unroll
     for (int m = 0; m < kStagedPerLane; ++m) {
-      // the lane's own copies: w_j = poly6 * real_j, and the box of the
-      // run of 8 each lies in (the boxes of runs past the live slots are
-      // never read)
+      // the lane's own copies: w_j = poly6 * real_j (and |c|^2), and the
+      // box of the run of 8 each lies in (the boxes of runs past the live
+      // slots are never read)
       const int p = m * 32 + lane;
       const float4 c = cur[p];
       if (p < ns * kSub) cur[p].w = poly6 * c.w;
+      if constexpr (kMxu) cn[p] = norm2(c.x, c.y, c.z);
       float3 lo = make_float3(c.x, c.y, c.z), hi = lo;
       box_reduce<kRun>(lo, hi);
       if ((lane & (kRun - 1)) == 0) {
-        run_box[w][p / kRun][0] = make_float4(lo.x, lo.y, lo.z, 0.f);
+        run_box[w][p / kRun][0] =
+            make_float4(lo.x, lo.y, lo.z, kMxu ? box_norm2(lo, hi) : 0.f);
         run_box[w][p / kRun][1] = make_float4(hi.x, hi.y, hi.z, 0.f);
       }
     }
@@ -207,8 +227,10 @@ density_rows_kernel(const float4* __restrict__ pos4,
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = half * 8 + (lane >> 2);
-      live[half] = __ballot_sync(
-          0xffffffffu, box_gap2(qlo, qhi, run_box[w][r][0], run_box[w][r][1]) < reach2);
+      const float4 rlo = run_box[w][r][0];
+      const float reach = kMxu ? reach2 + kIdErr * (qnorm + rlo.w) : reach2;
+      live[half] = __ballot_sync(0xffffffffu,
+                                 box_gap2(qlo, qhi, rlo, run_box[w][r][1]) < reach);
       if (kGate) live[half] &= gate;
     }
 #pragma unroll 1
@@ -221,7 +243,8 @@ density_rows_kernel(const float4* __restrict__ pos4,
 #pragma unroll
         for (int p = 0; p < kRun; ++p) {
           const float4 c = cur[j * kRun + p];
-          const float r2 = pair_r2(qx[g], qy[g], qz[g], c.x, c.y, c.z);
+          const float r2 = kMxu ? pair_r2_id(idq[g], c.x, c.y, c.z, cn[j * kRun + p])
+                                : pair_r2(qx[g], qy[g], qz[g], c.x, c.y, c.z);
           const float e = r2 - h2;  // -(h^2 - r^2) exactly; negative iff r^2 < h^2
           const float tt = fmaxf(-e, 0.f);
           sum[g] = __fmaf_rn(c.w, (tt * tt) * tt, sum[g]);

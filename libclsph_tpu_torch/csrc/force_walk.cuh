@@ -3,8 +3,8 @@
 // against a round of kRound candidates staged in shared memory.
 //
 // A staged candidate is three float4: (x, y, z, id as int bits),
-// (vx, vy, vz, pm) and (mr, visc * mr, -, -), visc * mr formed once a
-// candidate. force_round runs the round in two phases: (a) each lane
+// (vx, vy, vz, pm) and (mr, visc * mr, |c|^2 in the identity mode, -),
+// visc * mr formed once a candidate. force_round runs the round in two phases: (a) each lane
 // tests its query against the staged candidates and shifts the sign bit
 // of r^2 - h^2 into a bitmask, a bit a candidate; (b) each lane walks its
 // own set bits in ascending candidate order (__clz, clear the bit) and
@@ -16,7 +16,11 @@
 // support (its box lies beyond h of the warp's queries), so the walk
 // adds the same pairs in the same order either way. Phase (a) alone is
 // round_hits, which the stream kernel's test mode (forces_stream.cu) runs
-// without phase (b).
+// without phase (b). With kMxu (the identity mode, sph_pair.cuh) both
+// phases take r^2 by pair_r2_id from the query's IdQuery and the staged
+// |c|^2 (the third float4's z; a dead candidate stages (0, 0, 0) with
+// |c|^2 = inf, so its r^2 is inf), the directions stay x_i - x_j, and
+// add_inside drops the pressure term of equal ids.
 
 #pragma once
 
@@ -32,10 +36,11 @@ constexpr int kWordRuns = 32 / kRun;      // culled runs a hit-mask word
 // (a) this lane's pairs inside the support: bit 31 - c % 32 of word
 // c / 32 of ``hit`` (the sign bit of r^2 - h^2, shifted in candidate by
 // candidate); returns their number.
-template <bool kCull>
+template <bool kCull, bool kMxu = false>
 __device__ __forceinline__ int round_hits(const ForceConsts& k, float4 qa,
                                           float4 (*st)[3], unsigned runs,
-                                          unsigned (&hit)[kRoundWords]) {
+                                          unsigned (&hit)[kRoundWords],
+                                          IdQuery idq = IdQuery{}) {
   int left = 0;
 #pragma unroll
   for (int m = 0; m < kRoundWords; ++m) {
@@ -46,8 +51,10 @@ __device__ __forceinline__ int round_hits(const ForceConsts& k, float4 qa,
         if ((runs >> (m * kWordRuns + r)) & 1u) {  // uniform across the warp
 #pragma unroll
           for (int c = 0; c < kRun; ++c) {
-            const float4 p = st[m * 32 + r * kRun + c][0];
-            const float r2 = pair_r2(qa.x, qa.y, qa.z, p.x, p.y, p.z);
+            const int e = m * 32 + r * kRun + c;
+            const float4 p = st[e][0];
+            const float r2 = kMxu ? pair_r2_id(idq, p.x, p.y, p.z, st[e][2].z)
+                                  : pair_r2(qa.x, qa.y, qa.z, p.x, p.y, p.z);
             bits = __funnelshift_l(__float_as_uint(r2 - k.h2), bits, 1);
           }
         } else {
@@ -58,7 +65,8 @@ __device__ __forceinline__ int round_hits(const ForceConsts& k, float4 qa,
 #pragma unroll
       for (int c = 0; c < 32; ++c) {
         const float4 p = st[m * 32 + c][0];
-        const float r2 = pair_r2(qa.x, qa.y, qa.z, p.x, p.y, p.z);
+        const float r2 = kMxu ? pair_r2_id(idq, p.x, p.y, p.z, st[m * 32 + c][2].z)
+                              : pair_r2(qa.x, qa.y, qa.z, p.x, p.y, p.z);
         bits = __funnelshift_l(__float_as_uint(r2 - k.h2), bits, 1);
       }
     }
@@ -68,12 +76,13 @@ __device__ __forceinline__ int round_hits(const ForceConsts& k, float4 qa,
   return left;
 }
 
-template <bool kCull>
+template <bool kCull, bool kMxu = false>
 __device__ __forceinline__ void force_round(const ForceConsts& k, float4 qa, float4 qv,
                                             int qi, float4 (*st)[3],
-                                            unsigned runs, ForceSums& s) {
+                                            unsigned runs, ForceSums& s,
+                                            IdQuery idq = IdQuery{}) {
   unsigned hit[kRoundWords];
-  int left = round_hits<kCull>(k, qa, st, runs, hit);
+  int left = round_hits<kCull, kMxu>(k, qa, st, runs, hit, idq);
 
   // (b) the terms of this lane's own hits, in ascending candidate order
   int base = 0;
@@ -93,10 +102,11 @@ __device__ __forceinline__ void force_round(const ForceConsts& k, float4 qa, flo
     const float dx = qa.x - p.x;
     const float dy = qa.y - p.y;
     const float dz = qa.z - p.z;
-    const float r2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                               __fmul_rn(dz, dz));
-    s.add_inside(k, qa, qv, qi, dx, dy, dz, r2, v.x, v.y, v.z, v.w, ms.x, ms.y,
-                 __float_as_int(p.w));
+    const float r2 = kMxu ? pair_r2_id(idq, p.x, p.y, p.z, ms.z)
+                          : __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                      __fmul_rn(dz, dz));
+    s.add_inside<kMxu>(k, qa, qv, qi, dx, dy, dz, r2, v.x, v.y, v.z, v.w, ms.x, ms.y,
+                       __float_as_int(p.w));
   }
 }
 

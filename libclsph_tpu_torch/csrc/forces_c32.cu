@@ -54,6 +54,15 @@
 // ascending order through sph::ForceSums::add_inside: the same pairs, in
 // the same order, with the same arithmetic as the earlier thread-a-query
 // form of this kernel, so the accelerations keep its bits.
+//
+// The identity mode (kMxu; forces_c32_mxu_launch and
+// forces_c32_rows_mxu_launch) replaces the same JAX kernels at
+// r2_mxu=True, fused_forces_asm included: r^2 by sph::pair_r2_id on the
+// centred pack (|c|^2 formed at staging, force_walk.cuh). The identity's
+// error can exceed the box test's 1e-4 margin, so a run's reach grows by
+// sph::kIdErr * (|q|^2 + |c|^2) over the subgroup's box and the run's
+// (box_norm2; the run's bound rides in its box's spare w): a run culled
+// then still holds no pair whose identity r^2 is below h^2.
 
 #include <math_constants.h>
 
@@ -84,20 +93,22 @@ __device__ __forceinline__ void write_accel(const sph::ForceSums& s,
 }
 
 // Rewrite a staged candidate from the f8 pack's (x y z vx, vy vz pm mr)
-// into the staged layout of force_walk.cuh; returns its position.
+// into the staged layout of force_walk.cuh (|c|^2 too with kMxu);
+// returns its position.
+template <bool kMxu>
 __device__ __forceinline__ float3 stage_layout(float4* c, int jid, float visc) {
   const float4 a = c[0];
   const float4 b = c[1];
   c[0] = make_float4(a.x, a.y, a.z, __int_as_float(jid));
   c[1] = make_float4(a.w, b.x, b.y, b.z);
-  c[2] = make_float4(b.w, visc * b.w, 0.f, 0.f);
+  c[2] = make_float4(b.w, visc * b.w, kMxu ? sph::norm2(a.x, a.y, a.z) : 0.f, 0.f);
   return make_float3(a.x, a.y, a.z);
 }
 
 // kRows queries a list (128, 64 or 32), one a thread; each thread stages
 // particle `lane` of kPer = 4 / (kRows / 32) slots of every tile: slots
 // k0 + g + m * kWarps, at stage[.][t + m * kRows].
-template <int kRows>
+template <int kRows, bool kMxu = false>
 __global__ void __launch_bounds__(kRows)
 forces_rows_c32_kernel(const float4* __restrict__ f8,
                        const float* __restrict__ density,
@@ -122,6 +133,8 @@ forces_rows_c32_kernel(const float4* __restrict__ f8,
   float3 qlo = make_float3(qa.x, qa.y, qa.z), qhi = qlo;  // the subgroup's box
   sph::box_reduce<32>(qlo, qhi);
   const float reach2 = k.h2 * sph::kBoxMargin;
+  const sph::IdQuery idq = kMxu ? sph::id_query(qa.x, qa.y, qa.z) : sph::IdQuery{};
+  const float qnorm = kMxu ? sph::box_norm2(qlo, qhi) : 0.f;  // the subgroup's bound
 
   // the slot ids are loaded a tile ahead of their copies
   int id0[kPer], id1[kPer];
@@ -168,11 +181,14 @@ forces_rows_c32_kernel(const float4* __restrict__ f8,
       const int p = t + m * kRows;  // particle `lane` of slot g + m * kWarps
       // a dead slot's runs get an empty box at infinity: always culled
       float3 lo = make_float3(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
-      if (k0 + g + m * kWarps < n) lo = stage_layout(cur[p], id0[m] * kSub + lane, k.visc);
+      if (k0 + g + m * kWarps < n) {
+        lo = stage_layout<kMxu>(cur[p], id0[m] * kSub + lane, k.visc);
+      }
       float3 hi = lo;
       sph::box_reduce<kRun>(lo, hi);
       if ((lane & (kRun - 1)) == 0) {
-        run_box[u & 1][p / kRun][0] = make_float4(lo.x, lo.y, lo.z, 0.f);
+        run_box[u & 1][p / kRun][0] =
+            make_float4(lo.x, lo.y, lo.z, kMxu ? sph::box_norm2(lo, hi) : 0.f);
         run_box[u & 1][p / kRun][1] = make_float4(hi.x, hi.y, hi.z, 0.f);
       }
     }
@@ -180,11 +196,13 @@ forces_rows_c32_kernel(const float4* __restrict__ f8,
     // bit r: run r of the tile may hold a pair of this subgroup inside
     // the support (lane l tests run l % 16)
     const int r = lane & (kTileRuns - 1);
+    const float4 rlo = run_box[u & 1][r][0];
+    const float reach = kMxu ? reach2 + sph::kIdErr * (qnorm + rlo.w) : reach2;
     const unsigned runs =
-        __ballot_sync(0xffffffffu, sph::box_gap2(qlo, qhi, run_box[u & 1][r][0],
-                                                 run_box[u & 1][r][1]) < reach2) &
+        __ballot_sync(0xffffffffu,
+                      sph::box_gap2(qlo, qhi, rlo, run_box[u & 1][r][1]) < reach) &
         ((1u << kTileRuns) - 1u);
-    if (runs) sph::force_round<true>(k, qa, qv, (int)i, cur, runs, s);
+    if (runs) sph::force_round<true, kMxu>(k, qa, qv, (int)i, cur, runs, s, idq);
 #pragma unroll
     for (int m = 0; m < kPer; ++m) {
       id0[m] = id1[m];
@@ -194,17 +212,37 @@ forces_rows_c32_kernel(const float4* __restrict__ f8,
   write_accel<kRows>(s, k, density, real, i, accel);
 }
 
-template <int kRows>
+template <int kRows, bool kMxu>
 int launch_rows(const void* f8, const void* density, const void* real,
                 const void* cand, const void* count, const void* qblock, int nq,
                 int cap, const sph::ForceConsts& k, void* accel, void* stream) {
   if (nq > 0) {
-    forces_rows_c32_kernel<kRows><<<nq, kRows, 0, (cudaStream_t)stream>>>(
+    forces_rows_c32_kernel<kRows, kMxu><<<nq, kRows, 0, (cudaStream_t)stream>>>(
         (const float4*)f8, (const float*)density, (const unsigned char*)real,
         (const int*)cand, (const int*)count, (const int*)qblock, cap, k,
         (float*)accel);
   }
   return (int)cudaGetLastError();
+}
+
+template <bool kMxu>
+int launch_any_rows(const void* f8, const void* density, const void* real,
+                    const void* cand, const void* count, const void* qblock, int nq,
+                    int cap, int rows, const sph::ForceConsts& k, void* accel,
+                    void* stream) {
+  if (rows == kBlock) {
+    return launch_rows<kBlock, kMxu>(f8, density, real, cand, count, qblock, nq, cap, k,
+                                     accel, stream);
+  }
+  if (rows == 64) {
+    return launch_rows<64, kMxu>(f8, density, real, cand, count, qblock, nq, cap, k,
+                                 accel, stream);
+  }
+  if (rows == 32) {
+    return launch_rows<32, kMxu>(f8, density, real, cand, count, qblock, nq, cap, k,
+                                 accel, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -220,8 +258,8 @@ extern "C" int forces_c32_launch(
     float gz, void* accel, void* stream) {
   const sph::ForceConsts k{h,  h2,           eps2,  spiky, visc, pgrad, lap7,
                            lap4, mu, st_threshold, sigma, gx,    gy,   gz};
-  return launch_rows<kBlock>(f8, density, real, cand, count, qblock, nq, cap, k,
-                             accel, stream);
+  return launch_any_rows<false>(f8, density, real, cand, count, qblock, nq, cap, kBlock,
+                              k, accel, stream);
 }
 
 // Plain C entry point of the finer query blocks: ``rows`` (32 or 64) is
@@ -236,13 +274,34 @@ extern "C" int forces_c32_rows_launch(
     float gz, void* accel, void* stream) {
   const sph::ForceConsts k{h,  h2,           eps2,  spiky, visc, pgrad, lap7,
                            lap4, mu, st_threshold, sigma, gx,    gy,   gz};
-  if (rows == 64) {
-    return launch_rows<64>(f8, density, real, cand, count, qblock, nq, cap, k, accel,
-                           stream);
-  }
-  if (rows == 32) {
-    return launch_rows<32>(f8, density, real, cand, count, qblock, nq, cap, k, accel,
-                           stream);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (rows == kBlock) return (int)cudaErrorInvalidValue;
+  return launch_any_rows<false>(f8, density, real, cand, count, qblock, nq, cap, rows,
+                              k, accel, stream);
+}
+
+// The identity mode's entry points, as the two above (``f8`` centred on
+// the domain).
+extern "C" int forces_c32_mxu_launch(
+    const void* f8, const void* density, const void* real, const void* cand,
+    const void* count, const void* qblock, int nq, int cap, float h,
+    float h2, float eps2, float spiky, float visc, float pgrad, float lap7,
+    float lap4, float mu, float st_threshold, float sigma, float gx, float gy,
+    float gz, void* accel, void* stream) {
+  const sph::ForceConsts k{h,  h2,           eps2,  spiky, visc, pgrad, lap7,
+                           lap4, mu, st_threshold, sigma, gx,    gy,   gz};
+  return launch_any_rows<true>(f8, density, real, cand, count, qblock, nq, cap, kBlock,
+                              k, accel, stream);
+}
+
+extern "C" int forces_c32_rows_mxu_launch(
+    const void* f8, const void* density, const void* real, const void* cand,
+    const void* count, const void* qblock, int nq, int cap, int rows, float h,
+    float h2, float eps2, float spiky, float visc, float pgrad, float lap7,
+    float lap4, float mu, float st_threshold, float sigma, float gx, float gy,
+    float gz, void* accel, void* stream) {
+  const sph::ForceConsts k{h,  h2,           eps2,  spiky, visc, pgrad, lap7,
+                           lap4, mu, st_threshold, sigma, gx,    gy,   gz};
+  if (rows == kBlock) return (int)cudaErrorInvalidValue;
+  return launch_any_rows<true>(f8, density, real, cand, count, qblock, nq, cap, rows,
+                              k, accel, stream);
 }

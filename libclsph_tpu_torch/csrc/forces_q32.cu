@@ -65,6 +65,15 @@
 // Self-exclusion compares int32 particle ids (cand * kSub + lane), so
 // there is no float-id range limit, and a table of exchanged ids needs
 // no second kernel.
+//
+// The identity mode (kMxu; forces_q32_mxu_launch) replaces the same JAX
+// kernels at r2_mxu=True: r^2 by sph::pair_r2_id on the centred pack,
+// the query's -2q and |q|^2 formed once a thread and each candidate's
+// |c|^2 once at staging (in the staged layout's spare slot, so phase (a)
+// reads one more shared word a candidate), pressure dropped between
+// equal ids (force_walk.cuh). In source a candidate's test is then 7
+// roundings and a clamp against the direct form's 8, and one more shared
+// load.
 
 #include <math_constants.h>
 
@@ -77,7 +86,7 @@ using sph::kRound;  // candidates a warp stages per round
 constexpr int kWarps = kBlock / 32;
 constexpr int kWords = kRound / 32;   // staging passes a round
 
-template <int kSub>
+template <int kSub, bool kMxu = false>
 __global__ void __launch_bounds__(kBlock)
 forces_q32_kernel(const float4* __restrict__ f8,
                   const float* __restrict__ density,
@@ -99,6 +108,7 @@ forces_q32_kernel(const float4* __restrict__ f8,
   const int n = count[row];
   const int* list = cand + row * cap;
   float4 (*const st)[3] = stage[g];
+  const sph::IdQuery idq = kMxu ? sph::id_query(qa.x, qa.y, qa.z) : sph::IdQuery{};
 
   sph::ForceSums s;
   for (int k0 = 0; k0 < n; k0 += kRound / kSub) {
@@ -107,24 +117,26 @@ forces_q32_kernel(const float4* __restrict__ f8,
     for (int m = 0; m < kWords; ++m) {
       const int c = m * 32 + lane;
       const int slot = k0 + c / kSub;
-      // a dead candidate sits at infinity: r^2 = inf fails the test
-      float4 p = make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, __int_as_float(-1));
+      // a dead candidate sits at infinity: r^2 = inf fails the test (in
+      // the identity mode at the origin with |c|^2 = inf)
+      const float dead = kMxu ? 0.f : CUDART_INF_F;
+      float4 p = make_float4(dead, dead, dead, __int_as_float(-1));
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 ms = v;
+      float4 ms = kMxu ? make_float4(0.f, 0.f, CUDART_INF_F, 0.f) : v;
       if (slot < n) {
         const long long jid = (long long)list[slot] * kSub + (c % kSub);
         const float4 a = f8[2 * jid];
         const float4 b = f8[2 * jid + 1];
         p = make_float4(a.x, a.y, a.z, __int_as_float((int)jid));
         v = make_float4(a.w, b.x, b.y, b.z);
-        ms = make_float4(b.w, k.visc * b.w, 0.f, 0.f);
+        ms = make_float4(b.w, k.visc * b.w, kMxu ? sph::norm2(a.x, a.y, a.z) : 0.f, 0.f);
       }
       st[c][0] = p;
       st[c][1] = v;
       st[c][2] = ms;
     }
     __syncwarp();
-    sph::force_round<false>(k, qa, qv, (int)i, st, 0u, s);
+    sph::force_round<false, kMxu>(k, qa, qv, (int)i, st, 0u, s, idq);
   }
 
   float a[3] = {0.f, 0.f, 0.f};
@@ -133,6 +145,33 @@ forces_q32_kernel(const float4* __restrict__ f8,
   accel[3 * o] = a[0];
   accel[3 * o + 1] = a[1];
   accel[3 * o + 2] = a[2];
+}
+
+}  // namespace
+
+namespace {
+
+template <bool kMxu>
+int launch_q32(const void* f8, const void* density, const void* real, const void* cand,
+               const void* count, const void* qblock, int nq, int cap, int sub,
+               const sph::ForceConsts& k, void* accel, void* stream) {
+  decltype(&forces_q32_kernel<8, kMxu>) kernel;
+  if (sub == 8) {
+    kernel = forces_q32_kernel<8, kMxu>;
+  } else if (sub == 16) {
+    kernel = forces_q32_kernel<16, kMxu>;
+  } else if (sub == 32) {
+    kernel = forces_q32_kernel<32, kMxu>;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (nq > 0) {
+    kernel<<<nq, kBlock, 0, (cudaStream_t)stream>>>(
+        (const float4*)f8, (const float*)density, (const unsigned char*)real,
+        (const int*)cand, (const int*)count, (const int*)qblock, cap, k,
+        (float*)accel);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -148,23 +187,22 @@ extern "C" int forces_q32_launch(
     float h2, float eps2, float spiky, float visc, float pgrad, float lap7,
     float lap4, float mu, float st_threshold, float sigma, float gx, float gy,
     float gz, void* accel, void* stream) {
-  decltype(&forces_q32_kernel<8>) kernel;
-  if (sub == 8) {
-    kernel = forces_q32_kernel<8>;
-  } else if (sub == 16) {
-    kernel = forces_q32_kernel<16>;
-  } else if (sub == 32) {
-    kernel = forces_q32_kernel<32>;
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (nq > 0) {
-    const sph::ForceConsts k{h,  h2,           eps2,  spiky, visc, pgrad, lap7,
-                             lap4, mu, st_threshold, sigma, gx,    gy,   gz};
-    kernel<<<nq, kBlock, 0, (cudaStream_t)stream>>>(
-        (const float4*)f8, (const float*)density, (const unsigned char*)real,
-        (const int*)cand, (const int*)count, (const int*)qblock, cap, k,
-        (float*)accel);
-  }
-  return (int)cudaGetLastError();
+  const sph::ForceConsts k{h,  h2,           eps2,  spiky, visc, pgrad, lap7,
+                           lap4, mu, st_threshold, sigma, gx,    gy,   gz};
+  return launch_q32<false>(f8, density, real, cand, count, qblock, nq, cap, sub, k,
+                           accel, stream);
+}
+
+// The identity mode's entry point, as forces_q32_launch (``f8`` centred
+// on the domain).
+extern "C" int forces_q32_mxu_launch(
+    const void* f8, const void* density, const void* real, const void* cand,
+    const void* count, const void* qblock, int nq, int cap, int sub, float h,
+    float h2, float eps2, float spiky, float visc, float pgrad, float lap7,
+    float lap4, float mu, float st_threshold, float sigma, float gx, float gy,
+    float gz, void* accel, void* stream) {
+  const sph::ForceConsts k{h,  h2,           eps2,  spiky, visc, pgrad, lap7,
+                           lap4, mu, st_threshold, sigma, gx,    gy,   gz};
+  return launch_q32<true>(f8, density, real, cand, count, qblock, nq, cap, sub, k,
+                          accel, stream);
 }

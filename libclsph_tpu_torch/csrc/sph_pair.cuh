@@ -12,6 +12,19 @@
 // them rounds alike, whatever the compiler would contract where it
 // inlines them (left to it, |N|^2 came out as fma(nx, nx, ny*ny) in one
 // kernel and fma(ny, ny, nx*nx) in another).
+//
+// The identity mode (StepConfig.pair_r2 = "mxu"; the JAX kernels'
+// r2_mxu, neighbor.py _r2_mxu) takes r^2 = |q|^2 + |c|^2 - 2 q.c on
+// coordinates centred on the domain, as pair_r2_id: the K = 5 dot
+// [-2q, |q|^2, 1] . [c, 1, |c|^2] summed term by term in that order,
+// each product and sum rounded once, clamped at 0 by fmaxf (a NaN, from
+// two rows at the 1e32 sentinel, becomes 0). The plain PyTorch versions
+// (ops/kernels/density.py pair_r2_identity) take the same steps, so the
+// mode's decisions equal theirs too. Against the exact r^2 its error is
+// below 12 u (|q|^2 + |c|^2), u = 2^-24: 3 u from the two norms, u from
+// the three products, 8 u from the four sums (each partial is below
+// 2 (|q|^2 + |c|^2)). The box culls add more than twice that to their
+// reach: kIdErr (|q|^2 + |c|^2), kIdErr = 2^-19 (stage_cull.cuh).
 
 #pragma once
 
@@ -33,6 +46,37 @@ __device__ __forceinline__ float pair_r2(float ax, float ay, float az,
   const float dz = az - bz;
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                    __fmul_rn(dz, dz));
+}
+
+// |p|^2 as (x*x + y*y) + z*z, each product and sum rounded once.
+__device__ __forceinline__ float norm2(float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+}
+
+// A query of the identity mode: -2q (exact) and |q|^2.
+struct IdQuery {
+  float mx = 0.f, my = 0.f, mz = 0.f, n = 0.f;
+};
+
+__device__ __forceinline__ IdQuery id_query(float x, float y, float z) {
+  IdQuery q;
+  q.mx = __fmul_rn(-2.f, x);
+  q.my = __fmul_rn(-2.f, y);
+  q.mz = __fmul_rn(-2.f, z);
+  q.n = norm2(x, y, z);
+  return q;
+}
+
+// r^2 of the identity mode against candidate (cx, cy, cz) with
+// cn = norm2(cx, cy, cz).
+__device__ __forceinline__ float pair_r2_id(const IdQuery& q, float cx, float cy,
+                                            float cz, float cn) {
+  float s = __fmul_rn(q.mx, cx);
+  s = __fadd_rn(s, __fmul_rn(q.my, cy));
+  s = __fadd_rn(s, __fmul_rn(q.mz, cz));
+  s = __fadd_rn(s, q.n);
+  s = __fadd_rn(s, cn);
+  return fmaxf(s, 0.f);
 }
 
 // The MUFU reciprocal square root of a normal float, the value rsqrtf
@@ -81,7 +125,11 @@ struct ForceSums {
   // The terms of one pair inside the support (r2 < h^2): d = x_i - x_j,
   // the candidate's velocity (cvx, cvy, cvz), pm, mr and vmr = visc * mr
   // (the same product wherever it is formed, so forces_q32's staged
-  // factor and add()'s give the same bits).
+  // factor and add()'s give the same bits). kMxu: r2 is the identity
+  // mode's, and a pair of equal ids adds no pressure term (its r2 need
+  // not be 0 there, so the r -> 0 guard would not zero it; neighbor_nl.py
+  // _forces_pair_q32's gid test).
+  template <bool kMxu = false>
   __device__ __forceinline__ void add_inside(const ForceConsts& k, float4 qa,
                                              float4 qb, int qi, float dx,
                                              float dy, float dz, float r2,
@@ -94,7 +142,8 @@ struct ForceSums {
     const float tt = fmaxf(k.h2 - r2, 0.f);
     const float bv = vmr * hr;
     const float u = mr * tt;
-    const float pc = pm + qb.z;
+    float pc = pm + qb.z;
+    if (kMxu && cj == qi) pc = 0.f;
     const float as = pc * ((k.spiky * (hr * hr)) * inv_r);
     const float gg = (k.pgrad * u) * tt;
     px = __fmaf_rn(as, dx, px);

@@ -15,6 +15,10 @@ constexpr int kRun = 8;  // candidates of a culled run (a panel is subgroup x ru
 // A box gap this far below h^2 still holds no pair with r^2 < h^2: the
 // margin covers the rounding of r^2 (sph::pair_r2) and of the gap.
 constexpr float kBoxMargin = 1.0001f;
+// In the identity mode the reach grows by kIdErr * (|q|^2 + |c|^2) over
+// the two boxes (box_norm2), a bound of the identity's rounding error
+// (sph_pair.cuh): 2^-19.
+constexpr float kIdErr = 1.9073486328125e-6f;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -52,6 +56,13 @@ __device__ __forceinline__ float box_gap2(float3 alo, float3 ahi, float4 blo,
   const float gy = fmaxf(fmaxf(alo.y - bhi.y, blo.y - ahi.y), 0.f);
   const float gz = fmaxf(fmaxf(alo.z - bhi.z, blo.z - ahi.z), 0.f);
   return gx * gx + gy * gy + gz * gz;
+}
+
+// A bound of |p|^2 over the box [lo, hi]: the sum over the axes of the
+// larger of lo^2 and hi^2 (inf for an empty box at infinity).
+__device__ __forceinline__ float box_norm2(float3 lo, float3 hi) {
+  return fmaxf(lo.x * lo.x, hi.x * hi.x) + fmaxf(lo.y * lo.y, hi.y * hi.y) +
+         fmaxf(lo.z * lo.z, hi.z * hi.z);
 }
 
 }  // namespace sph

@@ -49,8 +49,15 @@ JAX package (``StepConfig.neighbor_impl``):
     candidate blocks, no refine and no compaction
     (:mod:`ops.kernels.blocks`), rebuilt every substep;
 
+  On the nl and asm variants ``pair_r2="mxu"`` takes r^2 in every
+  density and force kernel by the identity |q|^2 + |c|^2 - 2 q.c (the
+  JAX kernels' ``r2_mxu``) on packs centred on the domain
+  (:func:`domain_center`); the gated reuse density keeps the direct form
+  on those packs, as in JAX;
 * ``tiles``: the same block sums as dense pair tiles in plain PyTorch
-  (:func:`ops.tiles.density_pass`, :func:`ops.tiles.force_pass`);
+  (:func:`ops.tiles.density_pass`, :func:`ops.tiles.force_pass`), r^2
+  taken directly or, with ``tile_mode="mxu"``, by the identity centred on
+  each query block;
 * ``exact``: the reference's 27-cell gather over the whole state, sorted
   by :func:`ops.grid.sort_by_cell` every substep (no block padding).
 
@@ -104,6 +111,8 @@ BLOCK = 128  # rows of a whole query block (GROUPS subgroups of 32)
 GROUPS = 4  # 32-row query subgroups per whole query block
 QUERY_ROWS = (32, 64, 128)  # nl_query_rows
 REFINE_MODES = ("exact", "aabb")
+PAIR_R2 = ("vpu", "mxu")  # pair_r2: direct r^2, or by the identity
+TILE_MODES = ("direct", "mxu")  # tile_mode of the tiles impl
 IMPLS = ("pallas", "tiles", "exact")
 VARIANTS = ("nl", "asm", "row", "fine", "asym")
 BLOCK_VARIANTS = ("row", "fine", "asym")  # sums over whole candidate blocks
@@ -161,6 +170,13 @@ class StepConfig:
     cand_slack: float = 0.25  # refine dilation for reuse, fraction of h
     adaptive_dt: bool = True
     substeps_per_dispatch: int = 64  # substeps per frame-loop call
+    # the tiles impl's r^2: "direct", or "mxu" by the identity centred on
+    # each query block's first particle (tiles.py _pair_r2_mxu)
+    tile_mode: str = "direct"
+    # the nl and asm kernels' r^2: "vpu" (direct), or "mxu" by the
+    # identity on packs centred on the domain (step.py:147-153); ignored
+    # elsewhere, as in the JAX package
+    pair_r2: str = "vpu"
 
     def __post_init__(self):
         if self.neighbor_impl not in IMPLS:
@@ -170,7 +186,8 @@ class StepConfig:
             raise ValueError(f"StepConfig.pallas_variant={self.pallas_variant!r}: "
                              f"use one of {VARIANTS}")
         for name, allowed in (("block_size", BLOCK_SIZES), ("nl_query_rows", QUERY_ROWS),
-                              ("refine_mode", REFINE_MODES), ("force_query_rows", (32, 128))):
+                              ("refine_mode", REFINE_MODES), ("force_query_rows", (32, 128)),
+                              ("pair_r2", PAIR_R2), ("tile_mode", TILE_MODES)):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"StepConfig.{name}={getattr(self, name)!r}: use one of "
                                  f"{allowed}")
@@ -264,6 +281,11 @@ class StepConfig:
         the 16-granular tables with candidate reuse and no tier 2."""
         return (self.density_gate and self.density_sub16 and self.cand_interval > 1
                 and not self.two_tier)
+
+    @property
+    def r2_mxu(self) -> bool:
+        """Whether the nl and asm kernels take r^2 by the identity."""
+        return self.pair_r2 == "mxu"
 
     def hit_width(self, groups: int) -> int:
         """Particles per force-list entry for hit rows of ``groups`` lists
@@ -401,36 +423,46 @@ def _groups(config: StepConfig, tier: int) -> int:
     return 1
 
 
+def domain_center(position: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
+    """The identity mode's centre, 0.5 (min + max) over the real rows,
+    padding rows standing in as row 0 (step.py:380-385); (3,) float32,
+    left on the device."""
+    real_pos = torch.where(real[:, None], position, position[0])
+    return 0.5 * (torch.amin(real_pos, dim=0) + torch.amax(real_pos, dim=0))
+
+
 def _density_pass(pos4, cand, count, params, config, groups, qblock=None):
     """The density kernel for ``groups`` hit rows a list (0: densities
     only), with hits at the force width of those rows, over lists of
-    ``config.q_rows`` queries."""
+    ``config.q_rows`` queries, in ``config``'s r^2 mode."""
     cand, count = cand.contiguous(), count.contiguous()
     hit_sub = config.hit_width(groups)
     if config.density_sub16:
         return kernels.density_c16(pos4, cand, count, params, hit_sub=hit_sub,
-                                   qblock=qblock)
+                                   qblock=qblock, r2_mxu=config.r2_mxu)
     return kernels.density_c32(pos4, cand, count, params, groups=groups,
-                               hit_sub=hit_sub, qblock=qblock, rows=config.q_rows)
+                               hit_sub=hit_sub, qblock=qblock, rows=config.q_rows,
+                               r2_mxu=config.r2_mxu)
 
 
 def _force_pass(f8, density, real, cand_f, count_f, params, config, groups, qblock=None):
     fn = {8: kernels.forces_q32_c8, 16: kernels.forces_q32_c16}.get(
         config.hit_width(groups))
+    mxu = config.r2_mxu
     if fn is not None:
-        return fn(f8, density, real, cand_f, count_f, params, qblock=qblock)
+        return fn(f8, density, real, cand_f, count_f, params, qblock=qblock, r2_mxu=mxu)
     if groups == GROUPS:
         return kernels.forces_q32_c32(f8, density, real, cand_f, count_f, params,
-                                      qblock=qblock)
+                                      qblock=qblock, r2_mxu=mxu)
     return kernels.forces_q128_c32(f8, density, real, cand_f, count_f, params,
-                                   qblock=qblock, rows=config.q_rows)
+                                   qblock=qblock, rows=config.q_rows, r2_mxu=mxu)
 
 
-def _pressure_and_pack(state, real, density, params):
+def _pressure_and_pack(state, real, density, params, center=None):
     pressure = interactions_ops.tait_pressure(density, params)
     pressure = torch.where(real, pressure, 0.0)
     f8 = kernels.force_pack(state.position, state.velocity, density, pressure, real,
-                            params.particle_mass)
+                            params.particle_mass, center=center)
     return pressure, f8
 
 
@@ -444,6 +476,8 @@ def _density_forces_nl(state: ParticleState, real: torch.Tensor,
     per-tile hit counts at (1 + cand_slack) h, packed into the mask that
     the carried tables hold as a fourth leaf, and a reuse substep runs
     the gated density over the carried table and mask (step.py:596-612).
+    With ``config.r2_mxu`` both packs are centred on :func:`domain_center`
+    (the refine reads the positions as they are).
     Returns (density, pressure, accel, flags, cand_out)."""
     gate = config.gate_on
     mask = None
@@ -461,11 +495,12 @@ def _density_forces_nl(state: ParticleState, real: torch.Tensor,
         d2max = torch.amax(torch.where(real, d2, 0.0))
         stale = 4.0 * d2max > (config.cand_slack * params.h) ** 2
         flags = stale.to(torch.int32) * FLAG_CAND_STALE
-    pos4 = kernels.pos_pack(state.position, real)
+    center = domain_center(state.position, real) if config.r2_mxu else None
+    pos4 = kernels.pos_pack(state.position, real, center)
     if config.two_tier:
         # the carried table is the one built here, at the tier-2 width
         density, pressure, accel, flags = two_tier_passes(
-            state, real, pos4, params, config, cand_sub, count_sub, flags
+            state, real, pos4, params, config, cand_sub, count_sub, flags, center=center
         )
         cand_out = (cand_sub, count_sub, pos_anchor) if config.cand_interval > 1 else None
         return density, pressure, accel, flags, cand_out
@@ -477,7 +512,7 @@ def _density_forces_nl(state: ParticleState, real: torch.Tensor,
     elif gate:
         density, hits, tiles = kernels.density_c16(
             pos4, cand_sub.contiguous(), count_sub.contiguous(), params, hit_sub=16,
-            hit2_h=params.h * (1.0 + config.cand_slack))
+            hit2_h=params.h * (1.0 + config.cand_slack), r2_mxu=config.r2_mxu)
         mask = kernels.pack_tile_nibbles(tiles)
     else:
         density, hits = _density_pass(pos4, cand_sub, count_sub, params, config, groups)
@@ -489,13 +524,13 @@ def _density_forces_nl(state: ParticleState, real: torch.Tensor,
         flags = flags + hit_flags
     else:  # the whole-block pass over the full refined lists (step.py:684-689)
         cand_f, count_f = cand_sub.contiguous(), count_sub.contiguous()
-    pressure, f8 = _pressure_and_pack(state, real, density, params)
+    pressure, f8 = _pressure_and_pack(state, real, density, params, center)
     accel = _force_pass(f8, density, real, cand_f, count_f, params, config, groups)
     return density, pressure, accel, flags, cand_out
 
 
 def two_tier_passes(state, real, pos4, params, config, cand_full, count_sub, flags,
-                    qblock=None, force_fields=None):
+                    qblock=None, force_fields=None, center=None):
     """Two-tier density/force passes (step.py:738-1025). ``cand_full``
     (nb, c2) is the refined table at the tier-2 width; rows whose count
     exceeds c1 = max_candidates_sub go to nb2 = ceil(nb / tier2_frac)
@@ -510,7 +545,8 @@ def two_tier_passes(state, real, pos4, params, config, cand_full, count_sub, fla
     ``qblock`` (nb,) places its query blocks in ``pos4`` (tier 2 takes
     ``qblock[idx]``), and ``force_fields(density)`` returns the force
     kernels' (pressure, f8, density, real) over that table (default: the
-    local pack). Returns (density, pressure, accel, flags)."""
+    local pack, centred on ``center`` where one is given, as ``pos4``
+    is). Returns (density, pressure, accel, flags)."""
     nb = cand_full.shape[0]
     c1 = config.max_candidates_sub
     nb2 = -(-nb // config.tier2_frac)
@@ -523,7 +559,8 @@ def two_tier_passes(state, real, pos4, params, config, cand_full, count_sub, fla
     q2 = idx if qblock is None else qblock[idx.long()].contiguous()
     if force_fields is None:
         def force_fields(density):
-            return _pressure_and_pack(state, real, density, params) + (density, real)
+            pressure, f8 = _pressure_and_pack(state, real, density, params, center)
+            return pressure, f8, density, real
 
     rows = config.q_rows  # = block_size: two-tier routing runs at q_rep 1
 
@@ -590,11 +627,11 @@ def _density_forces_tiles(state: ParticleState, real: torch.Tensor,
     bmin, bmax = tiles_ops.split_block_bounds(blocked.position, blocked.real)
     cand, count, overflow = tiles_ops.candidate_blocks_auto(
         bmin, bmax, params.h, config.max_candidates)
-    density = tiles_ops.density_pass(blocked, cand, count, params)
+    density = tiles_ops.density_pass(blocked, cand, count, params, mode=config.tile_mode)
     pressure = torch.where(real, interactions_ops.tait_pressure(density, params), 0.0)
     blocked = blocked._replace(density=density.reshape(blocked.real.shape),
                                pressure=pressure.reshape(blocked.real.shape))
-    accel = tiles_ops.force_pass(blocked, cand, count, params)
+    accel = tiles_ops.force_pass(blocked, cand, count, params, mode=config.tile_mode)
     return density, pressure, accel, overflow.to(torch.int32) * FLAG_CAPACITY
 
 

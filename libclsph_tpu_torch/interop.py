@@ -38,10 +38,6 @@ from .ops.collisions import DeviceScene
 __all__ = ["to_numpy", "state_from_arrays", "state_to_numpy", "scene_from_arrays",
            "params_from", "step_config_from_jax", "split_for_mesh"]
 
-# JAX StepConfig fields the port has no knob for, with the value its one
-# path implies
-_JAX_ONLY = {"tile_mode": "direct", "pair_r2": "vpu"}
-
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
@@ -79,11 +75,7 @@ def params_from(params) -> SimulationParameters:
 
 def step_config_from_jax(cfg) -> StepConfig:
     """The JAX package's ``StepConfig`` (any object with its field names)
-    -> the port's, over the fields both have. The port's refusals apply;
-    a JAX-only knob set off the one value the port implements raises."""
-    for name, value in _JAX_ONLY.items():
-        if getattr(cfg, name, value) != value:
-            raise ValueError(f"StepConfig.{name}={getattr(cfg, name)!r} has no port")
+    -> the port's, over the fields both have. The port's refusals apply."""
     return StepConfig(**{
         f.name: getattr(cfg, f.name)
         for f in dataclasses.fields(StepConfig) if hasattr(cfg, f.name)

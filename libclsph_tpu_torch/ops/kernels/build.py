@@ -50,6 +50,13 @@ SIGNATURES = {
     "gather_stream_launch": [_P] * 3 + [_I] * 5 + [_F] + [_P] * 2,
     "forces_stream_launch": [_P] * 5 + [_I] * 3 + [_F] * 14 + [_P, _P],
 }
+# each identity-mode twin (StepConfig.pair_r2 = "mxu") takes its direct
+# entry point's arguments
+SIGNATURES.update({
+    name.replace("_launch", "_mxu_launch"): SIGNATURES[name]
+    for name in ("density_c16_launch", "density_c32_launch", "density_c32_rows_launch",
+                 "forces_q32_launch", "forces_c32_launch", "forces_c32_rows_launch")
+})
 
 _lock = threading.Lock()
 _library = None

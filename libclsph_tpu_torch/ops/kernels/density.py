@@ -42,6 +42,14 @@ query of the block; at ``groups=0`` no counts ((0, cap) int32). With
 ``hit2_h`` between subgroup g and tile t (slots 8t .. 8t+7). Only
 ``hits > 0`` and ``tiles > 0`` are read downstream; the counts are the
 JAX kernel's.
+
+Every kernel but the gated one also has the JAX kernels' ``r2_mxu`` mode
+(``StepConfig.pair_r2 = "mxu"``): r^2 by the identity |q|^2 + |c|^2 -
+2 q.c on coordinates centred on the domain (``pos_pack``'s ``center``),
+in the one order of :func:`pair_r2_identity`, clamped at 0. Its
+rounding (about |p|^2 * 6e-8) moves support decisions near h, so the
+mode has results of its own; the kernel and its plain version agree bit
+for bit in it as in the direct form.
 """
 
 from __future__ import annotations
@@ -62,9 +70,35 @@ FINE_ROWS = (32, 64)  # the queries a list serves on finer query blocks
 CHUNK_PAIRS = 1 << 24
 
 
-def pos_pack(position: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
-    """(np, 4) float32 [x, y, z, real]."""
+def pos_pack(position: torch.Tensor, real: torch.Tensor, center=None) -> torch.Tensor:
+    """(np, 4) float32 [x, y, z, real], the positions less ``center``
+    ((3,) float32) where one is given (the identity mode's packs,
+    neighbor_nl.py make_query_planes)."""
+    if center is not None:
+        position = position - center
     return torch.cat([position, real.to(torch.float32)[:, None]], dim=1).contiguous()
+
+
+def norm2(p: torch.Tensor) -> torch.Tensor:
+    """|p|^2 over the last axis of (..., 3), as (x*x + y*y) + z*z."""
+    x, y, z = p.unbind(-1)
+    return (x * x + y * y) + z * z
+
+
+def pair_r2_identity(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """r^2 of the JAX kernels' ``r2_mxu`` mode (neighbor.py ``_r2_mxu``)
+    for queries ``q`` and candidates ``c`` ((..., 3), broadcast), in the
+    one order the CUDA kernels take (sph_pair.cuh ``pair_r2_id``): the
+    K = 5 dot [-2q, |q|^2, 1] . [c, 1, |c|^2] summed term by term, each
+    product and sum rounded once, then clamped at 0 by ``fmax`` (a NaN,
+    from two rows at the 1e32 sentinel, becomes 0 as fmaxf makes it)."""
+    m = -2.0 * q
+    s = m[..., 0] * c[..., 0]
+    s = s + m[..., 1] * c[..., 1]
+    s = s + m[..., 2] * c[..., 2]
+    s = s + norm2(q)
+    s = s + norm2(c)
+    return torch.fmax(s, torch.zeros((), dtype=s.dtype, device=s.device))
 
 
 def _f32(x: float) -> float:
@@ -82,15 +116,16 @@ def _consts(params: SimulationParameters):
 
 
 def _density_torch(pos4, cand, count, params, qblock, sub: int, hit_sub: int,
-                   groups: int, hit2_h=None, panels=None, qrows: int = BLOCK):
+                   groups: int, hit2_h=None, panels=None, qrows: int = BLOCK,
+                   r2_mxu: bool = False):
     """Plain density over ``sub``-particle candidate subblocks for lists
     that serve ``qrows`` queries each, with hit counts per (query subgroup
     of qrows/groups rows, run of ``hit_sub`` candidate particles); at
     groups=1 the count is of the run's particles that some query hits, at
     groups=0 there is none. ``hit2_h`` adds the dilated per-(subgroup,
     tile) pair counts; ``panels`` (nq, 4, cap) bool restricts the sums and
-    counts to the flagged (subgroup, slot) panels. Chunked over list
-    rows."""
+    counts to the flagged (subgroup, slot) panels; ``r2_mxu`` takes r^2
+    by :func:`pair_r2_identity`. Chunked over list rows."""
     c = _consts(params)
     nq, cap = cand.shape
     dev = pos4.device
@@ -114,10 +149,13 @@ def _density_torch(pos4, cand, count, params, qblock, sub: int, hit_sub: int,
               else qblock[b0:b1].to(torch.int64))
         q = pos4[qb[:, None] * qrows + qlane].reshape(r, qrows, 1, 1, 4)
         cq = cp[:, None]
-        dx = q[..., 0] - cq[..., 0]
-        dy = q[..., 1] - cq[..., 1]
-        dz = q[..., 2] - cq[..., 2]
-        r2 = (dx * dx + dy * dy) + dz * dz  # (r, qrows, cap, sub)
+        if r2_mxu:
+            r2 = pair_r2_identity(q[..., :3], cq[..., :3])  # (r, qrows, cap, sub)
+        else:
+            dx = q[..., 0] - cq[..., 0]
+            dy = q[..., 1] - cq[..., 1]
+            dz = q[..., 2] - cq[..., 2]
+            r2 = (dx * dx + dy * dy) + dz * dz  # (r, qrows, cap, sub)
         live4 = live[:, None, :, None]
         if panels is not None:
             rows_on = panels[b0:b1, :, None, :].expand(r, GROUPS, qrows // GROUPS, cap)
@@ -154,18 +192,19 @@ def _density_torch(pos4, cand, count, params, qblock, sub: int, hit_sub: int,
 
 def density_c16_torch(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
                       params: SimulationParameters, hit_sub: int = 8, hit2_h=None,
-                      qblock=None):
+                      qblock=None, r2_mxu: bool = False):
     """Plain PyTorch version of :func:`density_c16`."""
     return _density_torch(pos4, cand, count, params, qblock, 16, hit_sub, GROUPS,
-                          hit2_h=hit2_h)
+                          hit2_h=hit2_h, r2_mxu=r2_mxu)
 
 
 def density_c32_torch(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
                       params: SimulationParameters, groups: int = GROUPS,
-                      hit_sub: int = 32, qblock=None, rows: int = BLOCK):
+                      hit_sub: int = 32, qblock=None, rows: int = BLOCK,
+                      r2_mxu: bool = False):
     """Plain PyTorch version of :func:`density_c32`."""
     return _density_torch(pos4, cand, count, params, qblock, 32, hit_sub, groups,
-                          qrows=rows)
+                          qrows=rows, r2_mxu=r2_mxu)
 
 
 def pack_tile_nibbles(tiles: torch.Tensor) -> torch.Tensor:
@@ -243,12 +282,18 @@ def _count(fn, variant: str) -> None:
     fn.variants[variant] = fn.variants.get(variant, 0) + 1
 
 
+def _mode(r2_mxu: bool) -> str:
+    """The suffix of an identity-mode launch's variant name."""
+    return ", mxu" if r2_mxu else ""
+
+
 def _launch(entry, pos4, cand, count, table, mode, consts, hit_shape, tile_shape=None,
-            rows: int = BLOCK):
-    """Launch C entry point ``entry`` on (pos4, cand, count, ``table``: the
-    qblock map or the gate mask) with its integer ``mode`` arguments and
-    float ``consts`` for lists of ``rows`` queries; density_c16's entry
-    also takes the tile counts (a null pointer without ``tile_shape``)."""
+            rows: int = BLOCK, r2_mxu: bool = False):
+    """Launch C entry point ``entry`` (its ``_mxu`` twin with ``r2_mxu``)
+    on (pos4, cand, count, ``table``: the qblock map or the gate mask)
+    with its integer ``mode`` arguments and float ``consts`` for lists of
+    ``rows`` queries; density_c16's entry also takes the tile counts (a
+    null pointer without ``tile_shape``)."""
     nq, cap = cand.shape
     density = torch.empty(nq * rows, dtype=torch.float32, device=pos4.device)
     hits = torch.zeros(hit_shape, dtype=torch.int32, device=pos4.device)
@@ -259,7 +304,7 @@ def _launch(entry, pos4, cand, count, table, mode, consts, hit_shape, tile_shape
     if entry == "density_c16":
         outs += (ptr(tiles),)
     stream = torch.cuda.current_stream(pos4.device).cuda_stream
-    status = getattr(build.load_library(), entry + "_launch")(
+    status = getattr(build.load_library(), entry + ("_mxu" if r2_mxu else "") + "_launch")(
         pos4.data_ptr(), cand.data_ptr(), count.data_ptr(), ptr(table), nq, cap, *mode,
         *consts, *outs, stream,
     )
@@ -274,30 +319,33 @@ def _kernel_consts(params, *h2_dil):
 
 def density_c16(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
                 params: SimulationParameters, hit_sub: int = 8, hit2_h=None,
-                qblock=None):
+                qblock=None, r2_mxu: bool = False):
     """Density and hit counts over 16-wide lists at ``hit_sub`` 8 or 16;
     with ``hit2_h`` (hit_sub 16 only) also the dilated per-tile counts,
-    returned third. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (building it at first use) or raise."""
+    returned third; ``r2_mxu``: r^2 by the identity (on a centred pack).
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (building it at first use) or raise."""
     _check(pos4, cand, count, qblock)
     if hit_sub not in (8, 16) or (hit2_h is not None and hit_sub != 16):
         raise ValueError(f"density_c16: hit_sub must be 8 or 16 (16 with hit2_h), "
                          f"not {hit_sub}")
     if _device("density_c16", pos4):
-        return density_c16_torch(pos4, cand, count, params, hit_sub, hit2_h, qblock)
+        return density_c16_torch(pos4, cand, count, params, hit_sub, hit2_h, qblock,
+                                 r2_mxu)
     nq, cap = cand.shape
     tile_shape = None if hit2_h is None else (nq * GROUPS, -(-cap // TILE))
     h2_dil = 0.0 if hit2_h is None else _f32(hit2_h * hit2_h)
     out = _launch("density_c16", pos4, cand, count, qblock, (hit_sub,),
                   _kernel_consts(params, h2_dil), (nq * GROUPS, cap * 16 // hit_sub),
-                  tile_shape)
-    _count(density_c16, f"hit_sub {hit_sub}" + ("" if hit2_h is None else ", hit2_h"))
+                  tile_shape, r2_mxu=r2_mxu)
+    _count(density_c16, f"hit_sub {hit_sub}" + ("" if hit2_h is None else ", hit2_h")
+           + _mode(r2_mxu))
     return out
 
 
 def density_c32(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
                 params: SimulationParameters, groups: int = GROUPS, hit_sub: int = 32,
-                qblock=None, rows: int = BLOCK):
+                qblock=None, rows: int = BLOCK, r2_mxu: bool = False):
     """Density and hit counts over 32-wide lists, hits per query subgroup
     (``groups=4``, at ``hit_sub`` 32 or 16), per block (``groups=1``,
     hit_sub 32) or none (``groups=0``, hit_sub 32: the hits are (0, cap)).
@@ -313,18 +361,20 @@ def density_c32(pos4: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
         raise ValueError(f"density_c32: rows must be {BLOCK}, or {FINE_ROWS} at groups 0 "
                          f"or 1; not rows {rows} at groups {groups}")
     if _device("density_c32", pos4):
-        return density_c32_torch(pos4, cand, count, params, groups, hit_sub, qblock, rows)
+        return density_c32_torch(pos4, cand, count, params, groups, hit_sub, qblock, rows,
+                                 r2_mxu)
     nq, cap = cand.shape
     if rows == BLOCK:
         out = _launch("density_c32", pos4, cand, count, qblock, (groups, hit_sub),
-                      _kernel_consts(params), (nq * groups, cap * 32 // hit_sub))
-        _count(density_c32, f"groups {groups}, hit_sub {hit_sub}" if groups
-               else DENSITY_ONLY)
+                      _kernel_consts(params), (nq * groups, cap * 32 // hit_sub),
+                      r2_mxu=r2_mxu)
+        _count(density_c32, (f"groups {groups}, hit_sub {hit_sub}" if groups
+                             else DENSITY_ONLY) + _mode(r2_mxu))
     else:
         out = _launch("density_c32_rows", pos4, cand, count, qblock, (groups, rows),
-                      _kernel_consts(params), (nq * groups, cap), rows=rows)
+                      _kernel_consts(params), (nq * groups, cap), rows=rows, r2_mxu=r2_mxu)
         _count(density_c32, (f"groups 1, rows {rows}" if groups
-                             else f"{DENSITY_ONLY}, rows {rows}"))
+                             else f"{DENSITY_ONLY}, rows {rows}") + _mode(r2_mxu))
     return out
 
 

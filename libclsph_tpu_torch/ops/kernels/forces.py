@@ -32,6 +32,14 @@ Inputs, for ``np`` particles in ``np / R`` query blocks of R = 128 rows
 
 Output: the acceleration (nq*R, 3) float32 of the row blocks' queries,
 0 on padding queries.
+
+Each kernel also has the JAX kernels' ``r2_mxu`` mode: r^2 by
+:func:`density.pair_r2_identity` on a centred pack (``force_pack``'s
+``center``) for the support test and every term that reads r, the
+directions still the direct x_i - x_j, and a pair of equal ids adds no
+pressure term (the identity's rounding can put a self pair above
+eps^2, where the r -> 0 guard would not zero it; neighbor_nl.py
+_forces_pair_q32's gid test).
 """
 
 from __future__ import annotations
@@ -42,17 +50,21 @@ import torch
 from ...core import smoothing
 from ...core.params import SimulationParameters
 from . import build
-from .density import FINE_ROWS
+from .density import FINE_ROWS, pair_r2_identity
 
 BLOCK = 128  # queries per block
 GROUPS = 4  # query subgroups per block
 CHUNK_PAIRS = 1 << 23  # pair elements per chunk of the plain versions
 
 
-def force_pack(position, velocity, density, pressure, real, mass: float) -> torch.Tensor:
+def force_pack(position, velocity, density, pressure, real, mass: float,
+               center=None) -> torch.Tensor:
     """(np, 8) float32 [x, y, z, vx, vy, vz, pm, mr] with the
     ``safe_rho`` and real-mask rules of make_c8_force_pack
-    (neighbor_nl.py:1576-1578)."""
+    (neighbor_nl.py:1576-1578); the positions less ``center`` ((3,)
+    float32) where one is given (the identity mode's packs)."""
+    if center is not None:
+        position = position - center
     safe_rho = torch.where(density > 0, density, 1.0)
     pm = torch.where(real, mass * pressure / (safe_rho * safe_rho), 0.0)
     mr = torch.where(real, mass / safe_rho, 0.0)
@@ -115,13 +127,14 @@ def _f8_candidates(f8, cand, count, sub: int):
     return chunk
 
 
-def _force_sums_torch(f8, params, qids, width: int, candidates):
+def _force_sums_torch(f8, params, qids, width: int, candidates, r2_mxu: bool = False):
     """Plain raw force sums: list row l's queries ``qids[l]`` ((nrows,
     qrows) global ids into ``f8``) against the ``width`` candidates that
     ``candidates(r0, r1)`` gives for list rows r0..r1: (f8 fields (r, 1,
     width, 8), global ids (r, width) int64, live (r, 1, width) bool),
-    chunked over list rows. Returns (P with the r -> 0 splat, V, N (each
-    (nrows*qrows, 3)), L (nrows*qrows,))."""
+    chunked over list rows; ``r2_mxu``: r^2 by the identity and no
+    pressure term between equal ids. Returns (P with the r -> 0 splat, V,
+    N (each (nrows*qrows, 3)), L (nrows*qrows,))."""
     c = _consts(params)
     nrows, qrows = qids.shape
     dev = f8.device
@@ -138,7 +151,10 @@ def _force_sums_torch(f8, params, qids, width: int, candidates):
         dx = qi[..., 0] - cj[..., 0]
         dy = qi[..., 1] - cj[..., 1]
         dz = qi[..., 2] - cj[..., 2]
-        r2 = (dx * dx + dy * dy) + dz * dz  # (r, qrows, K)
+        if r2_mxu:
+            r2 = pair_r2_identity(qi[..., :3], cj[..., :3])  # (r, qrows, K)
+        else:
+            r2 = (dx * dx + dy * dy) + dz * dz  # (r, qrows, K)
         inside = (r2 < c["h2"]) & live
         near0 = r2 < c["eps2"]
         inv_r = torch.where(near0, 0.0, torch.rsqrt(r2))
@@ -149,6 +165,8 @@ def _force_sums_torch(f8, params, qids, width: int, candidates):
         b = (c["visc"] * mr) * hr
         u = mr * t
         pc = cj[..., 6] + qi[..., 6]
+        if r2_mxu:
+            pc = torch.where(jid[:, None, :] == qid, 0.0, pc)
         a = pc * ((c["spiky"] * (hr * hr)) * inv_r)
         g = (c["pgrad"] * u) * t
         lp = c["lap7"] * g - c["lap4"] * u
@@ -170,7 +188,7 @@ def _force_sums_torch(f8, params, qids, width: int, candidates):
 
 
 def _forces_torch(f8, density, real, cand, count, params, qblock, qrows: int, sub: int,
-                  block: int = BLOCK):
+                  block: int = BLOCK, r2_mxu: bool = False):
     """Plain force pass over ``sub``-particle candidate lists shared by
     ``qrows`` query rows, ``block // qrows`` lists to a query block of
     ``block`` rows (the unit of ``qblock``), chunked over lists."""
@@ -181,34 +199,37 @@ def _forces_torch(f8, density, real, cand, count, params, qblock, qrows: int, su
     qb_all = (torch.arange(nq, device=dev) if qblock is None else qblock.to(torch.int64))
     qids = (qb_all[:, None] * block + qlane).reshape(nrows, qrows)  # per list
     sums = _force_sums_torch(f8, params, qids, cap * sub,
-                             _f8_candidates(f8, cand, count, sub))
+                             _f8_candidates(f8, cand, count, sub), r2_mxu)
     q = qids.reshape(-1)
     return combine(*sums, density[q], real[q], _consts(params))
 
 
 def forces_q32_c8_torch(f8, density, real, cand8, count8, params: SimulationParameters,
-                        qblock=None):
+                        qblock=None, r2_mxu: bool = False):
     """Plain PyTorch version of :func:`forces_q32_c8`."""
-    return _forces_torch(f8, density, real, cand8, count8, params, qblock, 32, 8)
+    return _forces_torch(f8, density, real, cand8, count8, params, qblock, 32, 8,
+                         r2_mxu=r2_mxu)
 
 
 def forces_q32_c16_torch(f8, density, real, cand16, count16, params: SimulationParameters,
-                         qblock=None):
+                         qblock=None, r2_mxu: bool = False):
     """Plain PyTorch version of :func:`forces_q32_c16`."""
-    return _forces_torch(f8, density, real, cand16, count16, params, qblock, 32, 16)
+    return _forces_torch(f8, density, real, cand16, count16, params, qblock, 32, 16,
+                         r2_mxu=r2_mxu)
 
 
 def forces_q32_c32_torch(f8, density, real, cand, count, params: SimulationParameters,
-                         qblock=None):
+                         qblock=None, r2_mxu: bool = False):
     """Plain PyTorch version of :func:`forces_q32_c32`."""
-    return _forces_torch(f8, density, real, cand, count, params, qblock, 32, 32)
+    return _forces_torch(f8, density, real, cand, count, params, qblock, 32, 32,
+                         r2_mxu=r2_mxu)
 
 
 def forces_q128_c32_torch(f8, density, real, cand, count, params: SimulationParameters,
-                          qblock=None, rows: int = BLOCK):
+                          qblock=None, rows: int = BLOCK, r2_mxu: bool = False):
     """Plain PyTorch version of :func:`forces_q128_c32`."""
     return _forces_torch(f8, density, real, cand, count, params, qblock, rows, 32,
-                         block=rows)
+                         block=rows, r2_mxu=r2_mxu)
 
 
 def _check(f8, density, real, cand, count, qblock, lists: int, block: int = BLOCK):
@@ -241,12 +262,12 @@ def _check(f8, density, real, cand, count, qblock, lists: int, block: int = BLOC
 
 
 def _launch(name, f8, density, real, cand, count, qblock, params, lists, *extra,
-            block: int = BLOCK):
+            block: int = BLOCK, r2_mxu: bool = False):
     c = _consts(params)
     nq = cand.shape[0] // lists
     accel = torch.empty((nq * block, 3), dtype=torch.float32, device=f8.device)
     stream = torch.cuda.current_stream(f8.device).cuda_stream
-    status = getattr(build.load_library(), name + "_launch")(
+    status = getattr(build.load_library(), name + ("_mxu" if r2_mxu else "") + "_launch")(
         f8.data_ptr(), density.data_ptr(), real.data_ptr(), cand.data_ptr(),
         count.data_ptr(), None if qblock is None else qblock.data_ptr(),
         nq, cand.shape[1], *extra,
@@ -259,72 +280,82 @@ def _launch(name, f8, density, real, cand, count, qblock, params, lists, *extra,
 
 
 def _dispatch(fn, plain, entry, f8, density, real, cand, count, params, qblock,
-              qrows, *extra, block: int = BLOCK, variant=None):
+              qrows, *extra, block: int = BLOCK, variant=None, r2_mxu: bool = False):
     """Check the inputs, then run the plain version on CPU tensors or
-    launch C entry point ``entry`` (counting the launch on ``fn``, and on
-    ``fn.variants[variant]`` where a variant is named)."""
+    launch C entry point ``entry`` (its ``_mxu`` twin with ``r2_mxu``),
+    counting the launch on ``fn`` and on ``fn.variants``: under
+    ``variant`` where one is named (", mxu" added in the identity mode),
+    under "mxu" for another identity-mode launch."""
     lists = block // qrows
     _check(f8, density, real, cand, count, qblock, lists, block)
     if f8.device.type == "cpu":
-        return plain(f8, density, real, cand, count, params, qblock)
+        return plain(f8, density, real, cand, count, params, qblock, r2_mxu=r2_mxu)
     if f8.device.type != "cuda":
         raise ValueError(f"{fn.__name__}: unsupported device {f8.device}")
     accel = _launch(entry, f8, density, real, cand, count, qblock, params, lists, *extra,
-                    block=block)
+                    block=block, r2_mxu=r2_mxu)
     fn.launches += 1
+    if r2_mxu:
+        variant = "mxu" if variant is None else variant + ", mxu"
     if variant is not None:
         fn.variants[variant] = fn.variants.get(variant, 0) + 1
     return accel
 
 
 def forces_q32_c8(f8, density, real, cand8, count8, params: SimulationParameters,
-                  qblock=None):
-    """Accelerations over 8-particle hit runs per 32-row subgroup. CPU
-    tensors take the plain version; CUDA tensors launch the kernel
-    (building it at first use) or raise."""
+                  qblock=None, r2_mxu: bool = False):
+    """Accelerations over 8-particle hit runs per 32-row subgroup;
+    ``r2_mxu``: the identity mode (on a centred pack). CPU tensors take
+    the plain version; CUDA tensors launch the kernel (building it at
+    first use) or raise."""
     return _dispatch(forces_q32_c8, forces_q32_c8_torch, "forces_q32", f8, density,
-                     real, cand8, count8, params, qblock, 32, 8)
+                     real, cand8, count8, params, qblock, 32, 8, r2_mxu=r2_mxu)
 
 
 def forces_q32_c16(f8, density, real, cand16, count16, params: SimulationParameters,
-                   qblock=None):
+                   qblock=None, r2_mxu: bool = False):
     """Accelerations over 16-particle hit runs per 32-row subgroup (lists
-    (nq*4, cap)). CPU tensors take the plain version; CUDA tensors launch
-    the kernel (building it at first use) or raise."""
+    (nq*4, cap)); ``r2_mxu``: the identity mode (on a centred pack). CPU
+    tensors take the plain version; CUDA tensors launch the kernel
+    (building it at first use) or raise."""
     return _dispatch(forces_q32_c16, forces_q32_c16_torch, "forces_q32", f8, density,
-                     real, cand16, count16, params, qblock, 32, 16)
+                     real, cand16, count16, params, qblock, 32, 16, r2_mxu=r2_mxu)
 
 
 def forces_q32_c32(f8, density, real, cand, count, params: SimulationParameters,
-                   qblock=None):
+                   qblock=None, r2_mxu: bool = False):
     """Accelerations over 32-particle subblocks per 32-row subgroup
-    (lists (nq*4, cap)). CPU tensors take the plain version; CUDA
-    tensors launch the kernel (building it at first use) or raise."""
+    (lists (nq*4, cap)); ``r2_mxu``: the identity mode (on a centred
+    pack). CPU tensors take the plain version; CUDA tensors launch the
+    kernel (building it at first use) or raise."""
     return _dispatch(forces_q32_c32, forces_q32_c32_torch, "forces_q32", f8, density,
-                     real, cand, count, params, qblock, 32, 32)
+                     real, cand, count, params, qblock, 32, 32, r2_mxu=r2_mxu)
 
 
 def forces_q128_c32(f8, density, real, cand, count, params: SimulationParameters,
-                    qblock=None, rows: int = BLOCK):
+                    qblock=None, rows: int = BLOCK, r2_mxu: bool = False):
     """Accelerations over 32-particle subblocks per query block of
     ``rows`` rows (lists (nq, cap)): 128, or 64 and 32 on finer query
-    blocks (``qblock`` counts blocks of ``rows``). CPU tensors take the
-    plain version; CUDA tensors launch the kernel (building it at first
-    use) or raise."""
+    blocks (``qblock`` counts blocks of ``rows``); ``r2_mxu``: the
+    identity mode (on a centred pack). CPU tensors take the plain
+    version; CUDA tensors launch the kernel (building it at first use)
+    or raise."""
     if rows not in FINE_ROWS + (BLOCK,):
         raise ValueError(f"forces_q128_c32: rows must be {BLOCK} or one of {FINE_ROWS}, "
                          f"not {rows}")
 
-    def plain(*args):
-        return forces_q128_c32_torch(*args, rows=rows)
+    def plain(*args, r2_mxu=False):
+        return forces_q128_c32_torch(*args, rows=rows, r2_mxu=r2_mxu)
 
     if rows == BLOCK:
         return _dispatch(forces_q128_c32, plain, "forces_c32", f8, density, real, cand,
-                         count, params, qblock, BLOCK, variant=f"rows {rows}")
+                         count, params, qblock, BLOCK, variant=f"rows {rows}",
+                         r2_mxu=r2_mxu)
     return _dispatch(forces_q128_c32, plain, "forces_c32_rows", f8, density, real, cand,
-                     count, params, qblock, rows, rows, block=rows, variant=f"rows {rows}")
+                     count, params, qblock, rows, rows, block=rows, variant=f"rows {rows}",
+                     r2_mxu=r2_mxu)
 
 
 for _fn in (forces_q32_c8, forces_q32_c16, forces_q32_c32, forces_q128_c32):
     _fn.launches = 0
-forces_q128_c32.variants = {}
+    _fn.variants = {}

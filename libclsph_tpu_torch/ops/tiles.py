@@ -1,7 +1,7 @@
 """Block candidate machinery and the ``tiles`` impl's passes.
 
-PyTorch counterpart of ``libclsph_tpu/ops/tiles.py`` (its ``direct``
-tile mode). After the Morton sort, consecutive
+PyTorch counterpart of ``libclsph_tpu/ops/tiles.py``. After the Morton
+sort, consecutive
 particles are spatially coherent; the sorted array is cut into blocks
 of ``B`` particles, each block gets up to 4 AABBs split at its largest
 internal position jumps, and blocks whose dilated boxes overlap become
@@ -13,7 +13,8 @@ The ``tiles`` impl instead sums over whole candidate blocks with dense
 
 Every integer table here equals the JAX package's, slot for slot:
 lists are compacted by the same ascending sort with the query's own
-ids biased first (:func:`_self_priority_sort`), and top-k ties go to
+ids biased first, or under ``LIBCLSPH_TPU_COMPACT=scatter`` by the same
+cumsum-and-scatter (:func:`_self_priority_sort`), and top-k ties go to
 the lowest index as ``lax.top_k`` breaks them. Large intermediates are
 computed in chunks of query rows so that the 1M-particle tables fit
 the card.
@@ -21,6 +22,7 @@ the card.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -266,9 +268,29 @@ def candidate_blocks_auto(bmin, bmax, h: float, max_candidates: int):
 
 def _self_priority_sort(keys: torch.Tensor, self_lo, self_width: int, max_out: int):
     """Compact live ids (dead = REFINE_SENTINEL) to the first
-    ``max_out`` slots by an ascending row sort, ids in
-    [self_lo, self_lo + self_width) first (tiles.py:328-378, ``sort``
-    mode)."""
+    ``max_out`` slots, ids in [self_lo, self_lo + self_width) first
+    (tiles.py:328-378), in the form ``LIBCLSPH_TPU_COMPACT`` names, read
+    at each call: ``sort`` (the default), an ascending row sort with the
+    self ids biased first; ``scatter``, each live id's destination from
+    two row cumsums (self ids first, then the others in encounter order)
+    and one scatter, whose truncated and dead ids all land in a trash
+    column."""
+    if os.environ.get("LIBCLSPH_TPU_COMPACT", "sort") == "scatter":
+        live = keys != REFINE_SENTINEL
+        if self_lo is not None:
+            lo = self_lo[:, None]
+            is_self = live & (keys >= lo) & (keys < lo + self_width)
+        else:
+            is_self = torch.zeros_like(live)
+        c_self = torch.cumsum(is_self, dim=1, dtype=torch.int32)
+        c_other = torch.cumsum(live & ~is_self, dim=1, dtype=torch.int32)
+        dest = torch.where(is_self, c_self - 1, c_self[:, -1:] + c_other - 1)
+        ok = live & (dest < max_out)
+        dest = torch.where(ok, dest, max_out).to(torch.int64)
+        vals = torch.where(ok, keys, REFINE_SENTINEL)
+        out = torch.full((keys.shape[0], max_out + 1), REFINE_SENTINEL, dtype=keys.dtype,
+                         device=keys.device)
+        return out.scatter_(1, dest, vals)[:, :max_out]
     if self_lo is not None:
         lo = self_lo[:, None]
         is_self = (keys >= lo) & (keys < lo + self_width)
@@ -315,7 +337,10 @@ def refine_candidates(cand, count, qmin, qmax, sub_lo, sub_hi, h: float, sub: in
             ok |= torch.all((glo <= qh) & (ghi >= ql), dim=-1)
         ok &= live[r0 : r0 + rows, :, None]
         ids = cand[r0 : r0 + rows, :, None] * sub + ids_sub[None, None, :]
-        keys_out.append(torch.where(ok, ids, REFINE_SENTINEL).reshape(ok.shape[0], -1))
+        # subblock-major columns (s * M + k), JAX's plane order, which the
+        # scatter compaction keeps
+        keys_out.append(torch.where(ok, ids, REFINE_SENTINEL).transpose(1, 2).reshape(
+            ok.shape[0], -1))
         counts.append(ok.sum(dim=(1, 2), dtype=torch.int32))
     keys = torch.cat(keys_out)
     count_sub = torch.cat(counts)
@@ -347,8 +372,9 @@ def refine_exact_test(g, cand, count, qlo, qhi, h: float, sub: int, rows: slice)
     B, 3) of the query rows ``rows``: a candidate subblock survives iff
     one of its particles lies within h of one of the rows' query boxes,
     ``sum_axis max(lo-p, p-hi, 0)^2 <= 1.01 h^2``. Returns the chunk's
-    sort keys (r, M * sub) int32, the surviving ids with dead slots =
-    REFINE_SENTINEL, and its counts (r,) int32."""
+    sort keys (r, sub * M) int32 (column s * M + k: subblock s of slot
+    k), the surviving ids with dead slots = REFINE_SENTINEL, and its
+    counts (r,) int32."""
     r, m, b = g.shape[:3]
     h2_cut = grid_ops.device_scalar(float(h) * float(h) * 1.01, cand.device)
     inside = torch.zeros(g.shape[:3], dtype=torch.bool, device=cand.device)
@@ -364,7 +390,8 @@ def refine_exact_test(g, cand, count, qlo, qhi, h: float, sub: int, rows: slice)
     ok = torch.any(inside.reshape(r, m, sub, b // sub), dim=-1)  # (r, m, sub)
     ids_sub = torch.arange(sub, dtype=torch.int32, device=cand.device)
     ids = cand[rows, :, None] * sub + ids_sub[None, None, :]
-    return (torch.where(ok, ids, REFINE_SENTINEL).reshape(r, -1),
+    # subblock-major columns (s * M + k), as refine_candidates lays them
+    return (torch.where(ok, ids, REFINE_SENTINEL).transpose(1, 2).reshape(r, -1),
             ok.sum(dim=(1, 2), dtype=torch.int32))
 
 
@@ -500,11 +527,28 @@ def _chunk_ids(cf: BlockedFields, cand, count, sl, ms):
     return c, slot[None, :] < count[sl, None]
 
 
+def _pair_r2_mxu(qp: torch.Tensor, cp: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
+    """r^2 of the ``mxu`` tile mode (tiles.py:743-756): (|q|^2 + |c|^2) -
+    2 q.c with both sides less ``center`` (the query block's first
+    particle, which keeps the cancellation at block scale), clamped at 0.
+    Elementwise in float32, each sum over the axes spelt out as (x + y) +
+    z, so no TF32 matmul setting reaches it and every device rounds it
+    alike."""
+    qx, qy, qz = (qp - center).unbind(-1)
+    cx, cy, cz = (cp - center).unbind(-1)
+    qq = (qx * qx + qy * qy) + qz * qz
+    cc = (cx * cx + cy * cy) + cz * cz
+    qc = (qx * cx + qy * cy) + qz * cz
+    return torch.clamp((qq + cc) - 2.0 * qc, min=0.0)
+
+
 def density_pass(blocked: BlockedFields, cand: torch.Tensor, count: torch.Tensor,
-                 params: SimulationParameters, cand_fields=None) -> torch.Tensor:
+                 params: SimulationParameters, cand_fields=None,
+                 mode: str = "direct") -> torch.Tensor:
     """Poly6 density of every query against all particles of its live
     candidate blocks (tiles.py:760-803; forces.cl:14-42), one (B, B) tile
-    per candidate slot. ``cand_fields``: the block table the candidate
+    per candidate slot, r^2 taken directly or (``mode="mxu"``) by
+    :func:`_pair_r2_mxu`. ``cand_fields``: the block table the candidate
     ids index (default ``blocked``; a sharded substep's exchanged table,
     of which only position and real are read). Returns (n,) over the
     sorted order, rest density on padding rows."""
@@ -515,8 +559,13 @@ def density_pass(blocked: BlockedFields, cand: torch.Tensor, count: torch.Tensor
     acc = torch.zeros((nb, b), dtype=torch.float32, device=cand.device)
     for sl, ms in _tile_chunks(cand, count, b):
         c, live = _chunk_ids(cf, cand, count, sl, ms)
-        rvec = blocked.position[sl][:, None, :, None, :] - cf.position[c][:, :, None]
-        r = torch.sqrt(torch.sum(rvec * rvec, dim=-1))  # (r, S, B, B)
+        qp = blocked.position[sl][:, None, :, None, :]
+        if mode == "mxu":
+            r2 = _pair_r2_mxu(qp, cf.position[c][:, :, None], qp[:, :, :1])
+        else:
+            rvec = qp - cf.position[c][:, :, None]
+            r2 = torch.sum(rvec * rvec, dim=-1)
+        r = torch.sqrt(r2)  # (r, S, B, B)
         w = smoothing.poly_6(r, h, terms)
         ok = live[:, :, None, None] & cf.real[c][:, :, None, :]
         acc[sl] += torch.sum(torch.where(ok, w, 0.0), dim=(1, 3))
@@ -525,15 +574,18 @@ def density_pass(blocked: BlockedFields, cand: torch.Tensor, count: torch.Tensor
 
 
 def force_pass(blocked: BlockedFields, cand: torch.Tensor, count: torch.Tensor,
-               params: SimulationParameters, cand_fields=None) -> torch.Tensor:
+               params: SimulationParameters, cand_fields=None,
+               mode: str = "direct") -> torch.Tensor:
     """Internal forces and gravity over whole candidate blocks
     (tiles.py:806-922; forces.cl:44-126): the symmetrised spiky pressure
     with its r -> 0 branch, viscosity, and the colour field, self
     excluded from the first two by ``gid``. The direction sums are taken
     directly as sum_j a_ij (x_i - x_j), as the port's kernels take them,
-    so no block centring is needed. ``cand_fields`` as in
-    :func:`density_pass`, every field read. Returns (n, 3) over the
-    sorted order (padding rows included; the caller drops them)."""
+    so no block centring is needed; ``mode="mxu"`` takes r^2 (and so r,
+    the cutoff and every term but the directions) by :func:`_pair_r2_mxu`.
+    ``cand_fields`` as in :func:`density_pass`, every field read. Returns
+    (n, 3) over the sorted order (padding rows included; the caller drops
+    them)."""
     cf = blocked if cand_fields is None else cand_fields
     terms = params.precomputed()
     h = float(params.h)
@@ -556,7 +608,11 @@ def force_pass(blocked: BlockedFields, cand: torch.Tensor, count: torch.Tensor,
             return getattr(cf, name)[c][:, :, None, :]
 
         rvec = q(blocked.position) - k("position")  # (r, S, B, B, 3)
-        r2 = torch.sum(rvec * rvec, dim=-1)
+        if mode == "mxu":
+            r2 = _pair_r2_mxu(q(blocked.position), k("position"),
+                              blocked.position[sl][:, None, None, :1])
+        else:
+            r2 = torch.sum(rvec * rvec, dim=-1)
         r = torch.sqrt(r2)
         ok = live[:, :, None, None] & k("real")
         not_self = ok & (q(blocked.gid) != k("gid"))

@@ -296,13 +296,16 @@ def exchange_tables(mesh: Mesh, kind: str, bmin, bmax, pos4, local_min, local_ma
 
 def nl_passes(state_s, valid_s, bmin, bmax, cand, count, ex: Exchange, pos4_c,
               params: SimulationParameters, config: StepConfig, cand_in=None,
-              h_search=None, record=None):
+              h_search=None, record=None, center=None):
     """Step 4 on the pallas impl (``_nl_passes``, sharded_step.py:79-373)
     over the combined table ``pos4_c``: the refine from the block lists
     (skipped with ``cand_in`` = the carried (cand_sub, count_sub)), the
     density kernel, hit compaction and the force kernel, or their
     two-tier form, all through :mod:`engine.step`'s helpers with the
     queries at ``qblock``. ``record``: a dict that receives the tables.
+    ``center`` (the identity mode's, from the global bounds, the same on
+    every rank): the kernels' packs are taken less it, after the refine
+    has read the exchanged positions as they are.
     Returns (density, pressure, accel, flags, (cand_sub, count_sub))."""
     bsize, q_rows, q_rep = config.block_size, config.q_rows, config.q_rep
     n = valid_s.shape[0]
@@ -347,6 +350,8 @@ def nl_passes(state_s, valid_s, bmin, bmax, cand, count, ex: Exchange, pos4_c,
         flags = ovf.to(torch.int32) * FLAG_CAPACITY_SUB
     n_c = pos4_c.shape[0]
     rows = slice(ex.qoff, ex.qoff + n)
+    if center is not None:
+        pos4_c = torch.cat([pos4_c[:, :3] - center, pos4_c[:, 3:]], dim=1)
 
     def force_fields(density):
         """The force kernels' (pressure, f8, density, real) over the
@@ -354,7 +359,7 @@ def nl_passes(state_s, valid_s, bmin, bmax, cand, count, ex: Exchange, pos4_c,
         real mask are read at the query rows only."""
         pressure = torch.where(valid_s, interactions_ops.tait_pressure(density, params), 0.0)
         f8 = kernels.force_pack(pos_s, state_s.velocity, density, pressure, valid_s,
-                                params.particle_mass)
+                                params.particle_mass, center=center)
         f8_c = ex.combine(f8, (6, 7))
         dens_c = torch.zeros(n_c, dtype=torch.float32, device=dev)
         real_c = torch.zeros(n_c, dtype=torch.bool, device=dev)
@@ -403,7 +408,8 @@ def tiles_passes(state_s, valid_s, cand, count, ex: Exchange, pos4_c,
     gid_c = torch.arange(n_c, dtype=torch.int32, device=pos4_c.device).reshape(-1, bsize)
     pos_fields = tiles_ops.BlockedFields(position=pos_c, velocity=pos_c, density=real_c,
                                          pressure=real_c, real=real_c, gid=gid_c)
-    density = tiles_ops.density_pass(blocked, cand, count, params, cand_fields=pos_fields)
+    density = tiles_ops.density_pass(blocked, cand, count, params, cand_fields=pos_fields,
+                                     mode=config.tile_mode)
     pressure = torch.where(valid_s, interactions_ops.tait_pressure(density, params), 0.0)
     blocked = blocked._replace(density=density.reshape(blocked.real.shape),
                                pressure=pressure.reshape(blocked.real.shape))
@@ -414,7 +420,8 @@ def tiles_passes(state_s, valid_s, cand, count, ex: Exchange, pos4_c,
         position=tc[:, :3].reshape(-1, bsize, 3), velocity=tc[:, 3:6].reshape(-1, bsize, 3),
         density=tc[:, 6].reshape(-1, bsize), pressure=tc[:, 7].reshape(-1, bsize),
         real=(tc[:, 8] > 0).reshape(-1, bsize), gid=gid_c)
-    accel = tiles_ops.force_pass(blocked, cand, count, params, cand_fields=cf)
+    accel = tiles_ops.force_pass(blocked, cand, count, params, cand_fields=cf,
+                                 mode=config.tile_mode)
     return density, pressure, accel
 
 
@@ -468,6 +475,8 @@ def local_substep(mesh: Mesh, state: ParticleState, dt: torch.Tensor,
     local_min = torch.where(valid[:, None], state.position, _INF).amin(dim=0)
     local_max = torch.where(valid[:, None], state.position, -_INF).amax(dim=0)
     ext = mesh.all_reduce_max(torch.cat([-local_min, local_max]))
+    # the identity mode's centre, alike on every rank (sharded_step.py:765)
+    center = 0.5 * (-ext[:3] + ext[3:]) if config.r2_mxu else None
     cell = torch.tensor(params.cell_side, dtype=torch.float32, device=dev)
     gmin, gmax = -ext[:3] - 2.0 * cell, ext[3:] + 2.0 * cell
     grid = grid_ops.GridInfo(min_point=gmin, max_point=gmax,
@@ -510,7 +519,7 @@ def local_substep(mesh: Mesh, state: ParticleState, dt: torch.Tensor,
         density, pressure, accel, nl_flags, tables = nl_passes(
             state_s, valid_s, bmin, bmax, cand, count, ex, pos4_c, params, config,
             cand_in=(cand_in["cand_sub"], cand_in["count_sub"]) if is_reuse else None,
-            h_search=h_search if reuse_on else None, record=record)
+            h_search=h_search if reuse_on else None, record=record, center=center)
         cap_flags = overflow.to(torch.int32) * FLAG_CAPACITY + nl_flags
         if reuse_on:
             cand_out = cand_in if is_reuse else dict(

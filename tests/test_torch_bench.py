@@ -64,15 +64,25 @@ def test_off_the_nl_shape_rebuilds_every_substep():
      "--mesh and --halo-max must be >= 0, --halo-hops >= 1"),
     (("--exchange", "ring"), "--exchange, --halo-max and --halo-hops need --mesh N"),
     (("--halo-hops", "2"), "--exchange, --halo-max and --halo-hops need --mesh N"),
-    (("--tile-mode", "mxu"), "ROADMAP.md queue 2 C"),
     (("--block-size", "96"), "StepConfig.block_size=96: use one of (64, 128, 256)"),
     (("--nl-query-rows", "16"), "StepConfig.nl_query_rows=16: use one of (32, 64, 128)"),
-], ids=["cand-interval", "mesh", "halo-hops-0", "exchange", "halo", "mxu", "block-size",
+], ids=["cand-interval", "mesh", "halo-hops-0", "exchange", "halo", "block-size",
         "nl-query-rows"])
 def test_refusals(argv, message):
     with pytest.raises(SystemExit) as e:
         bench_torch.config_from_args(parse(*argv))
     assert message in str(e.value.code)
+
+
+def test_cpu_run_tiles_in_mxu_tile_mode(capsys):
+    """--tile-mode mxu runs: the tiles impl with r^2 by the identity."""
+    args = ["--device", "cpu", "--n", "4096", "--warmup", "1", "--steps", "2",
+            "--impl", "tiles", "--tile-mode", "mxu", "--json-only"]
+    assert bench_torch.config_from_args(parse(*args[:-1])).tile_mode == "mxu"
+    assert bench_torch.main(args) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["detail"]["config"]["tile_mode"] == "mxu"
+    assert out["detail"]["timed_flags"] == 0
 
 
 def test_refuses_to_run_without_a_gpu(monkeypatch):

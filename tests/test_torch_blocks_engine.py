@@ -49,8 +49,10 @@ def test_no_hit_compact_two_tier_substep_matches_jax():
         np.testing.assert_array_equal(p[k], single[k])
 
 
-@pytest.mark.parametrize("flag", [["--neighbor-impl", "tiles"], ["--pallas-variant", "row"]],
-                         ids=["tiles", "row"])
+@pytest.mark.parametrize("flag", [["--neighbor-impl", "tiles"],
+                                  ["--neighbor-impl", "tiles", "--tile-mode", "mxu"],
+                                  ["--pallas-variant", "row"]],
+                         ids=["tiles", "tiles-mxu", "row"])
 def test_cli_runs_the_tiny_cube(tmp_path, monkeypatch, flag):
     """One frame of the tiny cube through the CLI (the engine's fast
     path), with the checkpoint's state checked."""

@@ -1505,3 +1505,234 @@ def test_dispatch_syncs_once_a_chunk_at_1m():
     assert host["events"] == [] and host["flags"] == 0
     assert host["reads"] == 3
     assert len(calls) <= 3, calls
+
+
+# ---- the identity mode (StepConfig.pair_r2 = "mxu") --------------------------
+
+def _centred(t):
+    """A table fixture's packs centred on its domain (engine.step's
+    domain_center of the real rows), as the identity mode takes them."""
+    real = t["pos4"][:, 3] > 0
+    center = step.domain_center(t["pos4"][:, :3], real)
+    out = dict(t, pos4=density.pos_pack(t["pos4"][:, :3], real, center))
+    if "f8" in t:
+        out["f8"] = torch.cat([t["f8"][:, :3] - center, t["f8"][:, 3:]], dim=1).contiguous()
+    return out
+
+
+MXU_DENSITY = {
+    "c16-hit8": ("density_c16", "main", dict(hit_sub=8)),
+    "c16-hit16": ("density_c16", "main", dict(hit_sub=16)),
+    "c16-hit16+tiles": ("density_c16", "main", dict(hit_sub=16, hit2_h="dil")),
+    "c32-groups4": ("density_c32", "q", dict(groups=4)),
+    "c32-groups1": ("density_c32", "q", dict(groups=1)),
+    "c32-hit16": ("density_c32", "q", dict(hit_sub=16)),
+    "c32-rows64": ("density_c32", 64, dict(groups=1, rows=64)),
+    "c32-rows32": ("density_c32", 32, dict(groups=1, rows=32)),
+}
+
+
+def _mxu_source(tables, q_tables, rows_tables, which):
+    return _centred({"main": tables, "q": q_tables}[which] if which in ("main", "q")
+                    else rows_tables[which])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mapped", [False, True], ids=["identity", "qblock"])
+@pytest.mark.parametrize("case", list(MXU_DENSITY))
+def test_mxu_density_kernels_match_plain(tables, q_tables, rows_tables, cuda, case, mapped):
+    """Each density kernel's identity mode against its plain version on
+    centred packs: the r^2 decisions (hit and tile counts) equal, the
+    densities within rtol 1e-5 (the plain version sums in another
+    order); the launch is counted under the mode's variant, and the
+    direct mode's hits differ from the identity's somewhere or equal
+    them."""
+    name, which, kw = MXU_DENSITY[case]
+    t = _mxu_source(tables, q_tables, rows_tables, which)
+    p = t["params"]
+    kw = dict(kw)
+    if kw.get("hit2_h") == "dil":
+        kw["hit2_h"] = 1.25 * p.h
+    cand, count, qblock = t["cand_sub"], t["count_sub"], None
+    if mapped:
+        qblock = _pool(cand.shape[0], "cpu")
+        cand, count = cand[qblock.long()].contiguous(), count[qblock.long()].contiguous()
+    pos4, cand, count, qblock = _on(cuda, t["pos4"], cand, count, qblock)
+    fn = getattr(density, name)
+    before = sum(v for k, v in fn.variants.items() if k.endswith(", mxu"))
+    out = fn(pos4, cand, count, p, qblock=qblock, r2_mxu=True, **kw)
+    torch.cuda.synchronize()
+    assert sum(v for k, v in fn.variants.items() if k.endswith(", mxu")) == before + 1
+    ref = getattr(density, name + "_torch")(pos4, cand, count, p, qblock=qblock,
+                                            r2_mxu=True, **kw)
+    np.testing.assert_allclose(out[0].cpu().numpy(), ref[0].cpu().numpy(), rtol=1e-5)
+    assert len(out) == len(ref)
+    for a, b in zip(out[1:], ref[1:]):
+        assert torch.equal(a, b) and int(b.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_mxu_density_c32_equals_c16_bitwise(q_tables, cuda):
+    """The identity mode keeps the bodies' order: density_c32 at hit_sub
+    16 gives density_c16's densities and counts over the same particles
+    bit for bit."""
+    t = _centred(q_tables)
+    p = t["params"]
+    pos4, cand, count = _on(cuda, t["pos4"], t["cand_sub"], t["count_sub"])
+    d16, h16 = density.density_c16(pos4, *_as_c16(cand, count), p, hit_sub=16, r2_mxu=True)
+    d, hits = density.density_c32(pos4, cand, count, p, hit_sub=16, r2_mxu=True)
+    assert torch.equal(d, d16) and torch.equal(hits, h16)
+
+
+MXU_FORCES = {
+    "q32-c8": ("forces_q32_c8", "main", "cand8", {}),
+    "q32-c16": ("forces_q32_c16", "sub16", "cand16", {}),
+    "q32-c32": ("forces_q32_c32", "q", "cand32", {}),
+    "q128": ("forces_q128_c32", "q", "cand128", {}),
+    "rows64": ("forces_q128_c32", 64, "cand_f", dict(rows=64)),
+    "rows32": ("forces_q128_c32", 32, "cand_f", dict(rows=32)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(MXU_FORCES))
+def test_mxu_force_kernels_match_plain(tables, q_tables, sub16_tables, rows_tables, cuda,
+                                       case):
+    """Each force kernel's identity mode against its plain version on
+    centred packs (atol 1e-5 * max|a|: the summation order), counted
+    under the mode; forces_q128_c32 (its box cull widened by the
+    identity's error bound) also bit for bit against forces_q32_c32 over
+    each list repeated for its 32-row subgroups, which has no cull."""
+    name, which, key, kw = MXU_FORCES[case]
+    src = {"main": tables, "sub16": sub16_tables, "q": q_tables}.get(which)
+    t = _centred(src if src is not None else rows_tables[which])
+    cand, count = t[key], t[key.replace("cand", "count")]
+    f8, dens, real, cand, count = _on(cuda, t["f8"], t["dens"], t["real"], cand, count)
+    fn = getattr(forces, name)
+    before = sum(v for k, v in fn.variants.items() if k.endswith("mxu"))
+    a = fn(f8, dens, real, cand, count, t["params"], r2_mxu=True, **kw)
+    torch.cuda.synchronize()
+    assert sum(v for k, v in fn.variants.items() if k.endswith("mxu")) == before + 1
+    a0 = getattr(forces, name + "_torch")(f8, dens, real, cand, count, t["params"],
+                                          r2_mxu=True, **kw).cpu().numpy()
+    np.testing.assert_allclose(a.cpu().numpy(), a0, atol=1e-5 * np.abs(a0).max())
+    if name == "forces_q128_c32":
+        sub = kw.get("rows", 128) // 32
+        a32 = forces.forces_q32_c32(f8, dens, real, cand.repeat_interleave(sub, dim=0),
+                                    count.repeat_interleave(sub), t["params"], r2_mxu=True)
+        assert torch.equal(a, a32)
+
+
+def _identity_margin_tables(params):
+    """Two blocks far from the origin (centred coordinates about 100 h
+    out, where the identity's rounding exceeds the box test's 1e-4
+    margin). The 32 queries of subgroup g of block 0 sit on one point
+    Q_g; run r of 8 candidates of block 1 sits on one point beside
+    subgroup r // 4's, at Q_g + (d, 0, 0): for r % 4 = 0 a distance d
+    whose box gap^2 is at or above h^2 (1 + 1e-4), where the direct box
+    test culls, but whose identity r^2 lies below h^2 (a pair inside the
+    support in the identity mode only); 2 h, 3 h (culled in both forms)
+    and 0.5 h. Block 0's lists hold block 1's four 32-wide subblocks
+    only, so the pairs beside the culled panels are the only ones of
+    their queries besides the 0.5 h runs."""
+    h = params.h
+    h2 = np.float32(h * h)
+    reach = np.float32(h2 * np.float32(1.0001))
+    base = np.float32([97.0 * h, -83.0 * h, 61.0 * h])
+    qs = [base + np.float32([0.0, 10.0 * g * h, 0.0]) for g in range(4)]
+
+    def near_miss(q):
+        for k in range(1, 400000):
+            d = np.float32(h * (1.0 + k * 1e-6))
+            c = q + np.float32([d, 0.0, 0.0])
+            gx = np.float32(c[0] - q[0])
+            if np.float32(gx * gx) < reach:
+                continue
+            r2 = density.pair_r2_identity(torch.as_tensor(q), torch.as_tensor(c))
+            if float(r2) < float(h2):
+                return c
+            if np.float32(gx * gx) > 1.01 * h2:
+                break
+        raise AssertionError("no identity near miss beside the box margin")
+
+    pos = np.zeros((256, 3), np.float32)
+    for g in range(4):
+        pos[32 * g:32 * g + 32] = qs[g]
+    for r in range(16):
+        g, k = divmod(r, 4)
+        if k == 0:
+            pos[128 + 8 * r:136 + 8 * r] = near_miss(qs[g])
+        else:
+            pos[128 + 8 * r:136 + 8 * r] = qs[g] + np.float32([(2.0, 3.0, 0.5)[k - 1] * h,
+                                                               0.0, 0.0])
+    pos4 = density.pos_pack(torch.as_tensor(pos), torch.ones(256, dtype=torch.bool))
+    cand = torch.tensor([[4, 5, 6, 7], [0, 1, 2, 3]], dtype=torch.int32)
+    count = torch.full((2,), 4, dtype=torch.int32)
+    return pos4, cand, count
+
+
+@pytest.mark.cuda
+def test_mxu_cull_margin_pair_beside_culled_panel(tables, cuda):
+    """The identity mode's box cull: a pair whose identity r^2 is below
+    h^2 in a panel whose box gap lies beyond the direct test's reach. The
+    plain versions count it in the identity mode and not in the direct
+    one; every kernel must count it too (its reach widened by the
+    identity's error bound), in the densities, the hit counts (c32 at 4
+    and 1 groups, c16 over the same particles), and forces_q128_c32
+    bit for bit against forces_q32_c32, which has no cull."""
+    p = tables["params"]
+    pos4, cand, count = _identity_margin_tables(p)
+    d_id, h_id = density.density_c32_torch(pos4, cand, count, p, groups=4, r2_mxu=True)
+    _, h_vpu = density.density_c32_torch(pos4, cand, count, p, groups=4)
+    # subgroup g of row 0 against slot g (block 1's runs 4g .. 4g + 3):
+    # the near miss counts in the identity mode only
+    for g in range(4):
+        assert int(h_id[g, g]) > int(h_vpu[g, g]) >= 32 * 8
+    f8, dens, real = _small_force_pack(pos4, p, 26)
+    dens = d_id
+    f8 = forces.force_pack(pos4[:, :3].contiguous(), f8[:, 3:6].contiguous(), dens,
+                           tait_pressure(dens, p), real, p.particle_mass)
+    pos4, cand, count, f8, dens, real = _on(cuda, pos4, cand, count, f8, dens, real)
+    for groups in (4, 1):
+        d, hits = density.density_c32(pos4, cand, count, p, groups=groups, r2_mxu=True)
+        d0, hits0 = density.density_c32_torch(pos4, cand, count, p, groups=groups,
+                                              r2_mxu=True)
+        np.testing.assert_allclose(d.cpu().numpy(), d0.cpu().numpy(), rtol=1e-5)
+        assert torch.equal(hits, hits0), groups
+    d16, h16 = density.density_c16(pos4, *_as_c16(cand, count), p, hit_sub=16, r2_mxu=True)
+    assert torch.equal(h16.reshape(8, -1, 2).sum(-1, dtype=torch.int32),
+                       density.density_c32(pos4, cand, count, p, r2_mxu=True)[1])
+    a = forces.forces_q128_c32(f8, dens, real, cand, count, p, r2_mxu=True)
+    a0 = forces.forces_q128_c32_torch(f8, dens, real, cand, count, p, r2_mxu=True)
+    np.testing.assert_allclose(a.cpu().numpy(), a0.cpu().numpy(),
+                               atol=1e-5 * float(a0.abs().max()))
+    a32 = forces.forces_q32_c32(f8, dens, real, cand.repeat_interleave(4, dim=0),
+                                count.repeat_interleave(4), p, r2_mxu=True)
+    assert torch.equal(a, a32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [
+    dict(max_candidates_sub=100, tier2_frac=2, tier2_mult=2, max_candidates_hit8=160,
+         pair_r2="mxu"),
+    dict(Q_PATH, pair_r2="mxu"),
+    dict(Q_PATH, force_query_rows=128, pair_r2="mxu"),
+    dict(pallas_variant="asm", cand_interval=1, density_sub16=False, force_sub8=False,
+         pair_r2="mxu"),
+    dict(neighbor_impl="tiles", cand_interval=1, density_sub16=False, force_sub8=False,
+         tile_mode="mxu"),
+], ids=["main-tier2", "q32", "q128", "asm", "tiles"])
+def test_mxu_substeps_on_gpu_match_cpu(tables, cuda, over):
+    """Whole identity-mode substeps on the card (kernels, the centre on
+    the device) against the CPU (plain versions), on the clumped cloud."""
+    p = tables["params"]
+    st = _clumped_state(p, 14)
+    dt = torch.tensor(p.max_dt, dtype=torch.float32)
+    cfg = step.StepConfig(**over)
+    c1, _, cf, _ = step.substep(st, dt, p, None, cfg)
+    g1, _, gf, _ = step.substep(st.map(lambda a: a.to(cuda)), dt.to(cuda), p, None, cfg)
+    assert int(cf) == int(gf) == 0
+    torch.testing.assert_close(g1.grid_index.cpu(), c1.grid_index)
+    np.testing.assert_allclose(g1.density.cpu().numpy(), c1.density.numpy(), rtol=1e-5)
+    a = c1.acceleration.numpy()
+    np.testing.assert_allclose(g1.acceleration.cpu().numpy(), a, atol=1e-5 * np.abs(a).max())

@@ -101,8 +101,11 @@ def test_step_config_from_jax_carries_the_shape():
     cfg = interop.step_config_from_jax(jcfg)
     assert (cfg.block_size, cfg.nl_query_rows, cfg.refine_mode) == (256, 32, "aabb")
     assert (cfg.q_rows, cfg.q_rep) == (32, 8)
+    mxu = interop.step_config_from_jax(dataclasses.replace(jcfg, pair_r2="mxu",
+                                                           tile_mode="mxu"))
+    assert (mxu.pair_r2, mxu.tile_mode, mxu.r2_mxu) == ("mxu", "mxu", True)
     with pytest.raises(ValueError, match="pair_r2"):
-        interop.step_config_from_jax(dataclasses.replace(jcfg, pair_r2="mxu"))
+        tstep.StepConfig(pair_r2="tf32")
     with pytest.raises(ValueError, match="refine_mode"):
         tstep.StepConfig(refine_mode="boxes")
 
