@@ -1,0 +1,12 @@
+"""Device milliseconds of the work launched inside each reuse substep's
+call (the passes over the carried tables), followed
+by the profiler's correlation from each launch to its device operation;
+the mean over the profiled segment's reuses."""
+
+from benchmark import devtrace
+
+
+def read(ctx):
+    tr = ctx.get("trace")
+    per = devtrace.device_time_by_range(tr, "reuse") if tr else []
+    return 1e-3 * sum(per) / len(per) if per and sum(per) > 0 else None
