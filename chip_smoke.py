@@ -1786,9 +1786,11 @@ def phase4_profile(logdir, st, dt, params, scene, cfg, reps=5):
             sync(st.device)
             wall_ms = 1000.0 * (time.perf_counter() - t0)
         # the device's own entries (kernels, copies): an op's device time
-        # is its kernels' again, and the annotation's range spans them all
+        # is its kernels' again, and an annotation's range (this one's, the
+        # program's spans) spans them all
         events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.key != f"{name} substep"]
+                  if e.device_type == DeviceType.CUDA and e.key != f"{name} substep"
+                  and not getattr(e, "is_user_annotation", False)]
         device_ms = sum(e.self_device_time_total for e in events) / 1e3
         top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
         log(f"phase 4 profile, 1M {name} substep: device {device_ms:.3f} ms of a "

@@ -17,7 +17,8 @@ Two runs on bench_torch's dam-break at ``--n``, in each rank's process:
 Each run's ``--steps`` substeps are timed once without the profiler (the
 device synchronised around them) and once under ``utils.profiling.trace``,
 with named ranges put around the package's functions for that run only
-(nothing else changes): ``substep``, ``sort`` (``grid.sort_by_cell`` on
+(nothing else changes; in the trace as ``split:<name>``, apart from the
+program's own spans): ``substep``, ``sort`` (``grid.sort_by_cell`` on
 the mesh; on one device ``step.pad_and_sort``: bounds, padding, sort),
 ``exchange`` (``sharded_step.exchange_tables``: the surface set, the
 exchange and the block search), ``block_search``
@@ -56,6 +57,9 @@ STEPS = 8
 TOP = 12
 SINGLE = dict(force_sub8=False, max_candidates_hit16=128)  # chip_smoke.py's SUB16
 HAND = re.compile(r"\b(density|forces|radix)_\w*")
+# the ranges' names in the trace, apart from the program's own spans,
+# some of which share a label (substep, sort, refine, passes)
+PREFIX = "split:"
 
 
 def _targets():
@@ -92,7 +96,7 @@ def ranges():
                 return fn(*args, **kw)
             depth[label] = 1
             try:
-                with profiling.annotate(label):
+                with profiling.annotate(PREFIX + label):
                     return fn(*args, **kw)
             finally:
                 depth[label] = 0
@@ -112,11 +116,12 @@ def split(prof, steps: int, cuda: bool) -> dict:
     """The trace's ranges and device entries, per substep."""
     from torch.autograd import DeviceType
 
-    labels = {label for label, _, _ in _targets()}
+    labels = {PREFIX + label for label, _, _ in _targets()}
     spans = {}
     for e in prof.events():
         if e.name in labels and e.device_type == DeviceType.CPU:
-            r = spans.setdefault(e.name, dict(calls=0, host_ms=0.0, device_ms=0.0))
+            r = spans.setdefault(e.name[len(PREFIX):],
+                                 dict(calls=0, host_ms=0.0, device_ms=0.0))
             r["calls"] += 1
             r["host_ms"] += e.cpu_time_total / 1e3
             r["device_ms"] += e.device_time_total / 1e3
@@ -127,7 +132,8 @@ def split(prof, steps: int, cuda: bool) -> dict:
     if not cuda:
         return out
     entries = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.key not in labels]
+               if e.device_type == DeviceType.CUDA and e.key not in labels
+               and not getattr(e, "is_user_annotation", False)]
     ms = {e.key: e.self_device_time_total / 1e3 / steps for e in entries}
     copies = {}
     for k, v in ms.items():

@@ -73,7 +73,8 @@ def device_ms(fn, tries: int = 3) -> float:
             with profiling.trace(tmp) as prof:
                 fn()
                 bench_torch.sync("cuda")
-            events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)]
         if events:
             return sum(e.self_device_time_total for e in events) / 1e3
     raise RuntimeError(f"{tries} traces recorded no device work")

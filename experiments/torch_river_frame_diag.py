@@ -67,7 +67,8 @@ def device_clock(on: bool):
         with profiling.trace(tmp) as prof:
             yield out
     out[0] = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA) / 1e6
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)) / 1e6
 
 
 def run(n: int = N, frames: int = FRAMES, cap: int = CAP, scene: str = "river",

@@ -59,6 +59,7 @@ from ..io.async_saver import AsyncSaver
 from ..ops import collisions as collisions_ops
 from ..ops import grid as grid_ops
 from ..scene.scene import Scene
+from ..utils import profiling
 from ..utils.logging import get_logger
 from .step import (
     FLAG_CAND_STALE,
@@ -347,18 +348,19 @@ class SPHSimulation:
         arrays of the whole state (:meth:`_host`); a True return uploads
         them back (re-partitioned over a mesh)."""
         p = self.parameters
-        arrays = arrays.result() if self._root() else None
-        if self.mesh is None:
-            return self._upload(arrays) if cb(arrays, p, is_full_frame) else state
-        write = torch.zeros(1, dtype=torch.float32, device=self.device)
-        if self._root():
-            write[0] = float(bool(cb(arrays, p, is_full_frame)))
-        if not bool(self.mesh.broadcast(write)[0]):
-            return state
-        from ..parallel import sharded_step
+        with profiling.annotate("callback"):
+            arrays = arrays.result() if self._root() else None
+            if self.mesh is None:
+                return self._upload(arrays) if cb(arrays, p, is_full_frame) else state
+            write = torch.zeros(1, dtype=torch.float32, device=self.device)
+            if self._root():
+                write[0] = float(bool(cb(arrays, p, is_full_frame)))
+            if not bool(self.mesh.broadcast(write)[0]):
+                return state
+            from ..parallel import sharded_step
 
-        return sharded_step.scatter_state(self.mesh, self._upload(arrays) if self._root()
-                                          else None, p, self.step_config, p.particles_count)
+            return sharded_step.scatter_state(self.mesh, self._upload(arrays) if self._root()
+                                              else None, p, self.step_config, p.particles_count)
 
     def _view(self, state):
         real = self._gathered(state)
@@ -387,6 +389,7 @@ class SPHSimulation:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(real.device))
         arrays = Future()
+        handoff = profiling.current()  # the saver's spans name the span that handed over
 
         def fetch():
             if event is None:
@@ -398,16 +401,20 @@ class SPHSimulation:
 
         def run():
             try:
-                host = fetch()
+                with profiling.annotate("saver.fetch", parent=handoff):
+                    host = fetch()
             except BaseException as e:
                 arrays.set_exception(e)
                 raise
+            if profiling.active():
+                profiling.count("saver.bytes", sum(v.nbytes for v in host.values()))
             saved = {k: v.copy() for k, v in host.items()} if save_cb and callbacks else host
             arrays.set_result(host)
             if save_cb is not None:
-                save_cb(saved, p)
-                if ckpt:
-                    ckpt_mod.save_checkpoint(ckpt, saved, p)
+                with profiling.annotate("saver.save", parent=handoff):
+                    save_cb(saved, p)
+                    if ckpt:
+                        ckpt_mod.save_checkpoint(ckpt, saved, p)
 
         saver.submit(run)
         return arrays
@@ -422,72 +429,79 @@ class SPHSimulation:
         dev = self.device
 
         t_start = _time.perf_counter()
-        self.device_scene = collisions_ops.build_device_scene(self.current_scene, dev)
-        state = self.init_particles()
-        if self.mesh is not None:
-            from ..parallel import sharded_step
+        with profiling.annotate("simulate"):
+            with profiling.annotate("simulate.start"):
+                self.device_scene = collisions_ops.build_device_scene(self.current_scene, dev)
+                state = self.init_particles()
+                if self.mesh is not None:
+                    from ..parallel import sharded_step
 
-            world, cfg = self.mesh.world, self.step_config
-            if self.exchange in ("halo", "ring") and not self.halo_max:
-                self.halo_max = sharded_step.default_halo_max(p.particles_count, world,
-                                                              cfg.block_size)
-            state = sharded_step.local_rows(sharded_step.pad_for_mesh(state, p, world, cfg),
-                                            self.mesh.rank, world)
-        elif self.pretune is True or (
-            self.pretune == "auto" and p.particles_count >= PRETUNE_AUTO_MIN
-        ):
-            from . import pretune as pretune_mod
+                    world, cfg = self.mesh.world, self.step_config
+                    if self.exchange in ("halo", "ring") and not self.halo_max:
+                        self.halo_max = sharded_step.default_halo_max(
+                            p.particles_count, world, cfg.block_size)
+                    state = sharded_step.local_rows(
+                        sharded_step.pad_for_mesh(state, p, world, cfg), self.mesh.rank, world)
+                elif self.pretune is True or (
+                    self.pretune == "auto" and p.particles_count >= PRETUNE_AUTO_MIN
+                ):
+                    from . import pretune as pretune_mod
 
-            self.step_config, self.pretune_stats = pretune_mod.pretune_config(
-                state, p, self.step_config
-            )
-        hooks = self._hooks()
-        saver = AsyncSaver()
-        callbacks = hooks["pre_frame"] or hooks["post_frame"]
-        # the one host copy of ``state`` (a future, fetched on the saver
-        # thread), kept until the state changes
-        cache = [None, None]
+                    self.step_config, self.pretune_stats = pretune_mod.pretune_config(
+                        state, p, self.step_config
+                    )
+                hooks = self._hooks()
+                saver = AsyncSaver()
+                callbacks = hooks["pre_frame"] or hooks["post_frame"]
+                # the one host copy of ``state`` (a future, fetched on the saver
+                # thread), kept until the state changes
+                cache = [None, None]
 
-        def host(state, save=False):
-            if save or cache[0] is not state:
-                cache[:] = state, self._host(saver, state, save, callbacks)
-            return cache[1]
+                def host(state, save=False):
+                    if save or cache[0] is not state:
+                        cache[:] = state, self._host(saver, state, save, callbacks)
+                    return cache[1]
 
-        timeperframe = p.frame_time
-        dt = torch.tensor(timeperframe * p.simulation_scale, dtype=torch.float32, device=dev)
-        sim_time = 0.0
-        current_frame = 2  # reference starts at 2 (sph_simulation.cpp:365)
+                timeperframe = p.frame_time
+                dt = torch.tensor(timeperframe * p.simulation_scale, dtype=torch.float32,
+                                  device=dev)
+                sim_time = 0.0
+                current_frame = 2  # reference starts at 2 (sph_simulation.cpp:365)
 
-        if hooks["device_view"]:  # the initial frame, like the initial save
-            self._view(state)
-        if hooks["save_frame"]:
-            host(state, save=True)
-        fast_path = not self.write_intermediate_frames
-
-        try:
-            while sim_time < p.simulation_time:
-                if self._root():
-                    log.info("Simulating frame %d (%gs)", current_frame, sim_time)
-                if fast_path:
-                    if hooks["pre_frame"]:
-                        state = self._callback(self.pre_frame, state, host(state), True)
-                    state, dt = self._run_frame(state, dt)
-                else:
-                    state, dt = self._run_frame_per_substep(state, dt, host, hooks)
-                sim_time += timeperframe
-                current_frame += 1
-                if hooks["device_view"]:
+                if hooks["device_view"]:  # the initial frame, like the initial save
                     self._view(state)
-                if fast_path and hooks["save_frame"]:
+                if hooks["save_frame"]:
                     host(state, save=True)
-                if fast_path and hooks["post_frame"]:
-                    state = self._callback(self.post_frame, state, host(state), True)
-        finally:
-            saver.close()
-        # on a mesh every rank gets the whole simulation, not its shard
-        self.state = self._gathered(state)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            fast_path = not self.write_intermediate_frames
+
+            try:
+                while sim_time < p.simulation_time:
+                    with profiling.annotate("frame") as span:
+                        retries = self.capacity_retries
+                        if self._root():
+                            log.info("Simulating frame %d (%gs)", current_frame, sim_time)
+                        if fast_path:
+                            if hooks["pre_frame"]:
+                                state = self._callback(self.pre_frame, state, host(state), True)
+                            state, dt = self._run_frame(state, dt)
+                        else:
+                            state, dt = self._run_frame_per_substep(state, dt, host, hooks)
+                        sim_time += timeperframe
+                        current_frame += 1
+                        if hooks["device_view"]:
+                            self._view(state)
+                        if fast_path and hooks["save_frame"]:
+                            host(state, save=True)
+                        if fast_path and hooks["post_frame"]:
+                            state = self._callback(self.post_frame, state, host(state), True)
+                        if span:
+                            span.set(capacity_retries=self.capacity_retries - retries)
+            finally:
+                saver.close()
+            # on a mesh every rank gets the whole simulation, not its shard
+            self.state = self._gathered(state)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return _time.perf_counter() - t_start
 
     def _run_frame(self, state, dt):

@@ -73,6 +73,12 @@ fire) and reads them all back at the chunk's end in one ``tolist()``
 before the first that fired and runs that one by the exact path (the
 host retry loop, or a rebuild), so the results are those of a loop that
 read each predicate before it acted.
+
+Both open the program's spans (:mod:`utils.profiling`): ``dispatch``,
+its ``chunk`` and ``host_read`` spans, and ``substep`` with its stages
+``sort`` (:func:`pad_and_sort`), ``search`` and ``refine``
+(:func:`build_candidates`), ``passes`` (the density and force passes) and
+``advect`` (advection, collision, the next dt, a retry's re-advance).
 """
 
 from __future__ import annotations
@@ -94,6 +100,7 @@ from ..ops import neighbors as neighbors_ops
 from ..ops import tiles as tiles_ops
 from ..ops import kernels
 from ..ops.kernels.blocks import BLOCK_SIZES
+from ..utils import profiling
 
 # Bits of the substep's status flag (int32), as in the JAX package:
 FLAG_CAPACITY = 1  # block-level candidate capacity / the exact impl's cell capacity
@@ -315,37 +322,39 @@ def build_candidates(state: ParticleState, real: torch.Tensor,
     cap_sub = config.max_candidates_sub * (config.tier2_mult if config.two_tier else 1)
     pos_b = state.position.reshape(nb, bsize, 3)
     real_b = real.reshape(nb, bsize)
-    bmin, bmax = tiles_ops.split_block_bounds(pos_b, real_b)
-    cand, count, ovf = tiles_ops.candidate_blocks_auto(
-        bmin, bmax, h_search, config.max_candidates
-    )
-    if q_rep > 1:  # each query block starts from its parent's list
-        cand = torch.repeat_interleave(cand, q_rep, dim=0)
-        count = torch.repeat_interleave(count, q_rep)
-    nb_q = nb * q_rep
-    self_lo = (torch.arange(nb_q, dtype=torch.int32, device=state.device) // q_rep) * sub
-    if config.refine_mode == "exact":
-        if q_rep > 1:  # the split boxes of each query block's rows
-            qlo, qhi = tiles_ops.split_block_bounds(state.position.reshape(nb_q, q_rows, 3),
-                                                    real.reshape(nb_q, q_rows))
-        else:
-            qlo, qhi = bmin, bmax
-        cand_sub, count_sub, ovf2 = tiles_ops.refine_candidates_exact(
-            cand, count, qlo, qhi, pos_b, h_search, sub, cap_sub,
-            self_lo=self_lo, self_width=sub,
+    with profiling.annotate("search"):
+        bmin, bmax = tiles_ops.split_block_bounds(pos_b, real_b)
+        cand, count, ovf = tiles_ops.candidate_blocks_auto(
+            bmin, bmax, h_search, config.max_candidates
         )
-    else:
-        sub_lo, sub_hi = tiles_ops.subblock_bounds(pos_b, real_b, sub)
-        if q_rep > 1:  # one box of each query block's rows
-            qlo, qhi = tiles_ops.subblock_bounds(pos_b, real_b, q_rep)
-            qlo, qhi = qlo[:, None, :], qhi[:, None, :]
+    with profiling.annotate("refine"):
+        if q_rep > 1:  # each query block starts from its parent's list
+            cand = torch.repeat_interleave(cand, q_rep, dim=0)
+            count = torch.repeat_interleave(count, q_rep)
+        nb_q = nb * q_rep
+        self_lo = (torch.arange(nb_q, dtype=torch.int32, device=state.device) // q_rep) * sub
+        if config.refine_mode == "exact":
+            if q_rep > 1:  # the split boxes of each query block's rows
+                qlo, qhi = tiles_ops.split_block_bounds(
+                    state.position.reshape(nb_q, q_rows, 3), real.reshape(nb_q, q_rows))
+            else:
+                qlo, qhi = bmin, bmax
+            cand_sub, count_sub, ovf2 = tiles_ops.refine_candidates_exact(
+                cand, count, qlo, qhi, pos_b, h_search, sub, cap_sub,
+                self_lo=self_lo, self_width=sub,
+            )
         else:
-            qlo, qhi = bmin, bmax
-        cand_sub, count_sub, ovf2 = tiles_ops.refine_candidates(
-            cand, count, qlo, qhi, sub_lo, sub_hi, h_search, sub, cap_sub,
-            self_lo=self_lo, self_width=sub,
-        )
-    flags = ovf.to(torch.int32) * FLAG_CAPACITY + ovf2.to(torch.int32) * FLAG_CAPACITY_SUB
+            sub_lo, sub_hi = tiles_ops.subblock_bounds(pos_b, real_b, sub)
+            if q_rep > 1:  # one box of each query block's rows
+                qlo, qhi = tiles_ops.subblock_bounds(pos_b, real_b, q_rep)
+                qlo, qhi = qlo[:, None, :], qhi[:, None, :]
+            else:
+                qlo, qhi = bmin, bmax
+            cand_sub, count_sub, ovf2 = tiles_ops.refine_candidates(
+                cand, count, qlo, qhi, sub_lo, sub_hi, h_search, sub, cap_sub,
+                self_lo=self_lo, self_width=sub,
+            )
+        flags = ovf.to(torch.int32) * FLAG_CAPACITY + ovf2.to(torch.int32) * FLAG_CAPACITY_SUB
     return cand_sub, count_sub, flags
 
 
@@ -484,49 +493,50 @@ def _density_forces_nl(state: ParticleState, real: torch.Tensor,
     if cand_in is None:
         cand_sub, count_sub, flags = build_candidates(state, real, params, config)
         pos_anchor = state.position
-    else:
-        # carried lists were built against pos_anchor at (1 + slack) h: a
-        # pair can close by at most twice the largest displacement since
-        # (the same bound covers the gate's dilated tile counts)
-        cand_sub, count_sub, pos_anchor = cand_in[:3]
-        if gate:
-            mask = cand_in[3]
-        d2 = torch.sum((state.position - pos_anchor) ** 2, dim=1)
-        d2max = torch.amax(torch.where(real, d2, 0.0))
-        stale = 4.0 * d2max > (config.cand_slack * params.h) ** 2
-        flags = stale.to(torch.int32) * FLAG_CAND_STALE
-    center = domain_center(state.position, real) if config.r2_mxu else None
-    pos4 = kernels.pos_pack(state.position, real, center)
-    if config.two_tier:
-        # the carried table is the one built here, at the tier-2 width
-        density, pressure, accel, flags = two_tier_passes(
-            state, real, pos4, params, config, cand_sub, count_sub, flags, center=center
-        )
-        cand_out = (cand_sub, count_sub, pos_anchor) if config.cand_interval > 1 else None
-        return density, pressure, accel, flags, cand_out
+    with profiling.annotate("passes"):
+        if cand_in is not None:
+            # carried lists were built against pos_anchor at (1 + slack) h: a
+            # pair can close by at most twice the largest displacement since
+            # (the same bound covers the gate's dilated tile counts)
+            cand_sub, count_sub, pos_anchor = cand_in[:3]
+            if gate:
+                mask = cand_in[3]
+            d2 = torch.sum((state.position - pos_anchor) ** 2, dim=1)
+            d2max = torch.amax(torch.where(real, d2, 0.0))
+            stale = 4.0 * d2max > (config.cand_slack * params.h) ** 2
+            flags = stale.to(torch.int32) * FLAG_CAND_STALE
+        center = domain_center(state.position, real) if config.r2_mxu else None
+        pos4 = kernels.pos_pack(state.position, real, center)
+        if config.two_tier:
+            # the carried table is the one built here, at the tier-2 width
+            density, pressure, accel, flags = two_tier_passes(
+                state, real, pos4, params, config, cand_sub, count_sub, flags, center=center
+            )
+            cand_out = (cand_sub, count_sub, pos_anchor) if config.cand_interval > 1 else None
+            return density, pressure, accel, flags, cand_out
 
-    groups = _groups(config, 1)
-    if gate and mask is not None:
-        density, hits = kernels.density_gated16(pos4, cand_sub.contiguous(),
-                                                count_sub.contiguous(), mask, params)
-    elif gate:
-        density, hits, tiles = kernels.density_c16(
-            pos4, cand_sub.contiguous(), count_sub.contiguous(), params, hit_sub=16,
-            hit2_h=params.h * (1.0 + config.cand_slack), r2_mxu=config.r2_mxu)
-        mask = kernels.pack_tile_nibbles(tiles)
-    else:
-        density, hits = _density_pass(pos4, cand_sub, count_sub, params, config, groups)
-    cand_out = None
-    if config.cand_interval > 1:
-        cand_out = (cand_sub, count_sub, pos_anchor) + ((mask,) if gate else ())
-    if config.hit_compact:
-        cand_f, count_f, hit_flags = hit_lists(cand_sub, hits, config, groups)
-        flags = flags + hit_flags
-    else:  # the whole-block pass over the full refined lists (step.py:684-689)
-        cand_f, count_f = cand_sub.contiguous(), count_sub.contiguous()
-    pressure, f8 = _pressure_and_pack(state, real, density, params, center)
-    accel = _force_pass(f8, density, real, cand_f, count_f, params, config, groups)
-    return density, pressure, accel, flags, cand_out
+        groups = _groups(config, 1)
+        if gate and mask is not None:
+            density, hits = kernels.density_gated16(pos4, cand_sub.contiguous(),
+                                                    count_sub.contiguous(), mask, params)
+        elif gate:
+            density, hits, tiles = kernels.density_c16(
+                pos4, cand_sub.contiguous(), count_sub.contiguous(), params, hit_sub=16,
+                hit2_h=params.h * (1.0 + config.cand_slack), r2_mxu=config.r2_mxu)
+            mask = kernels.pack_tile_nibbles(tiles)
+        else:
+            density, hits = _density_pass(pos4, cand_sub, count_sub, params, config, groups)
+        cand_out = None
+        if config.cand_interval > 1:
+            cand_out = (cand_sub, count_sub, pos_anchor) + ((mask,) if gate else ())
+        if config.hit_compact:
+            cand_f, count_f, hit_flags = hit_lists(cand_sub, hits, config, groups)
+            flags = flags + hit_flags
+        else:  # the whole-block pass over the full refined lists (step.py:684-689)
+            cand_f, count_f = cand_sub.contiguous(), count_sub.contiguous()
+        pressure, f8 = _pressure_and_pack(state, real, density, params, center)
+        accel = _force_pass(f8, density, real, cand_f, count_f, params, config, groups)
+        return density, pressure, accel, flags, cand_out
 
 
 def two_tier_passes(state, real, pos4, params, config, cand_full, count_sub, flags,
@@ -682,13 +692,14 @@ def _density_forces(state: ParticleState, real: torch.Tensor,
                     params: SimulationParameters, config: StepConfig, cand_in=None):
     """The substep's density and force passes for ``config``'s impl and
     variant. Returns (density, pressure, accel, flags, cand_out)."""
-    if config.neighbor_impl == "exact":
-        return _density_forces_exact(state, params, config) + (None,)
-    if config.neighbor_impl == "tiles":
-        return _density_forces_tiles(state, real, params, config) + (None,)
-    if config.pallas_variant in BLOCK_VARIANTS:
+    if config.nl_kernels:
+        return _density_forces_nl(state, real, params, config, cand_in=cand_in)
+    with profiling.annotate("passes"):
+        if config.neighbor_impl == "exact":
+            return _density_forces_exact(state, params, config) + (None,)
+        if config.neighbor_impl == "tiles":
+            return _density_forces_tiles(state, real, params, config) + (None,)
         return _density_forces_blocks(state, real, params, config) + (None,)
-    return _density_forces_nl(state, real, params, config, cand_in=cand_in)
 
 
 def _advect_collide(state: ParticleState, scene, dt, params: SimulationParameters):
@@ -765,7 +776,8 @@ def host_read(t: torch.Tensor) -> list:
     """The frame loops' one way to the host: ``t.tolist()``, counted in
     ``host_read.count`` (as the kernel wrappers count their launches)."""
     host_read.count += 1
-    return t.tolist()
+    with profiling.annotate("host_read"):
+        return t.tolist()
 
 
 host_read.count = 0
@@ -813,35 +825,44 @@ def substep(state: ParticleState, dt: torch.Tensor, params: SimulationParameters
             "candidate reuse substeps must skip the sort (do_sort=False): "
             "the carried ids index the sorted order"
         )
-    state, real, grid_bad = pad_and_sort(state, params, do_sort,
-                                         exact=config.neighbor_impl == "exact",
-                                         block_size=config.block_size)
-    density, pressure, accel, cap_flags, cand_out = _density_forces(
-        state, real, params, config, cand_in=cand_in
-    )
-    state = state.replace(density=density, pressure=pressure, acceleration=accel)
-    state = state.map(lambda a: a[:n])  # drop the sentinel tail
-
-    # adaptive dt with retry (sph_simulation.cpp:246-262)
-    def advance(dt_try):
-        new_state = _advect_collide(state, scene, dt_try, params)
-        dt_next = integrate_ops.compute_time_step(
-            new_state.velocity, new_state.acceleration, params
+    with profiling.annotate("substep") as span:
+        if span:
+            span.set(kind="rebuild" if cand_in is None else "reuse")
+        with profiling.annotate("sort"):
+            state, real, grid_bad = pad_and_sort(state, params, do_sort,
+                                                 exact=config.neighbor_impl == "exact",
+                                                 block_size=config.block_size)
+        density, pressure, accel, cap_flags, cand_out = _density_forces(
+            state, real, params, config, cand_in=cand_in
         )
-        return new_state, dt_next
+        state = state.replace(density=density, pressure=pressure, acceleration=accel)
+        state = state.map(lambda a: a[:n])  # drop the sentinel tail
 
-    new_state, dt_out = advance(dt)
-    flags = cap_flags + grid_bad.to(torch.int32) * FLAG_GRID_DIM
-    retry = dt - dt_out > integrate_ops.DT_RETRY_EPS if config.adaptive_dt else None
+        # adaptive dt with retry (sph_simulation.cpp:246-262)
+        def advance(dt_try):
+            new_state = _advect_collide(state, scene, dt_try, params)
+            dt_next = integrate_ops.compute_time_step(
+                new_state.velocity, new_state.acceleration, params
+            )
+            return new_state, dt_next
 
-    def finish(retry=None):
-        return retry_loop(advance, dt, new_state, dt_out, retry)
+        def readvance(dt_try):  # the retry loop's advances, in the dispatch
+            with profiling.annotate("advect"):
+                return advance(dt_try)
 
-    if speculative:
-        return new_state, dt_out, flags, cand_out, retry, finish
-    if retry is not None:
-        new_state, dt_out = finish()
-    return new_state, dt_out, flags, cand_out
+        with profiling.annotate("advect"):
+            new_state, dt_out = advance(dt)
+            flags = cap_flags + grid_bad.to(torch.int32) * FLAG_GRID_DIM
+            retry = dt - dt_out > integrate_ops.DT_RETRY_EPS if config.adaptive_dt else None
+
+        def finish(retry=None):
+            return retry_loop(readvance, dt, new_state, dt_out, retry)
+
+        if speculative:
+            return new_state, dt_out, flags, cand_out, retry, finish
+        if retry is not None:
+            new_state, dt_out = finish()
+        return new_state, dt_out, flags, cand_out
 
 
 def count_substep(stats: Optional[dict], rebuild: bool, tables, config: StepConfig):
@@ -923,134 +944,144 @@ def dispatch(state: ParticleState, dt: torch.Tensor, timeleft: Optional[torch.Te
     run and not committed) and ``reads``. Returns (state, dt, timeleft,
     flags), flags ORed over the committed substeps: the results of a loop
     that reads each predicate before it acts on it."""
-    timed = timeleft is not None
-    period = ci if ci > 1 else SPEC_PERIOD
-    flags = torch.zeros((), dtype=torch.int32, device=state.device)
-    host_flags = 0
-    tables = None
-    n = 0
-    known = None  # (time left, stale) of substep n, read already
-    streak = period  # substeps run since the last stop
-    left = None  # substeps the frame has left, from the last read
-    stops = dict(time=0, stale=0, retry=0)
-    events = []  # (substep, predicate) of each stop
-    wasted = 0
-    reads0 = host_read.count
+    with profiling.annotate("dispatch") as span:
+        timed = timeleft is not None
+        period = ci if ci > 1 else SPEC_PERIOD
+        flags = torch.zeros((), dtype=torch.int32, device=state.device)
+        host_flags = 0
+        tables = None
+        n = 0
+        known = None  # (time left, stale) of substep n, read already
+        streak = period  # substeps run since the last stop
+        left = None  # substeps the frame has left, from the last read
+        stops = dict(time=0, stale=0, retry=0)
+        events = []  # (substep, predicate) of each stop
+        wasted = 0
+        ran = committed = 0  # substeps run and committed (the dispatch span's attributes)
+        reads0 = host_read.count
 
-    def read(preds: list) -> list:
-        vec = torch.stack([p.to(torch.float32) for p in preds])
-        return host_read(combine(vec) if combine is not None else vec)
+        def read(preds: list) -> list:
+            vec = torch.stack([p.to(torch.float32) for p in preds])
+            return host_read(combine(vec) if combine is not None else vec)
 
-    def next_preds(st, tb, tl, k: int) -> list:
-        """Substep k's predicates: time left and, before a reuse, stale."""
-        preds = [tl > 0.0] if timed else []
-        if stale is not None and tb is not None and k < steps and k % ci != 0:
-            preds.append(stale(st, tb))
-        return preds
+        def next_preds(st, tb, tl, k: int) -> list:
+            """Substep k's predicates: time left and, before a reuse, stale."""
+            preds = [tl > 0.0] if timed else []
+            if stale is not None and tb is not None and k < steps and k % ci != 0:
+                preds.append(stale(st, tb))
+            return preds
 
-    def known_from(vals: list):
-        """(time left, stale) from :func:`next_preds`' values; None where
-        none were read."""
-        if not vals:
-            return None
-        return (bool(vals[0]) if timed else True), len(vals) > timed and bool(vals[-1])
+        def known_from(vals: list):
+            """(time left, stale) from :func:`next_preds`' values; None where
+            none were read."""
+            if not vals:
+                return None
+            return (bool(vals[0]) if timed else True), len(vals) > timed and bool(vals[-1])
 
-    def advance_time(tl, dt_next):
-        if not timed:
-            return None, dt_next
-        tl_new = tl - dt_next
-        return tl_new, torch.where(tl_new < dt_next, tl_new, dt_next)
+        def advance_time(tl, dt_next):
+            if not timed:
+                return None, dt_next
+            tl_new = tl - dt_next
+            return tl_new, torch.where(tl_new < dt_next, tl_new, dt_next)
 
-    def commit(sp: _Spec, new_state, dt_next, flag_bits: int):
-        nonlocal state, tables, flags, host_flags, timeleft, dt
-        state, tables = new_state, sp.tables
-        timeleft, dt = advance_time(timeleft, dt_next)
-        flags = flags | sp.flags
-        host_flags |= flag_bits
-        if on_commit is not None:
-            on_commit(sp.n, sp.rebuild, sp.before, new_state, dt_next, sp.flags, sp.tables)
+        def commit(sp: _Spec, new_state, dt_next, flag_bits: int):
+            nonlocal state, tables, flags, host_flags, timeleft, dt, committed
+            committed += 1
+            state, tables = new_state, sp.tables
+            timeleft, dt = advance_time(timeleft, dt_next)
+            flags = flags | sp.flags
+            host_flags |= flag_bits
+            if on_commit is not None:
+                on_commit(sp.n, sp.rebuild, sp.before, new_state, dt_next, sp.flags, sp.tables)
 
-    def estimate(tl_h: float, d_h: float):
-        return math.ceil(tl_h / d_h) if d_h > 0.0 and tl_h < d_h * 1e6 else None
+        def estimate(tl_h: float, d_h: float):
+            return math.ceil(tl_h / d_h) if d_h > 0.0 and tl_h < d_h * 1e6 else None
 
-    if timed and steps > 0:  # the dispatch's own read: the time left, and dt
-        vals = read([timeleft > 0.0, timeleft, dt])
-        known, left = (bool(vals[0]), False), estimate(vals[1], vals[2])
-    while n < steps and (known is None or known[0]):
-        end = min(steps, (n // period + 1) * period) if streak >= period else n + 1
-        if left is not None:
-            end = min(end, n + max(1, left))
-        chunk, preds = [], []
-        st, d, tl, tb = state, dt, timeleft, tables
-        for k in range(n, end):
-            first_known = k == n and known is not None
-            rebuild = tb is None or k % ci == 0 or (first_known and known[1])
-            at_time = at_stale = at_retry = None
-            if not first_known:
+        if timed and steps > 0:  # the dispatch's own read: the time left, and dt
+            vals = read([timeleft > 0.0, timeleft, dt])
+            known, left = (bool(vals[0]), False), estimate(vals[1], vals[2])
+        while n < steps and (known is None or known[0]):
+            with profiling.annotate("chunk") as chunk_span:
+                end = min(steps, (n // period + 1) * period) if streak >= period else n + 1
+                if left is not None:
+                    end = min(end, n + max(1, left))
+                chunk, preds = [], []
+                st, d, tl, tb = state, dt, timeleft, tables
+                for k in range(n, end):
+                    first_known = k == n and known is not None
+                    rebuild = tb is None or k % ci == 0 or (first_known and known[1])
+                    at_time = at_stale = at_retry = None
+                    if not first_known:
+                        if timed:
+                            at_time = len(preds)
+                            preds.append(tl > 0.0)
+                        if not rebuild and stale is not None:
+                            at_stale = len(preds)
+                            preds.append(stale(st, tb))
+                    new, dt_next, f, tb_out, retry, finish = run(st, d, k, tb, rebuild)
+                    ran += 1
+                    if retry is not None:
+                        at_retry = len(preds)
+                        preds.append(retry)
+                    preds.append(f)
+                    tb = tb_out if rebuild else tb
+                    chunk.append(_Spec(k, rebuild, st, new, dt_next, f, tb, finish, at_time,
+                                       at_stale, at_retry, len(preds) - 1))
+                    st = new
+                    tl, d = advance_time(tl, dt_next)
+                at_end = len(preds)
+                preds += next_preds(st, tb, tl, end)
+                at_tail = len(preds)
                 if timed:
-                    at_time = len(preds)
-                    preds.append(tl > 0.0)
-                if not rebuild and stale is not None:
-                    at_stale = len(preds)
-                    preds.append(stale(st, tb))
-            new, dt_next, f, tb_out, retry, finish = run(st, d, k, tb, rebuild)
-            if retry is not None:
-                at_retry = len(preds)
-                preds.append(retry)
-            preds.append(f)
-            tb = tb_out if rebuild else tb
-            chunk.append(_Spec(k, rebuild, st, new, dt_next, f, tb, finish, at_time, at_stale,
-                               at_retry, len(preds) - 1))
-            st = new
-            tl, d = advance_time(tl, dt_next)
-        at_end = len(preds)
-        preds += next_preds(st, tb, tl, end)
-        at_tail = len(preds)
-        if timed:
-            preds += [tl, d]
-        vals = read(preds)
+                    preds += [tl, d]
+                vals = read(preds)
 
-        stop = None
-        for sp in chunk:
-            if sp.at_time is not None and not vals[sp.at_time]:
-                stop = "time"
-            elif sp.at_stale is not None and vals[sp.at_stale]:
-                stop = "stale"
-            elif sp.at_retry is not None and vals[sp.at_retry]:
-                stop = "retry"
-            if stop is not None:
-                break
-            commit(sp, sp.state, sp.dt_next, int(vals[sp.at_flags]))
-        if stop is None:
-            n, streak = end, streak + end - n
-            known = known_from(vals[at_end:at_tail])
-            if timed:
-                left = estimate(vals[-2], vals[-1])
-            if known is not None and known[1]:  # it would have stopped a longer chunk
-                streak = 0
-            continue
-        wasted += sum(1 for c in chunk if c.n > sp.n) + (stop != "retry")
-        stops[stop] += 1
-        events.append((sp.n, stop))
-        streak, left = 0, None
-        if stop == "time":
-            known = (False, False)
-            break
-        if stop == "stale":  # run it again as a rebuild; its time left was read
-            n, known = sp.n, (True, True)
-            continue
-        new_state, dt_next = sp.finish(True)  # the retry loop, from its first advance
-        commit(sp, new_state, dt_next, int(vals[sp.at_flags]))
-        n = sp.n + 1
-        preds = next_preds(state, tables, timeleft, n)
-        known = known_from(read(preds) if preds else [])
-        if known is not None and known[1]:
-            streak = 0
-    if host is not None:
-        host.update(more=known[0] if timed and steps > 0 else None, flags=host_flags,
-                    stops=stops, events=events, wasted=wasted,
-                    reads=host_read.count - reads0)
-    return state, dt, timeleft, flags
+                stop = None
+                for sp in chunk:
+                    if sp.at_time is not None and not vals[sp.at_time]:
+                        stop = "time"
+                    elif sp.at_stale is not None and vals[sp.at_stale]:
+                        stop = "stale"
+                    elif sp.at_retry is not None and vals[sp.at_retry]:
+                        stop = "retry"
+                    if stop is not None:
+                        break
+                    commit(sp, sp.state, sp.dt_next, int(vals[sp.at_flags]))
+                if chunk_span:
+                    chunk_span.set(first=n, length=end - n, stop=stop)
+                if stop is None:
+                    n, streak = end, streak + end - n
+                    known = known_from(vals[at_end:at_tail])
+                    if timed:
+                        left = estimate(vals[-2], vals[-1])
+                    if known is not None and known[1]:  # it would have stopped a longer chunk
+                        streak = 0
+                    continue
+                wasted += sum(1 for c in chunk if c.n > sp.n) + (stop != "retry")
+                stops[stop] += 1
+                events.append((sp.n, stop))
+                streak, left = 0, None
+                if stop == "time":
+                    known = (False, False)
+                    break
+                if stop == "stale":  # run it again as a rebuild; its time left was read
+                    n, known = sp.n, (True, True)
+                    continue
+                new_state, dt_next = sp.finish(True)  # the retry loop, from its first advance
+                commit(sp, new_state, dt_next, int(vals[sp.at_flags]))
+                n = sp.n + 1
+                preds = next_preds(state, tables, timeleft, n)
+                known = known_from(read(preds) if preds else [])
+                if known is not None and known[1]:
+                    streak = 0
+        if span:
+            span.set(ran=ran, committed=committed, wasted=wasted, stops=dict(stops),
+                     reads=host_read.count - reads0)
+        if host is not None:
+            host.update(more=known[0] if timed and steps > 0 else None, flags=host_flags,
+                        stops=stops, events=events, wasted=wasted,
+                        reads=host_read.count - reads0)
+        return state, dt, timeleft, flags
 
 
 def frame(state: ParticleState, dt: torch.Tensor, timeleft: torch.Tensor,

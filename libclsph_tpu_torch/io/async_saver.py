@@ -6,13 +6,16 @@ save callback on a ``std::thread`` and joining it before the next save
 same pattern with a bounded single-slot worker: ``submit`` joins any
 in-flight save first (so at most one save runs concurrently with the
 device computing the next frame), then hands the host copies to the
-thread.
+thread. The loop thread's time blocked in a join is the span
+``saver.wait`` (:mod:`utils.profiling`).
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Callable, Optional
+
+from ..utils import profiling
 
 
 class AsyncSaver:
@@ -37,7 +40,8 @@ class AsyncSaver:
 
     def join(self) -> None:
         if self._thread is not None:
-            self._thread.join()
+            with profiling.annotate("saver.wait"):
+                self._thread.join()
             self._thread = None
 
     def close(self) -> None:
