@@ -183,6 +183,10 @@ tables with centred packs (densities rtol 1e-5, every hit and tile count
 equal, accelerations atol 1e-5 * max|a|), and times it by CUDA events
 with the direct mode on the same inputs before and after it; the
 records named with " mxu" take those times and the launches of phase 14.
+Phase 2 also holds, at each of its three states (dt = max_dt), the
+advection kernel (``ops/kernels/advect.py``) bit for bit against its
+plain chain on the cube scene: position, velocity, intermediate velocity
+and dt_next; timed as the others, its bound by bytes.
 Phase 2 also holds, at 64k and 1M, the stream kernels
 (``ops/kernels/stream.py``): ``gather_stream`` in both layouts bit for
 bit against its plain version at 8, 16 and 32 particles a slot (the main
@@ -226,7 +230,8 @@ import time
 
 from bench_torch import (bench_mesh, bench_mesh_record, bench_result, card_line,
                          run_substeps, sync, sync_calls, timed_window, warm_up)
-from kernel_bounds import DENSITY_OPS, FORCE_OPS, bound, nbytes, stream_works
+from kernel_bounds import (DENSITY_OPS, FORCE_OPS, advect_work, bound, nbytes,
+                           stream_works)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EXPERIMENTS = os.path.join(ROOT, "experiments")
@@ -255,6 +260,8 @@ BISECT = "experiments/force_kernel_bisect.py:153"
 VARIANTS = "experiments/nl_kernel_variants.py"
 NL_PATHS = ("main", "16-wide", "deep")
 BLOCK_VARIANTS = ("row", "fine", "asym")
+ENGINE_PATHS = NL_PATHS + BLOCK_VARIANTS + ("asm", "exact", "q64", "q32", "b64", "asm32",
+                                            "b64-row", "q32-full", "mesh", "mxu")
 # record name: (wrapper, launch variant or None, source, TPU kernel it
 # replaces, the paths whose launches it counts)
 KERNELS = {
@@ -339,6 +346,9 @@ KERNELS = {
                                   BISECT, ("probe",)),
     "forces_c32_stream test": ("forces_c32_stream", "test", CSRC + "forces_stream.cu",
                                BISECT, ("probe",)),
+    # the advect stage, one launch an advance on every engine path
+    "advect_collide": ("advect_collide", None, CSRC + "advect_collide.cu",
+                       "none (XLA fuses the JAX package's advect stage)", ENGINE_PATHS),
 }
 # the identity mode (StepConfig.pair_r2 = "mxu"): each kernel mode's twin,
 # counted under its variant with ", mxu" (the force kernels without
@@ -544,9 +554,9 @@ def compare_kernels(tag, t, stats, time_it):
 
 
 def kernel_fn(name):
-    from libclsph_tpu_torch.ops.kernels import density, forces, radix, stream
+    from libclsph_tpu_torch.ops.kernels import advect, density, forces, radix, stream
 
-    for mod in (density, forces, radix, stream):
+    for mod in (advect, density, forces, radix, stream):
         if callable(getattr(mod, name, None)):
             return getattr(mod, name)
     raise KeyError(name)
@@ -1381,6 +1391,59 @@ def sort_keys(kind, n, dev):
     p = water_params(n)
     pos = init_state(p, dev).position
     return grid.locate_in_grid(pos, grid.compute_bounds(pos, p))
+
+
+def advect_case(state, dt, params, scene):
+    """The advection kernel's arguments for ``state`` at ``dt`` on
+    ``scene``, and its work (:func:`kernel_bounds.advect_work`): the
+    particles whose advanced position lies in a face box, and those of
+    them that collide."""
+    from libclsph_tpu_torch.ops import collisions, integrate
+
+    args = (state.position, state.intermediate_velocity, state.acceleration, dt, scene,
+            params)
+    adv = integrate.advect(*args[:4])
+    x = adv.new_position
+    in_box = int(((x[:, None] <= scene.bb_max) & (x[:, None] >= scene.bb_min))
+                 .all(-1).any(1).sum())
+    colliding = int(collisions.handle_collisions(scene, x, x, adv.next_velocity,
+                                                 params.restitution, dt)
+                    .collision_happened.sum())
+    return args, advect_work(x.shape[0], in_box, colliding), in_box, colliding
+
+
+def check_advect(tag, args) -> None:
+    """The kernel's advance bit for bit against the plain chain's."""
+    import torch
+
+    from libclsph_tpu_torch.ops.kernels import advect
+
+    got = advect.advect_collide(*args)
+    want = advect.advect_collide_torch(*args)
+    for name, g, w in zip(("position", "velocity", "intermediate_velocity", "dt_next"),
+                          got, want):
+        if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+            diff = int((g.view(torch.int32) != w.view(torch.int32)).sum())
+            raise RuntimeError(f"{tag} advect_collide: {name} differs from the plain chain "
+                               f"in {diff} of {w.numel()} values")
+
+
+def compare_advect(tag, state, params, scene, stats, time_it):
+    import torch
+
+    from libclsph_tpu_torch.ops.kernels import advect
+
+    dt = torch.tensor(params.max_dt, dtype=torch.float32, device=state.device)
+    args, work, in_box, colliding = advect_case(state, dt, params, scene)
+    check_advect(f"phase 2 {tag}", args)
+    record_err(stats, "advect_collide", 0.0)
+    line = (f"phase 2 {tag}: advect_collide bit for bit against the plain chain ({in_box} "
+            f"particles in a face box, {colliding} colliding);")
+    if time_it:
+        line += time_kernel(stats, "advect_collide", tag,
+                            lambda: advect.advect_collide(*args),
+                            lambda: advect.advect_collide_torch(*args), work)
+    log(line)
 
 
 def compare_radix(tag, stats, dev):
@@ -2904,6 +2967,7 @@ def main(argv=None) -> int:
         compare_sub16_kernels(tag, t16, t32, stats, time_it)
         compare_gated(tag, state, p, scene, engine_for(cell, SUB16), stats, time_it)
         compare_stream(tag, t_main, t_q, t16, stats)
+        compare_advect(tag, state, p, scene, stats, time_it)
         if qblock:
             compare_qblock(tag, t_main, t_q, t16, t32, stats)
         if rows:
@@ -3035,7 +3099,7 @@ def main(argv=None) -> int:
 
     launches = {rec: sum(paths[path][rec] for path in spec[4])
                 for rec, spec in KERNELS.items()}
-    required = {"main": ("density_c16", "forces_q32_c8"),
+    required = {"main": ("density_c16", "forces_q32_c8", "advect_collide"),
                 "16-wide": ("density_c16 hit_sub 16", "density_c16 hit_sub 16, hit2_h",
                             "density_gated16", "forces_q32_c16"),
                 "deep": ("density_c32", "density_c32 groups 1", "density_c32 hit_sub 16",
@@ -3053,7 +3117,8 @@ def main(argv=None) -> int:
                 "b64-row": ("density_blocks row, block 64", "forces_blocks row, block 64"),
                 "q32-full": ("density_c32 densities only, rows 32", "forces_q128_c32 rows 32"),
                 "mesh": ("density_c16 hit_sub 16", "forces_q32_c16", "density_c32",
-                         "density_c32 groups 1", "forces_q32_c32", "forces_q128_c32"),
+                         "density_c32 groups 1", "forces_q32_c32", "forces_q128_c32",
+                         "advect_collide"),
                 "probe": tuple(rec for rec, spec in KERNELS.items() if "probe" in spec[4]),
                 "mxu": tuple(rec for rec, spec in KERNELS.items() if "mxu" in spec[4])}
     for path, recs in required.items():

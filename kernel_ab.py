@@ -4,6 +4,7 @@ another build of the same C interface, on one NVIDIA GPU.
 
     python3 kernel_ab.py --base DIR [--variant NAME=DIR ...] [--out DIR] [--sass]
                          [--sort-tree TREE] [--only stream]
+    python3 kernel_ab.py --only advect [--out DIR]
 
 ``DIR`` holds another tree of ``libclsph_tpu_torch/csrc/`` sources (for
 example an earlier commit's, unpacked under ``build/``). Each tree is
@@ -14,7 +15,10 @@ First the stream kernels (``gather_stream`` in both layouts, every mode
 of ``forces_c32_stream``) on the stream probes' lists, the 1M cube after
 three substeps (the bisect's hit lists and the variants probe's aabb
 lists): bits against the base build and the plain versions, then times
-in turns (:func:`stream_ab`; ``--only stream`` stops there).
+in turns (:func:`stream_ab`; ``--only stream`` stops there). Then the
+advection kernel at 64k and 1M against its plain chain, which no base
+build has (:func:`advect_ab`; ``--only advect`` runs it alone, with no
+base).
 
 On the tables of the 1M cube lattice (those of ``chip_smoke.py``'s phase
 2: the main path's, the 16-wide force path's, the q-granular ones, the
@@ -313,6 +317,60 @@ def cases_1m(dev, libs):
          "density", ("density_c16 hit_sub 16 on the same inputs", "density_",
                      lambda: density.density_c16(*dg[:3], params, hit_sub=16))),
     ]
+
+
+ADVECT_SIZES = (65_536, 1_000_000)  # particles of the advection kernel's cases
+ADVECT_WARMUP = 3  # substeps into the dam-break of its inputs
+
+
+def advect_ab(dev) -> list:
+    """The advection kernel (``ops/kernels/advect.py``) alone at 64k and
+    1M particles, on the cube ADVECT_WARMUP substeps into the dam-break
+    (``bench_torch.warm_up``): its advance bit for bit against the plain
+    chain's, then the two timed in turns (kernel, plain, plain, kernel),
+    by CUDA events (the window also holds the host's launch work, about
+    280 launches for the chain) and by profiler device time (the chain's
+    summed over its launches), with the kernel's bound by bytes
+    (``kernel_bounds.advect_work``). No earlier build has the kernel: the
+    chain is what the parent runs for the stage. Returns the records."""
+    import torch
+
+    from libclsph_tpu_torch.core.state import init_state
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.engine.simulation import SPHSimulation
+    from libclsph_tpu_torch.ops.kernels import advect
+
+    records = []
+    for n in ADVECT_SIZES:
+        params = cs.water_params(n)
+        scene = cs.cube_scene(params, dev)
+        engine = SPHSimulation(step.StepConfig(), device=dev, pretune=False)
+        st, dt = bench_torch.warm_up(init_state(params, dev), params, scene, engine,
+                                     ADVECT_WARMUP)
+        args, work, in_box, colliding = cs.advect_case(st, dt, params, scene)
+        cs.check_advect(f"advect_collide at {n}", args)
+        calls = {"kernel": (lambda: advect.advect_collide(*args), "advect_collide"),
+                 "plain": (lambda: advect.advect_collide_torch(*args), "")}
+        seq = [(name, cs.cuda_ms(calls[name][0]), device_ms(*calls[name]))
+               for name in ("kernel", "plain", "plain", "kernel")]
+        rec = dict(name="advect_collide", n=n, in_box=in_box, colliding=colliding,
+                   bytes=work[0], ops=work[1], bit_equal_plain=True, turns=seq)
+        rec["bound_ms"], rec["bound_by"] = cs.bound(*work)
+        for name in calls:
+            rec[name + "_ms"] = statistics.mean(t for k, t, _ in seq if k == name)
+            rec[name + "_device_ms"] = statistics.mean(d for k, _, d in seq if k == name)
+        rec["share_device"] = rec["bound_ms"] / rec["kernel_device_ms"]
+        print(f"advect_collide at {n} particles ({in_box} in a face box, {colliding} "
+              f"colliding): bit for bit against the plain chain; kernel "
+              f"{rec['kernel_ms']:.4f} ms, device {rec['kernel_device_ms']:.4f}; plain chain "
+              f"{rec['plain_ms']:.4f} ms, device {rec['plain_device_ms']:.4f}; bound "
+              f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+              f"({100 * rec['share_device']:.1f} % of the kernel's device time); turns {seq}",
+              flush=True)
+        records.append(rec)
+        del st, args, engine
+        torch.cuda.empty_cache()
+    return records
 
 
 STREAM_KEYS = {"gather": "gather_stream", "forces": "forces_stream"}
@@ -646,16 +704,20 @@ def compare(kind, out, ref, rows=0) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--base", required=True, help="csrc tree of the base build")
+    ap.add_argument("--base", default=None,
+                    help="csrc tree of the base build (needed but with --only advect)")
     ap.add_argument("--variant", action="append", default=[], metavar="NAME=DIR",
                     help="another csrc tree, timed between the package and the base")
     ap.add_argument("--out", default=str(AB_BUILD))
     ap.add_argument("--sass", action="store_true", help="write each library's SASS")
     ap.add_argument("--sort-tree", default=None, metavar="DIR",
                     help="a whole checkout whose radix sort is timed against the package's")
-    ap.add_argument("--only", choices=("stream",), default=None,
-                    help="run only the stream kernels' cases")
+    ap.add_argument("--only", choices=("stream", "advect"), default=None,
+                    help="run only the stream kernels' cases, or only the advection "
+                    "kernel's (no base build)")
     args = ap.parse_args(argv)
+    if args.base is None and args.only != "advect":
+        ap.error("--base is needed but with --only advect")
 
     import torch
 
@@ -668,12 +730,17 @@ def main(argv=None) -> int:
     dev = configure_device("cuda")
     card = bench_torch.card_line()
     print(f"card: {card}; device {torch.cuda.get_device_name(0)}", flush=True)
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if args.only == "advect":
+        result = dict(card=card, advect=advect_ab(dev))
+        (out_dir / "kernel_ab.json").write_text(json.dumps(result, indent=1))
+        print(json.dumps(result))
+        return 0
     trees = {"base": args.base}
     trees.update(v.split("=", 1) for v in args.variant)
     libs, paths = build_all(trees)
     order = ["package"] + [n for n in trees if n != "base"]
-    out_dir = Path(args.out)
-    out_dir.mkdir(parents=True, exist_ok=True)
     result = dict(card=card, builds={}, cases=[])
     for name, path in paths.items():
         result["builds"][name] = ptxas_report(path)
@@ -692,6 +759,7 @@ def main(argv=None) -> int:
             build._library = libs["package"]
 
     result["stream"] = stream_ab(dev, run_with, order)
+    result["advect"] = advect_ab(dev)
     if args.only == "stream":
         (out_dir / "kernel_ab.json").write_text(json.dumps(result, indent=1))
         print(json.dumps(result))

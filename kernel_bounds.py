@@ -30,6 +30,17 @@ DENSITY_OPS = 16
 FORCE_OPS = 51
 # of which r^2 and the support test
 PAIR_TEST_OPS = 9
+# the advection kernel (csrc/advect_collide.cu): x, v_inter and a read
+# and x, v and v_inter written, 12 bytes each, a particle, and the
+# 32-byte corner row of each particle inside a face box
+ADVECT_PARTICLE_BYTES = 72
+CORNER_ROW_BYTES = 32
+# operations: v+ and x+ (12), v (6), |v|^2 and |a|^2 (10) a particle; the
+# cell and the distance d (77) for a particle inside a face box; the
+# normal, speed and response (136) for one that collides
+ADVECT_OPS = 28
+IN_BOX_OPS = 77
+RESPONSE_OPS = 136
 STREAM_SUB = 32  # particles a slot of the summed streams
 STREAM_ROWS = 128  # queries a list of the summed streams
 
@@ -44,6 +55,14 @@ def bound(nbytes_, ops):
     t_bytes = 1e3 * nbytes_ / PEAK_BYTES
     t_ops = 1e3 * ops / PEAK_FP32
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def advect_work(n, in_box, colliding):
+    """(bytes, operations) of one advance of ``n`` particles, ``in_box``
+    of them inside a face box and ``colliding`` of those below the
+    contact distance."""
+    return (n * ADVECT_PARTICLE_BYTES + in_box * CORNER_ROW_BYTES,
+            n * ADVECT_OPS + in_box * IN_BOX_OPS + colliding * RESPONSE_OPS)
 
 
 def stream_works(f8, dens, real, cand, count, live, pairs_in) -> dict:

@@ -702,22 +702,18 @@ def _density_forces(state: ParticleState, real: torch.Tensor,
         return _density_forces_blocks(state, real, params, config) + (None,)
 
 
-def _advect_collide(state: ParticleState, scene, dt, params: SimulationParameters):
+def _advect_collide(state: ParticleState, scene, dt, params: SimulationParameters,
+                    time_step: bool = True):
     """advection_collision (sphb.cl:177-223): leapfrog, DF response,
-    half-step velocity reconstruction."""
-    adv = integrate_ops.advect(
-        state.position, state.intermediate_velocity, state.acceleration, dt
-    )
-    resp = collisions_ops.handle_collisions(
-        scene, adv.old_position, adv.new_position, adv.next_velocity,
-        params.restitution, dt,
-    )
-    velocity, intermediate = integrate_ops.reconstruct_velocities(
-        state.intermediate_velocity, resp.next_velocity
-    )
-    return state.replace(
-        position=resp.position, velocity=velocity, intermediate_velocity=intermediate
-    )
+    half-step velocity reconstruction and, with ``time_step``, the next
+    dt (computeTimeStep); one kernel on the card
+    (:func:`ops.kernels.advect_collide`). Returns (new_state, dt_next),
+    dt_next None without ``time_step``."""
+    position, velocity, intermediate, dt_next = kernels.advect_collide(
+        state.position, state.intermediate_velocity, state.acceleration, dt, scene, params,
+        time_step=time_step)
+    return state.replace(position=position, velocity=velocity,
+                         intermediate_velocity=intermediate), dt_next
 
 
 def pad_and_sort(state: ParticleState, params: SimulationParameters, do_sort: bool,
@@ -840,11 +836,7 @@ def substep(state: ParticleState, dt: torch.Tensor, params: SimulationParameters
 
         # adaptive dt with retry (sph_simulation.cpp:246-262)
         def advance(dt_try):
-            new_state = _advect_collide(state, scene, dt_try, params)
-            dt_next = integrate_ops.compute_time_step(
-                new_state.velocity, new_state.acceleration, params
-            )
-            return new_state, dt_next
+            return _advect_collide(state, scene, dt_try, params)
 
         def readvance(dt_try):  # the retry loop's advances, in the dispatch
             with profiling.annotate("advect"):

@@ -22,6 +22,7 @@ from .forces import (
     forces_q128_c32,
     forces_q128_c32_torch,
 )
+from .advect import advect_collide, advect_collide_torch
 from .radix import radix_sort, radix_sort_torch, rank_hist_torch
 from .stream import (
     forces_c32_stream,
@@ -38,7 +39,8 @@ from .blocks import (
 )
 
 WRAPPERS = (density_c16, density_c32, density_gated16, forces_q32_c8, forces_q32_c16,
-            forces_q32_c32, forces_q128_c32, radix_sort, gather_stream, forces_c32_stream)
+            forces_q32_c32, forces_q128_c32, radix_sort, gather_stream, forces_c32_stream,
+            advect_collide)
 
 
 def launch_counts() -> dict:
@@ -58,6 +60,8 @@ def reset_launch_counts() -> None:
 __all__ = [
     "launch_counts",
     "reset_launch_counts",
+    "advect_collide",
+    "advect_collide_torch",
     "radix_sort",
     "radix_sort_torch",
     "rank_hist_torch",

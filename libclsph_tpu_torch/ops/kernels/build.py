@@ -49,6 +49,7 @@ SIGNATURES = {
     "radix_sort_launch": [_P] * 2 + [_I] * 4 + [_P] * 7,
     "gather_stream_launch": [_P] * 3 + [_I] * 5 + [_F] + [_P] * 2,
     "forces_stream_launch": [_P] * 5 + [_I] * 3 + [_F] * 14 + [_P, _P],
+    "advect_collide_launch": [_P] * 4 + [_I] + [_P] * 5 + [_I] + [_F] * 4 + [_P] * 6,
 }
 # each identity-mode twin (StepConfig.pair_r2 = "mxu") takes its direct
 # entry point's arguments

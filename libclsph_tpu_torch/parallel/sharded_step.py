@@ -544,8 +544,8 @@ def local_substep(mesh: Mesh, state: ParticleState, dt: torch.Tensor,
     extra = torch.cat([((flags >> bit) & 1).to(torch.float32), d2max[None]])
 
     def advance(dt_try, extra=None):
-        new = _freeze(step_mod._advect_collide(state_s, scene, dt_try, params), state_s,
-                      valid_s)
+        new = _freeze(step_mod._advect_collide(state_s, scene, dt_try, params,
+                                               time_step=False)[0], state_s, valid_s)
         mv2 = torch.amax(torch.where(valid_s, torch.sum(new.velocity ** 2, dim=-1), 0.0))
         ma2 = torch.amax(torch.where(valid_s, torch.sum(new.acceleration ** 2, dim=-1), 0.0))
         parts = [torch.stack([mv2, ma2])] + ([] if extra is None else [extra])
