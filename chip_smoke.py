@@ -186,7 +186,12 @@ records named with " mxu" take those times and the launches of phase 14.
 Phase 2 also holds, at each of its three states (dt = max_dt), the
 advection kernel (``ops/kernels/advect.py``) bit for bit against its
 plain chain on the cube scene: position, velocity, intermediate velocity
-and dt_next; timed as the others, its bound by bytes.
+and dt_next; timed as the others, its bound by bytes. And the exact
+refine's kernel (``ops/kernels/refine.py``) on the main path's rebuild
+inputs (``refine_case``): its keys and counts, then the engine's stage's
+sorted tables, counts and overflow flag, id for id against the plain
+path's; the keys timed against the plain path's, its bound
+``kernel_bounds.refine_exact_work``.
 Phase 2 also holds, at 64k and 1M, the stream kernels
 (``ops/kernels/stream.py``): ``gather_stream`` in both layouts bit for
 bit against its plain version at 8, 16 and 32 particles a slot (the main
@@ -231,7 +236,7 @@ import time
 from bench_torch import (bench_mesh, bench_mesh_record, bench_result, card_line,
                          run_substeps, sync, sync_calls, timed_window, warm_up)
 from kernel_bounds import (DENSITY_OPS, FORCE_OPS, advect_work, bound, nbytes,
-                           stream_works)
+                           refine_exact_work, stream_works)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EXPERIMENTS = os.path.join(ROOT, "experiments")
@@ -349,6 +354,10 @@ KERNELS = {
     # the advect stage, one launch an advance on every engine path
     "advect_collide": ("advect_collide", None, CSRC + "advect_collide.cu",
                        "none (XLA fuses the JAX package's advect stage)", ENGINE_PATHS),
+    # the exact refine's keys, one launch a rebuild on every engine path
+    # that refines exactly
+    "refine_exact": ("refine_exact_keys", None, CSRC + "refine_exact.cu",
+                     "none (XLA fuses refine_candidates_exact)", ENGINE_PATHS),
 }
 # the identity mode (StepConfig.pair_r2 = "mxu"): each kernel mode's twin,
 # counted under its variant with ", mxu" (the force kernels without
@@ -554,9 +563,9 @@ def compare_kernels(tag, t, stats, time_it):
 
 
 def kernel_fn(name):
-    from libclsph_tpu_torch.ops.kernels import advect, density, forces, radix, stream
+    from libclsph_tpu_torch.ops.kernels import advect, density, forces, radix, refine, stream
 
-    for mod in (advect, density, forces, radix, stream):
+    for mod in (advect, density, forces, radix, refine, stream):
         if callable(getattr(mod, name, None)):
             return getattr(mod, name)
     raise KeyError(name)
@@ -1443,6 +1452,64 @@ def compare_advect(tag, state, params, scene, stats, time_it):
         line += time_kernel(stats, "advect_collide", tag,
                             lambda: advect.advect_collide(*args),
                             lambda: advect.advect_collide_torch(*args), work)
+    log(line)
+
+
+def refine_case(state, params, config):
+    """The exact refine's inputs as ``engine.step.build_candidates`` makes
+    them on a rebuild of ``state`` (sorted and padded, whole-block query
+    rows): (cand, count, qlo, qhi, pos_blocked, h, sub), the cap and the
+    self ids."""
+    import torch
+
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.ops import tiles
+
+    bsize = config.block_size
+    st, real, _ = step.pad_and_sort(state, params, True, block_size=bsize)
+    nb = st.n // bsize
+    sub = bsize // config.subblock
+    h = params.h * (1.0 + config.cand_slack) if config.cand_interval > 1 else params.h
+    pos_b = st.position.reshape(nb, bsize, 3)
+    bmin, bmax = tiles.split_block_bounds(pos_b, real.reshape(nb, bsize))
+    cand, count, _ = tiles.candidate_blocks_auto(bmin, bmax, h, config.max_candidates)
+    cap = config.max_candidates_sub * (config.tier2_mult if config.two_tier else 1)
+    self_lo = torch.arange(nb, dtype=torch.int32, device=st.device) * sub
+    return (cand, count, bmin, bmax, pos_b, h, sub), cap, self_lo
+
+
+def compare_refine(tag, state, params, engine, stats, time_it):
+    """The exact refine's kernel on the main path's rebuild inputs
+    (:func:`refine_case` at ``engine.step_config``): its keys and counts,
+    then the engine's stage's sorted tables, id for id against the plain
+    path's; the keys timed against the plain path's, with
+    ``kernel_bounds.refine_exact_work`` as the bound."""
+    import torch
+
+    from libclsph_tpu_torch.ops import tiles
+    from libclsph_tpu_torch.ops.kernels import refine
+
+    args, cap, self_lo = refine_case(state, params, engine.step_config)
+    sub = args[6]
+    checks = (("keys", refine.refine_exact_keys(*args), tiles.refine_exact_keys_torch(*args)),
+              ("tables", refine.refine_candidates_exact(*args, cap, self_lo=self_lo,
+                                                        self_width=sub),
+               tiles.refine_candidates_exact(*args, cap, self_lo=self_lo, self_width=sub)))
+    for what, got, want in checks:
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise RuntimeError(f"phase 2 {tag} refine_exact: {what} differ from the plain "
+                                   f"path in {int((g != w).sum())} of {w.numel()}")
+    record_err(stats, "refine_exact", 0.0)
+    live = int(torch.clamp(args[1], 0, args[0].shape[1]).sum())
+    kept = int(checks[0][2][1].sum())
+    line = (f"phase 2 {tag}: refine_exact id for id against the plain path ({args[0].shape[0]} "
+            f"rows of {args[0].shape[1]} slots, {live} live, {kept} subblocks kept, cap {cap});")
+    if time_it:
+        line += time_kernel(stats, "refine_exact", tag,
+                            lambda: refine.refine_exact_keys(*args),
+                            lambda: tiles.refine_exact_keys_torch(*args),
+                            refine_exact_work(*args[:5], sub, live))
     log(line)
 
 
@@ -2968,6 +3035,7 @@ def main(argv=None) -> int:
         compare_gated(tag, state, p, scene, engine_for(cell, SUB16), stats, time_it)
         compare_stream(tag, t_main, t_q, t16, stats)
         compare_advect(tag, state, p, scene, stats, time_it)
+        compare_refine(tag, state, p, engine_for(cell, {}), stats, time_it)
         if qblock:
             compare_qblock(tag, t_main, t_q, t16, t32, stats)
         if rows:
@@ -3099,7 +3167,7 @@ def main(argv=None) -> int:
 
     launches = {rec: sum(paths[path][rec] for path in spec[4])
                 for rec, spec in KERNELS.items()}
-    required = {"main": ("density_c16", "forces_q32_c8", "advect_collide"),
+    required = {"main": ("density_c16", "forces_q32_c8", "advect_collide", "refine_exact"),
                 "16-wide": ("density_c16 hit_sub 16", "density_c16 hit_sub 16, hit2_h",
                             "density_gated16", "forces_q32_c16"),
                 "deep": ("density_c32", "density_c32 groups 1", "density_c32 hit_sub 16",
@@ -3118,7 +3186,7 @@ def main(argv=None) -> int:
                 "q32-full": ("density_c32 densities only, rows 32", "forces_q128_c32 rows 32"),
                 "mesh": ("density_c16 hit_sub 16", "forces_q32_c16", "density_c32",
                          "density_c32 groups 1", "forces_q32_c32", "forces_q128_c32",
-                         "advect_collide"),
+                         "advect_collide", "refine_exact"),
                 "probe": tuple(rec for rec, spec in KERNELS.items() if "probe" in spec[4]),
                 "mxu": tuple(rec for rec, spec in KERNELS.items() if "mxu" in spec[4])}
     for path, recs in required.items():

@@ -23,7 +23,8 @@ the mesh; on one device ``step.pad_and_sort``: bounds, padding, sort),
 ``exchange`` (``sharded_step.exchange_tables``: the surface set, the
 exchange and the block search), ``block_search``
 (``tiles.candidate_blocks`` and ``candidate_blocks_hierarchical``),
-``refine`` (``tiles.refine_candidates_exact`` and ``refine_candidates``),
+``refine`` (``kernels.refine.refine_candidates_exact`` and
+``tiles.refine_candidates``),
 ``passes`` (``sharded_step.nl_passes`` or ``step._density_forces_nl``),
 ``collective`` (the mesh's all_gather, all_reduce and ring) and
 ``advance`` (``step._advect_collide``). For each range, per substep: its
@@ -66,6 +67,7 @@ def _targets():
     """(label, owner, attribute) of every function that gets a range."""
     from libclsph_tpu_torch.engine import step
     from libclsph_tpu_torch.ops import grid, tiles
+    from libclsph_tpu_torch.ops.kernels import refine
     from libclsph_tpu_torch.parallel import sharded_step
     from libclsph_tpu_torch.parallel.mesh import Mesh
 
@@ -74,7 +76,7 @@ def _targets():
             ("exchange", sharded_step, "exchange_tables"),
             ("block_search", tiles, "candidate_blocks"),
             ("block_search", tiles, "candidate_blocks_hierarchical"),
-            ("refine", tiles, "refine_candidates_exact"),
+            ("refine", refine, "refine_candidates_exact"),
             ("refine", tiles, "refine_candidates"),
             ("passes", sharded_step, "nl_passes"), ("passes", step, "_density_forces_nl"),
             ("collective", Mesh, "all_gather_many"), ("collective", Mesh, "all_reduce_max"),

@@ -14,7 +14,7 @@ every substep), on the settled state sorted as a rebuild sorts it:
 
 * the coarse block lists, and on the same lists both refines, the aabb
   one (``tiles.refine_candidates``) and the exact one
-  (``tiles.refine_candidates_exact``): the distributions of ``count`` and
+  (``kernels.refine.refine_candidates_exact``): the distributions of ``count`` and
   ``count_sub`` (mean, p50, p99, max), the overflow flags, and the pair
   slots a particle (mean ``count_sub`` x subblock size);
 * the time of the exact refine's three parts: the gathered (rows, M, B,
@@ -30,8 +30,9 @@ every substep), on the settled state sorted as a rebuild sorts it:
 Times: on the card, CUDA events (median of ``--reps``) and the device
 time that ``utils.profiling.trace`` records (kernels and copies); on the
 CPU, the host clock and no device time. The tables the parts assemble
-are checked id for id against ``refine_candidates_exact``'s. Prints one
-JSON line last.
+are checked id for id against the engine's stage's,
+``kernels.refine.refine_candidates_exact`` (on the card, the CUDA
+kernel's keys). Prints one JSON line last.
 """
 
 from __future__ import annotations
@@ -188,8 +189,8 @@ def probe_width(state, dt, params, scene, cfg, reps) -> dict:
         qlo, qhi = bmin, bmax
     cand_sub, count_sub, ovf_ex, parts = refine_parts(cand, count, qlo, qhi, pos_b, h, sub,
                                                       cap_sub, self_lo, sub, reps)
-    ref = tiles.refine_candidates_exact(cand, count, qlo, qhi, pos_b, h, sub, cap_sub,
-                                        self_lo=self_lo, self_width=sub)
+    ref = kernels.refine.refine_candidates_exact(cand, count, qlo, qhi, pos_b, h, sub,
+                                                 cap_sub, self_lo=self_lo, self_width=sub)
     equal = bool(torch.equal(cand_sub, ref[0]) and torch.equal(count_sub, ref[1]))
     # the aabb refine on the same lists: subblock boxes against query boxes
     sub_lo, sub_hi = tiles.subblock_bounds(pos_b, real_b, sub)

@@ -5,6 +5,7 @@ another build of the same C interface, on one NVIDIA GPU.
     python3 kernel_ab.py --base DIR [--variant NAME=DIR ...] [--out DIR] [--sass]
                          [--sort-tree TREE] [--only stream]
     python3 kernel_ab.py --only advect [--out DIR]
+    python3 kernel_ab.py --only refine [--out DIR]
 
 ``DIR`` holds another tree of ``libclsph_tpu_torch/csrc/`` sources (for
 example an earlier commit's, unpacked under ``build/``). Each tree is
@@ -18,7 +19,9 @@ lists): bits against the base build and the plain versions, then times
 in turns (:func:`stream_ab`; ``--only stream`` stops there). Then the
 advection kernel at 64k and 1M against its plain chain, which no base
 build has (:func:`advect_ab`; ``--only advect`` runs it alone, with no
-base).
+base), and the exact refine's kernel at 64k and 1M against its plain
+path, which no base build has either (:func:`refine_ab`; ``--only
+refine`` runs it alone, with no base).
 
 On the tables of the 1M cube lattice (those of ``chip_smoke.py``'s phase
 2: the main path's, the 16-wide force path's, the q-granular ones, the
@@ -80,6 +83,7 @@ from pathlib import Path
 
 import bench_torch
 import chip_smoke as cs
+from kernel_bounds import refine_exact_work
 
 ROOT = Path(__file__).resolve().parent
 AB_BUILD = ROOT / "build" / "kernel_ab"
@@ -369,6 +373,80 @@ def advect_ab(dev) -> list:
               flush=True)
         records.append(rec)
         del st, args, engine
+        torch.cuda.empty_cache()
+    return records
+
+
+def refine_ab(dev) -> list:
+    """The exact refine's kernel (``ops/kernels/refine.py``) alone at 64k
+    and 1M particles, on the cube ADVECT_WARMUP substeps into the
+    dam-break with the engine's grown capacities, on the inputs of a
+    rebuild (``chip_smoke.refine_case``): its keys and counts id for id
+    against the plain path's, and the sorted tables of the engine's stage
+    (``refine.refine_candidates_exact``) against the plain path's
+    (``tiles.refine_candidates_exact``); then both timed in turns (kernel,
+    plain, plain, kernel), the keys alone and the whole stage with its row
+    sort, by CUDA events and by profiler device time (the plain path's
+    summed over its launches), with the kernel's bound
+    (``kernel_bounds.refine_exact_work``). Returns the records."""
+    import torch
+
+    from libclsph_tpu_torch.core.state import init_state
+    from libclsph_tpu_torch.engine import step
+    from libclsph_tpu_torch.engine.simulation import SPHSimulation
+    from libclsph_tpu_torch.ops import tiles
+    from libclsph_tpu_torch.ops.kernels import refine
+
+    records = []
+    for n in ADVECT_SIZES:
+        params = cs.water_params(n)
+        scene = cs.cube_scene(params, dev)
+        engine = SPHSimulation(step.StepConfig(), device=dev, pretune=False)
+        st, _ = bench_torch.warm_up(init_state(params, dev), params, scene, engine,
+                                    ADVECT_WARMUP)
+        args, cap, self_lo = cs.refine_case(st, params, engine.step_config)
+        sub = args[6]
+
+        calls = {
+            "kernel": (lambda: refine.refine_exact_keys(*args), "refine_exact"),
+            "plain": (lambda: refine.refine_exact_keys_torch(*args), ""),
+            "stage": (lambda: refine.refine_candidates_exact(*args, cap, self_lo=self_lo,
+                                                             self_width=sub), ""),
+            "plain_stage": (lambda: tiles.refine_candidates_exact(
+                *args, cap, self_lo=self_lo, self_width=sub), ""),
+        }
+        for got_fn, want_fn in (("kernel", "plain"), ("stage", "plain_stage")):
+            got, want = calls[got_fn][0](), calls[want_fn][0]()
+            for g, w in zip(got, want):
+                if not torch.equal(g, w):
+                    raise RuntimeError(f"refine_exact at {n}: {got_fn} differs from "
+                                       f"{want_fn} in {int((g != w).sum())} of {w.numel()}")
+        keys, count_sub = calls["plain"][0]()
+        live = int(torch.clamp(args[1], 0, args[0].shape[1]).sum())
+        work = refine_exact_work(*args[:5], sub, live)
+        seq = [(name, cs.cuda_ms(calls[name][0]), device_ms(*calls[name]))
+               for pair in (("kernel", "plain"), ("stage", "plain_stage"))
+               for name in pair + pair[::-1]]
+        rec = dict(name="refine_exact", n=n, rows=args[0].shape[0], m=args[0].shape[1],
+                   sub=sub, cap=cap, live_slots=live, survivors=int(count_sub.sum()),
+                   overflow=bool((count_sub > cap).any()), bytes=work[0], ops=work[1],
+                   bit_equal_plain=True, turns=seq)
+        rec["bound_ms"], rec["bound_by"] = cs.bound(*work)
+        for name in calls:
+            rec[name + "_ms"] = statistics.mean(t for k, t, _ in seq if k == name)
+            rec[name + "_device_ms"] = statistics.mean(d for k, _, d in seq if k == name)
+        rec["share_device"] = rec["bound_ms"] / rec["kernel_device_ms"]
+        print(f"refine_exact at {n} particles ({rec['rows']} rows of {rec['m']} slots, "
+              f"{live} live, {rec['survivors']} subblocks kept): id for id against the "
+              f"plain path; kernel {rec['kernel_ms']:.4f} ms, device "
+              f"{rec['kernel_device_ms']:.4f}; plain {rec['plain_ms']:.4f} ms, device "
+              f"{rec['plain_device_ms']:.4f}; the stage with its sort {rec['stage_ms']:.4f} "
+              f"ms, device {rec['stage_device_ms']:.4f} (plain {rec['plain_stage_ms']:.4f}, "
+              f"device {rec['plain_stage_device_ms']:.4f}); bound {rec['bound_ms']:.4f} ms by "
+              f"{rec['bound_by']} ({100 * rec['share_device']:.1f} % of the kernel's device "
+              f"time); turns {seq}", flush=True)
+        records.append(rec)
+        del st, args, keys, count_sub, engine
         torch.cuda.empty_cache()
     return records
 
@@ -705,19 +783,20 @@ def compare(kind, out, ref, rows=0) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", default=None,
-                    help="csrc tree of the base build (needed but with --only advect)")
+                    help="csrc tree of the base build (needed but with --only advect "
+                    "or refine)")
     ap.add_argument("--variant", action="append", default=[], metavar="NAME=DIR",
                     help="another csrc tree, timed between the package and the base")
     ap.add_argument("--out", default=str(AB_BUILD))
     ap.add_argument("--sass", action="store_true", help="write each library's SASS")
     ap.add_argument("--sort-tree", default=None, metavar="DIR",
                     help="a whole checkout whose radix sort is timed against the package's")
-    ap.add_argument("--only", choices=("stream", "advect"), default=None,
-                    help="run only the stream kernels' cases, or only the advection "
-                    "kernel's (no base build)")
+    ap.add_argument("--only", choices=("stream", "advect", "refine"), default=None,
+                    help="run only the stream kernels' cases, or only the advection or "
+                    "the refine kernel's (no base build)")
     args = ap.parse_args(argv)
-    if args.base is None and args.only != "advect":
-        ap.error("--base is needed but with --only advect")
+    if args.base is None and args.only not in ("advect", "refine"):
+        ap.error("--base is needed but with --only advect or refine")
 
     import torch
 
@@ -732,8 +811,9 @@ def main(argv=None) -> int:
     print(f"card: {card}; device {torch.cuda.get_device_name(0)}", flush=True)
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
-    if args.only == "advect":
-        result = dict(card=card, advect=advect_ab(dev))
+    if args.only in ("advect", "refine"):
+        result = {"card": card, args.only: {"advect": advect_ab, "refine": refine_ab}[
+            args.only](dev)}
         (out_dir / "kernel_ab.json").write_text(json.dumps(result, indent=1))
         print(json.dumps(result))
         return 0
@@ -760,6 +840,7 @@ def main(argv=None) -> int:
 
     result["stream"] = stream_ab(dev, run_with, order)
     result["advect"] = advect_ab(dev)
+    result["refine"] = refine_ab(dev)
     if args.only == "stream":
         (out_dir / "kernel_ab.json").write_text(json.dumps(result, indent=1))
         print(json.dumps(result))

@@ -41,6 +41,10 @@ CORNER_ROW_BYTES = 32
 ADVECT_OPS = 28
 IN_BOX_OPS = 77
 RESPONSE_OPS = 136
+# the exact refine's kernel (csrc/refine_exact.cu): a particle against a
+# box is, on each axis, two subtractions, their maximum and the two
+# clamps (15), then three squares, two sums and the comparison (6)
+REFINE_TEST_OPS = 21
 STREAM_SUB = 32  # particles a slot of the summed streams
 STREAM_ROWS = 128  # queries a list of the summed streams
 
@@ -63,6 +67,21 @@ def advect_work(n, in_box, colliding):
     contact distance."""
     return (n * ADVECT_PARTICLE_BYTES + in_box * CORNER_ROW_BYTES,
             n * ADVECT_OPS + in_box * IN_BOX_OPS + colliding * RESPONSE_OPS)
+
+
+def refine_exact_work(cand, count, qlo, qhi, pos_blocked, sub, live):
+    """(bytes, operations) of the exact refine's keys (``kernels.
+    refine_exact_keys``) on block lists ``cand`` (rows, M) with ``live``
+    live slots in all, against ``qlo``/``qhi`` (rows, S, 3), over the
+    candidate blocks' positions ``pos_blocked`` (nbc, B, 3) cut into
+    ``sub`` subblocks. Bytes: the lists, counts, boxes and positions read
+    once (12 bytes a particle, whatever the view's strides), the keys
+    (rows, sub * M) and counts written. Operations: REFINE_TEST_OPS for
+    each particle of each live slot against each box."""
+    rows, m = cand.shape
+    nbc, b, _ = pos_blocked.shape
+    read = nbytes(cand, count, qlo, qhi) + nbc * b * 12
+    return read + rows * (sub * m + 1) * 4, live * b * qlo.shape[1] * REFINE_TEST_OPS
 
 
 def stream_works(f8, dens, real, cand, count, live, pairs_in) -> dict:

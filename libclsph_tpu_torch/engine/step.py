@@ -339,7 +339,7 @@ def build_candidates(state: ParticleState, real: torch.Tensor,
                     state.position.reshape(nb_q, q_rows, 3), real.reshape(nb_q, q_rows))
             else:
                 qlo, qhi = bmin, bmax
-            cand_sub, count_sub, ovf2 = tiles_ops.refine_candidates_exact(
+            cand_sub, count_sub, ovf2 = kernels.refine.refine_candidates_exact(
                 cand, count, qlo, qhi, pos_b, h_search, sub, cap_sub,
                 self_lo=self_lo, self_width=sub,
             )

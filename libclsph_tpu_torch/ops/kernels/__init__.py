@@ -23,6 +23,7 @@ from .forces import (
     forces_q128_c32_torch,
 )
 from .advect import advect_collide, advect_collide_torch
+from .refine import refine_exact_keys, refine_exact_keys_torch
 from .radix import radix_sort, radix_sort_torch, rank_hist_torch
 from .stream import (
     forces_c32_stream,
@@ -40,7 +41,7 @@ from .blocks import (
 
 WRAPPERS = (density_c16, density_c32, density_gated16, forces_q32_c8, forces_q32_c16,
             forces_q32_c32, forces_q128_c32, radix_sort, gather_stream, forces_c32_stream,
-            advect_collide)
+            advect_collide, refine_exact_keys)
 
 
 def launch_counts() -> dict:
@@ -62,6 +63,8 @@ __all__ = [
     "reset_launch_counts",
     "advect_collide",
     "advect_collide_torch",
+    "refine_exact_keys",
+    "refine_exact_keys_torch",
     "radix_sort",
     "radix_sort_torch",
     "rank_hist_torch",

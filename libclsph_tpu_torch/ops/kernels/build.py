@@ -36,6 +36,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argument types of every C entry point (pointers and the stream as
 # c_void_p so ctypes never truncates them to 32 bits)
 SIGNATURES = {
@@ -50,6 +51,7 @@ SIGNATURES = {
     "gather_stream_launch": [_P] * 3 + [_I] * 5 + [_F] + [_P] * 2,
     "forces_stream_launch": [_P] * 5 + [_I] * 3 + [_F] * 14 + [_P, _P],
     "advect_collide_launch": [_P] * 4 + [_I] + [_P] * 5 + [_I] + [_F] * 4 + [_P] * 6,
+    "refine_exact_launch": [_P] * 5 + [_L] * 3 + [_I] * 5 + [_F] + [_P] * 3,
 }
 # each identity-mode twin (StepConfig.pair_r2 = "mxu") takes its direct
 # entry point's arguments

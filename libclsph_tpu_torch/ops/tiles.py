@@ -43,7 +43,8 @@ REFINE_SENTINEL = 2**30
 # bias that sorts the query's own candidate ids first (so a truncated
 # list never drops a particle's self-interaction)
 SELF_BIAS = 2**29
-# elements per chunk of the refine's gathered (rows, M, B, 3) stream
+# elements per chunk of the plain exact refine's gathered (rows, M, B, 3)
+# stream (the CUDA kernel gathers nothing)
 REFINE_CHUNK_ELEMS = 1 << 26
 _BIG = 3.0e38
 
@@ -350,9 +351,9 @@ def refine_candidates(cand, count, qmin, qmax, sub_lo, sub_hi, h: float, sub: in
 
 
 def refine_exact_chunks(cand: torch.Tensor, b: int) -> list:
-    """The query-row ranges (slices) that the exact refine runs one at a
-    time: each chunk's gathered stream holds about REFINE_CHUNK_ELEMS
-    elements."""
+    """The query-row ranges (slices) that the plain exact refine
+    (:func:`refine_exact_keys_torch`) runs one at a time: each chunk's
+    gathered stream holds about REFINE_CHUNK_ELEMS elements."""
     nb, m = cand.shape
     starts, rows = _row_chunks(nb, m * b * 3)
     return [slice(r0, r0 + rows) for r0 in starts]
@@ -395,6 +396,30 @@ def refine_exact_test(g, cand, count, qlo, qhi, h: float, sub: int, rows: slice)
             ok.sum(dim=(1, 2), dtype=torch.int32))
 
 
+def refine_exact_keys_torch(cand, count, qlo, qhi, pos_blocked, h: float, sub: int):
+    """The exact refine's keys and counts on the plain path (the CUDA
+    kernel's, ``kernels.refine_exact_keys``, equal them id for id): the
+    gathered stream (:func:`refine_exact_gather`) and its test
+    (:func:`refine_exact_test`), chunk by chunk of query rows. Returns
+    (keys (nb, sub * M) int32, counts (nb,) int32)."""
+    keys_out, counts = [], []
+    for rows in refine_exact_chunks(cand, pos_blocked.shape[1]):
+        g = refine_exact_gather(cand, count, pos_blocked, rows)
+        keys, n = refine_exact_test(g, cand, count, qlo, qhi, h, sub, rows)
+        keys_out.append(keys)
+        counts.append(n)
+    return torch.cat(keys_out), torch.cat(counts)
+
+
+def refine_exact_table(keys, count_sub, max_sub: int, self_lo=None, self_width: int = 1):
+    """The exact refine's last part: one row sort of the keys table
+    (:func:`_self_priority_sort`), the counts clamped to ``max_sub`` and
+    whether one overflowed."""
+    cand_sub = _self_priority_sort(keys, self_lo, self_width, max_sub)
+    overflow = torch.any(count_sub > max_sub)
+    return cand_sub.to(torch.int32), torch.clamp(count_sub, max=max_sub), overflow
+
+
 def refine_candidates_exact(cand, count, qlo, qhi, pos_blocked, h: float, sub: int,
                             max_sub: int, self_lo=None, self_width: int = 1):
     """Exact-position subblock refinement (tiles.py:509-628): a
@@ -403,23 +428,14 @@ def refine_candidates_exact(cand, count, qlo, qhi, pos_blocked, h: float, sub: i
     threshold keeps the JAX package's 1.01 inflation (tiles.py:575) so
     the tables stay equal to its. ``cand`` (nb, M), ``qlo``/``qhi``
     (nb, S, 3), ``pos_blocked`` (nbc, B, 3) in sorted order (sentinels
-    sit far outside every box). Three parts, chunk by chunk of query
-    rows: the gathered stream (:func:`refine_exact_gather`), the distance
-    test (:func:`refine_exact_test`), then one row sort of the whole
-    table (:func:`_self_priority_sort`).
+    sit far outside every box). The plain path, in two parts: the keys
+    (:func:`refine_exact_keys_torch`), then the row sort
+    (:func:`refine_exact_table`). The engine runs the same stage with
+    the keys of the CUDA kernel (``kernels.refine.refine_candidates_exact``).
     Returns (cand_sub (nb, max_sub) int32 with dead slots =
     REFINE_SENTINEL, count_sub (nb,) int32, overflowed () bool)."""
-    keys_out, counts = [], []
-    for rows in refine_exact_chunks(cand, pos_blocked.shape[1]):
-        g = refine_exact_gather(cand, count, pos_blocked, rows)
-        keys, n = refine_exact_test(g, cand, count, qlo, qhi, h, sub, rows)
-        keys_out.append(keys)
-        counts.append(n)
-    keys = torch.cat(keys_out)
-    count_sub = torch.cat(counts)
-    cand_sub = _self_priority_sort(keys, self_lo, self_width, max_sub)
-    overflow = torch.any(count_sub > max_sub)
-    return cand_sub.to(torch.int32), torch.clamp(count_sub, max=max_sub), overflow
+    keys, count_sub = refine_exact_keys_torch(cand, count, qlo, qhi, pos_blocked, h, sub)
+    return refine_exact_table(keys, count_sub, max_sub, self_lo, self_width)
 
 
 def subblock_bounds(pos_blocked: torch.Tensor, real_blocked: torch.Tensor, sub: int):

@@ -332,7 +332,7 @@ def nl_passes(state_s, valid_s, bmin, bmax, cand, count, ex: Exchange, pos4_c,
                                                         valid_s.reshape(nq, q_rows))
             else:
                 qlo, qhi = bmin, bmax
-            cand_sub, count_sub, ovf = tiles_ops.refine_candidates_exact(
+            cand_sub, count_sub, ovf = kernels.refine.refine_candidates_exact(
                 cand_q, count_q, qlo, qhi, pos_c, h_refine, sub, cap_sub,
                 self_lo=self_lo, self_width=sub)
         else:
